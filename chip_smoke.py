@@ -1,0 +1,348 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one CUDA GPU and check it.
+
+Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
+device and ``nvcc``; without a device it exits non-zero before printing any
+result. Phases, each of which raises on failure:
+
+1. device: TF32 off, f32 matmuls at "highest"; the card's name and power
+   limit from ``nvidia-smi``;
+2. build: ``fetalsyngen_torch/csrc/*.cu`` with ``nvcc`` for ``sm_90a``;
+3. kernel against plain: the paired hat pass at the main path's three pass
+   geometries (B=4, 256x256 rows, 256 lanes), with exact half-integer and
+   out-of-range positions mixed in; labels bit-identical, image within
+   ``1e-5 * max|x|``; times as the median of 20 CUDA-event runs;
+4. the slice end to end: ``synth_batch`` at 256^3 x 4 with the benchmark's
+   generator config, with host syncs made errors; output checks, three
+   kernel launches, then one sample replayed through the port on the CPU
+   (the plain paths) with the same parameters and fields: image within
+   1e-4, labels differing on at most 1e-5 of voxels;
+5. timing: vol/s over 24 batches after 2 warm-up batches, peak device
+   memory, and single-volume latency in three rounds of 15 draws (p50 of
+   each round, and the host's share: the time until ``synth_sample``
+   returns, before the device is waited for);
+6. where the time goes: each stage's device time (CUDA events between the
+   stages of ``synth_core`` over 10 batches queued back to back, so the
+   host runs ahead and the intervals hold device work, not waits for the
+   host; median per stage), then the operators and kernels with the most
+   device time (``torch.profiler`` over 3 batches).
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from fetalsyngen_torch.generator import pipeline as tpipe
+from fetalsyngen_torch.generator.config import GeneratorCfg, IntensityCfg
+from fetalsyngen_torch.generator.params import sample_params
+from fetalsyngen_torch.kernels import build, hat
+from fetalsyngen_torch.ops.affine import make_affine_matrix
+from fetalsyngen_torch.ops.warp import FIELD_LIM, ul_decompose
+from fetalsyngen_torch.testing import phantom_seeds_and_seg
+
+SHAPE = (256, 256, 256)
+BATCH = 4
+LABELS = tuple([0] + list(range(10, 50)))
+GEN_CLASSES = tuple([0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50)))
+KERNEL_TOL = 1e-5  # image |kernel - plain| <= KERNEL_TOL * max|x|
+IMAGE_TOL = 1e-4  # |GPU - CPU| on the [0, 1] image
+LABEL_TOL = 1e-5  # fraction of labels allowed to differ between GPU and CPU
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn) -> float:
+    """Median milliseconds of ``fn()`` over 20 CUDA-event timed runs."""
+    times = []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bench_cfg():
+    return GeneratorCfg(
+        shape=SHAPE, resolution=(0.5, 0.5, 0.5), intensity=IntensityCfg(1, 6, LABELS, GEN_CLASSES)
+    )
+
+
+def check_kernel(dev, cfg):
+    """Phase 3: K1 against its plain version at the three main-path passes."""
+    p = sample_params(tpipe.make_generators(range(BATCH), dev), cfg)
+    _, L = ul_decompose(make_affine_matrix(p.rotations, p.shears, p.scalings))
+    g = torch.Generator(device=dev).manual_seed(1234)
+    D = H = S = SHAPE[0]
+    R = D * H
+    xa = 100.0 * torch.rand((BATCH, D, H, S), generator=g, device=dev)
+    xb = torch.randint(0, 50, (BATCH, D, H, S), generator=g, device=dev).to(torch.float32)
+    zero = torch.zeros(BATCH, device=dev)
+    results = []
+    for name, ci in (("L-y", L[:, 1, 0]), ("L-z", L[:, 2, 0]), ("x", zero)):
+        coefs = torch.stack([ci, zero, zero + 1, zero], 1).contiguous()
+        disp = (torch.rand((BATCH, R, S), generator=g, device=dev) * 2 - 1) * FIELD_LIM
+        pos0 = hat.positions(coefs, R, H, S, torch.zeros_like(disp))
+        lane = torch.arange(S, device=dev)
+        # exact half-integer positions (Sterbenz-exact differences), and
+        # positions past both edges
+        half = (torch.round(pos0) + 0.5) - pos0
+        disp = torch.where(lane % 7 == 3, half, disp)
+        disp = torch.where(lane % 11 == 5, -pos0 - 2.5, disp)
+        disp = torch.where(lane % 13 == 6, (S + 2.0) - pos0, disp)
+        disp = disp.reshape(BATCH, D, H, S).contiguous()
+        pos = hat.positions(coefs, R, H, S, disp.reshape(BATCH, R, S))
+        n_half = int((pos - torch.floor(pos) == 0.5).sum())
+        n_out = int(((pos <= 0) | (pos >= S - 1)).sum())
+        ka, kb = hat.hat_pass_pair(xa, xb, coefs, disp)
+        ra, rb = hat.hat_pass_pair_ref(xa, xb, coefs, disp)
+        torch.cuda.synchronize()
+        err = float((ka - ra).abs().max())
+        label_diff = int((kb != rb).sum())
+        bar = KERNEL_TOL * float(xa.abs().max())
+        ms = cuda_ms(lambda: hat.hat_pass_pair(xa, xb, coefs, disp))
+        plain_ms = cuda_ms(lambda: hat.hat_pass_pair_ref(xa, xb, coefs, disp))
+        log(
+            f"kernel hat_pass_pair {name}: B={BATCH} R={R} S=OW={S} half-integer positions={n_half} "
+            f"saturated={n_out} image max|kernel-plain|={err:.3e} (bar {bar:.3e}) "
+            f"labels differing={label_diff} kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+        )
+        if n_half == 0 or n_out == 0:
+            raise RuntimeError(f"{name}: the crafted half-integer/edge positions did not occur")
+        if label_diff or not err <= bar:
+            raise RuntimeError(f"{name}: kernel disagrees with plain (labels {label_diff}, image {err})")
+        results.append((err, ms, plain_ms))
+    return results
+
+
+def run_slice(dev, cfg, seeds_np, seg_np):
+    """Phase 4: the main path end to end, then one sample again on the CPU."""
+    seeds = torch.from_numpy(seeds_np.astype(np.int32)).to(dev).expand(BATCH, *SHAPE).contiguous()
+    segs = torch.from_numpy(seg_np.astype(np.int32)).to(dev).expand(BATCH, *SHAPE).contiguous()
+    sample_seeds = list(range(BATCH))
+    torch.cuda.synchronize()
+
+    # the main path must not synchronise the host with the stream: under
+    # "error" mode any synchronising CUDA call raises
+    torch.cuda.set_sync_debug_mode("error")
+    hat.LAUNCHES = 0
+    out, seg, p = tpipe.synth_batch(seeds, segs, cfg, sample_seeds, dev)
+    launches = hat.LAUNCHES
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"synth_batch: hat_pass_pair launches={launches}")
+    if launches != 3:
+        raise RuntimeError(f"expected 3 hat_pass_pair launches, got {launches}")
+
+    if tuple(out.shape) != (BATCH, *SHAPE) or tuple(seg.shape) != (BATCH, *SHAPE):
+        raise RuntimeError(f"bad output shapes {tuple(out.shape)} {tuple(seg.shape)}")
+    if not bool(torch.isfinite(out).all()):
+        raise RuntimeError("non-finite image values")
+    in_labels = set(np.unique(seg_np).tolist())
+    for b in range(BATCH):
+        lo, hi = float(out[b].min()), float(out[b].max())
+        gates = {k: bool(getattr(p, k)[b]) for k in
+                 ("deform_apply", "gamma_apply", "bf_apply", "resample_apply", "noise_apply")}
+        out_labels = set(torch.unique(seg[b]).tolist())
+        log(f"sample {b}: image [{lo:.6f}, {hi:.6f}] labels {sorted(out_labels)} gates {gates}")
+        # the resize-back stage normalises to [0, 1]; with its gate off the
+        # image keeps its intensity scale and is only non-negative
+        if lo < 0.0 or (gates["resample_apply"] and hi > 1.0):
+            raise RuntimeError(f"sample {b}: image range [{lo}, {hi}]")
+        if not out_labels <= in_labels:
+            raise RuntimeError(f"sample {b}: labels {out_labels - in_labels} not in the input")
+
+    # replay one sample (same seed -> same parameters and fields), preferably
+    # one whose warp and resample gates are on, and run it through the port
+    # on the CPU
+    on = (p.deform_apply & p.resample_apply).nonzero()
+    b = int(on[0, 0]) if len(on) else 0
+    gens = tpipe.make_generators(sample_seeds[b : b + 1], dev)
+    pb = sample_params(gens, cfg)
+    fb = tpipe.draw_fields(gens, cfg, dev)
+    for k, v in pb.items():
+        if not torch.equal(v, getattr(p, k)[b : b + 1]):
+            raise RuntimeError(f"replayed parameter {k} differs")
+    t0 = time.perf_counter()
+    out_cpu, seg_cpu = tpipe.synth_core(
+        pb.to("cpu"), fb.to("cpu"), seeds[b : b + 1].cpu(), segs[b : b + 1].cpu(), cfg
+    )
+    cpu_s = time.perf_counter() - t0
+    diff = (out[b].cpu() - out_cpu[0]).abs()
+    img_err = float(diff.max())
+    worst = np.unravel_index(int(diff.argmax()), SHAPE)
+    mism = (seg[b].cpu() != seg_cpu[0]).nonzero()
+    frac = mism.shape[0] / float(np.prod(SHAPE))
+    log(
+        f"GPU vs CPU port, sample {b} ({cpu_s:.1f} s on the CPU): image max|d|={img_err:.3e} at "
+        f"{tuple(int(i) for i in worst)} (bar {IMAGE_TOL}), label mismatch fraction={frac:.3e} "
+        f"({mism.shape[0]} voxels, first at {mism[:8].tolist()}) (bar {LABEL_TOL})"
+    )
+    if not img_err <= IMAGE_TOL or frac > LABEL_TOL:
+        raise RuntimeError("GPU and CPU paths of the port disagree beyond the bars")
+    return launches, seeds, segs
+
+
+def time_slice(dev, cfg, seeds, segs):
+    """Phase 5: throughput, peak memory, single-volume latency."""
+    iters = 24
+    for i in range(2):
+        tpipe.synth_batch(seeds, segs, cfg, [100 + BATCH * i + b for b in range(BATCH)], dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        tpipe.synth_batch(seeds, segs, cfg, [1000 + BATCH * i + b for b in range(BATCH)], dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    vols = BATCH * iters / dt
+
+    rounds, enqueue = [], []
+    for r in range(3):
+        lats = []
+        for i in range(2 + 15):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tpipe.synth_sample(seeds[0], segs[0], cfg, 5000 + 100 * r + i, dev)
+            t_host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            if i >= 2:
+                lats.append(time.perf_counter() - t0)
+                enqueue.append(t_host)
+        rounds.append(statistics.median(lats))
+        log(f"latency round {r}: p50 {rounds[-1] * 1e3:.3f} ms, min {min(lats) * 1e3:.3f} ms, "
+            f"max {max(lats) * 1e3:.3f} ms over 15 draws")
+    log(json.dumps({
+        "metric": "randomized 256^3 volumes/sec",
+        "value": vols,
+        "unit": "vol/s",
+        "batch": BATCH,
+        "iters": iters,
+        "latency_p50_s": statistics.median(rounds),
+        "latency_p50_rounds_s": rounds,
+        "latency_host_enqueue_p50_s": statistics.median(enqueue),
+        "peak_mem_bytes": peak,
+    }))
+
+
+def where_time_goes(dev, cfg, seeds, segs):
+    """Phase 6: device time per stage (CUDA events between the stages of
+    ``synth_core``), then the operators and kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("sample_params", "draw_fields", "intensity_stage", "deform_stage", "gamma_stage",
+             "bias_stage", "resample_noise_stage")
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)] for _ in range(10)]
+    torch.cuda.synchronize()
+    for i, ev in enumerate(events):
+        ev[0].record()
+        gens = tpipe.make_generators([7000 + BATCH * i + b for b in range(BATCH)], dev)
+        p = sample_params(gens, cfg)
+        ev[1].record()
+        f = tpipe.draw_fields(gens, cfg, dev)
+        ev[2].record()
+        out = tpipe.intensity_stage(seeds, p, f.intensity)
+        ev[3].record()
+        out, _ = tpipe.deform_stage(p, f.nonlin, cfg, out, segs)
+        ev[4].record()
+        out = tpipe.gamma_stage(out, p)
+        ev[5].record()
+        out = tpipe.bias_stage(out, p, f.bias, cfg)
+        ev[6].record()
+        tpipe.resample_noise_stage(out, p, f.noise, cfg)
+        ev[7].record()
+    torch.cuda.synchronize()
+    for k, n in enumerate(names):
+        ms = statistics.median(ev[k].elapsed_time(ev[k + 1]) for ev in events)
+        log(f"stage {n:<22} {ms:8.3f} ms per batch of {BATCH} (median of 10)")
+    spans = [ev[0].elapsed_time(ev[-1]) for ev in events]
+    log(f"stages together {statistics.median(spans):.3f} ms per batch (median of 10); "
+        f"10 batches {events[0][0].elapsed_time(events[-1][-1]):.3f} ms")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3):
+            tpipe.synth_batch(seeds, segs, cfg, [8000 + BATCH * i + b for b in range(BATCH)], dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = prof.key_averages()
+    kernels = [e for e in stats if e.device_type == DeviceType.CUDA]
+    total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if total_ms <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    log(f"profiler, 3 batches: kernel time {total_ms:.3f} ms, wall {wall_ms:.3f} ms (profiler on)")
+    # operators by the device time of the kernels they launch themselves,
+    # then the kernels
+    ops = [e for e in stats if e.device_type != DeviceType.CUDA and e.self_device_time_total > 0]
+    for title, rows in (("operator", ops), ("kernel", kernels)):
+        for e in sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+            ms = e.self_device_time_total / 1e3
+            log(f"  {title} {100 * ms / total_ms:5.1f}% {ms / 3:8.3f} ms/batch "
+                f"{e.count / 3:6.1f} calls/batch  {e.key[:160]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    lib = build.build()
+    log(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+
+    cfg = bench_cfg()
+    kernel = check_kernel(dev, cfg)
+    seeds_np, seg_np = phantom_seeds_and_seg(SHAPE)
+    launches, seeds, segs = run_slice(dev, cfg, seeds_np, seg_np)
+    time_slice(dev, cfg, seeds, segs)
+    where_time_goes(dev, cfg, seeds, segs)
+
+    log(json.dumps({"kernels": [{
+        "name": "hat_pass_pair",
+        "route": "cuda",
+        "source": "fetalsyngen_torch/csrc/hat_pass.cu",
+        "replaces": "fetalsyngen_tpu/ops/warp.py:1217",
+        "launches": launches,
+        "max_abs_err": max(r[0] for r in kernel),
+        "ms": statistics.median(r[1] for r in kernel),
+        "plain_ms": statistics.median(r[2] for r in kernel),
+    }]}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

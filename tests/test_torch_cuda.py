@@ -1,0 +1,79 @@
+"""The port on a CUDA GPU: the hand-written kernel against its plain version,
+and the GPU slice against the port's CPU path.
+
+Every test needs a CUDA device and ``nvcc`` and skips without them. This file
+imports no JAX, so on a machine without JAX run it without the suite's
+conftest: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fetalsyngen_torch.generator import pipeline as tpipe
+from fetalsyngen_torch.generator.config import GeneratorCfg, IntensityCfg
+from fetalsyngen_torch.generator.params import sample_params
+from fetalsyngen_torch.kernels import hat
+from fetalsyngen_torch.testing import phantom_seeds_and_seg
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("D, H, S, OW", [(6, 10, 16, 16), (3, 8, 16, 24), (2, 5, 300, 300), (4, 4, 513, 64)])
+def test_kernel_matches_plain(dev, D, H, S, OW):
+    g = torch.Generator(device=dev).manual_seed(D * 1000 + S + OW)
+    B = 3
+    xa = torch.rand((B, D, H, S), generator=g, device=dev)
+    xb = torch.randint(0, 8, (B, D, H, S), generator=g, device=dev).float()
+    coefs = torch.rand((B, 4), generator=g, device=dev) - 0.5
+    coefs[:, 2] += S / OW
+    disp = (torch.rand((B, D, H, OW), generator=g, device=dev) - 0.5) * 2 * (S / 4)
+    disp[..., ::5] = torch.round(disp[..., ::5]) + 0.5  # near-half positions
+    ka, kb = hat.hat_pass_pair(xa, xb, coefs, disp)
+    ra, rb = hat.hat_pass_pair_ref(xa, xb, coefs, disp)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ka, ra, rtol=0, atol=1e-6)
+    assert torch.equal(kb, rb)
+
+
+def test_wrapper_rejects_bad_inputs(dev):
+    x = torch.zeros((1, 2, 3, 8), device=dev)
+    coefs = torch.zeros((1, 4), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        hat.hat_pass_pair(x.transpose(1, 2).contiguous().transpose(1, 2), x, coefs, x)
+    with pytest.raises(TypeError, match="float32"):
+        hat.hat_pass_pair(x.double(), x.double(), coefs, x)
+    with pytest.raises(ValueError, match="coefs"):
+        hat.hat_pass_pair(x, x, torch.zeros((2, 4), device=dev), x)
+
+
+def test_slice_gpu_matches_cpu(dev):
+    shape = (48, 48, 48)
+    labels = tuple([0] + list(range(10, 50)))
+    classes = tuple([0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50)))
+    cfg = GeneratorCfg(shape=shape, intensity=IntensityCfg(1, 6, labels, classes))
+    seeds, seg = (torch.from_numpy(a.astype(np.int32)) for a in phantom_seeds_and_seg(shape))
+    ov = {g: True for g in ("deform_apply", "gamma_apply", "bf_apply", "resample_apply", "noise_apply")}
+    hat.LAUNCHES = 0
+    out, seg_out, p = tpipe.synth_batch(
+        seeds[None].expand(2, *shape), seg[None].expand(2, *shape), cfg, [3, 4], dev, ov
+    )
+    torch.cuda.synchronize()
+    assert hat.LAUNCHES == 3
+    gens = tpipe.make_generators([3, 4], dev)
+    p2 = sample_params(gens, cfg, ov)
+    fields = tpipe.draw_fields(gens, cfg, dev)
+    out_cpu, seg_cpu = tpipe.synth_core(
+        p2.to("cpu"), fields.to("cpu"), seeds[None].expand(2, *shape), seg[None].expand(2, *shape), cfg
+    )
+    torch.testing.assert_close(out.cpu(), out_cpu, rtol=0, atol=1e-4)
+    assert (seg_out.cpu() != seg_cpu).float().mean() <= 1e-5
