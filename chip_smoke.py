@@ -8,10 +8,14 @@ result. Phases, each of which raises on failure:
 1. device: TF32 off, f32 matmuls at "highest"; the card's name and power
    limit from ``nvidia-smi``;
 2. build: ``fetalsyngen_torch/csrc/*.cu`` with ``nvcc`` for ``sm_90a``;
-3. kernel against plain: the paired hat pass at the main path's three pass
-   geometries (B=4, 256x256 rows, 256 lanes), with exact half-integer and
-   out-of-range positions mixed in; labels bit-identical, image within
-   ``1e-5 * max|x|``; times as the median of 20 CUDA-event runs;
+3. kernels against plain: the paired hat pass (K1) at the main path's three
+   pass geometries (B=4, 256x256 rows, 256 lanes), and the single-operand
+   hat pass (K2) at the pass geometries of the single-volume warps (B=1,
+   the affine warp's five passes and the field warp's six, which share the
+   three U passes) in both modes, plus crafted coefficients; exact
+   half-integer and out-of-range positions mixed in; labels bit-identical,
+   image within ``1e-5 * max|x|``; times as the median of 20 CUDA-event
+   runs;
 4. the slice end to end: ``synth_batch`` at 256^3 x 4 with the benchmark's
    generator config, with host syncs made errors; output checks, three
    kernel launches, then one sample replayed through the port on the CPU
@@ -25,7 +29,21 @@ result. Phases, each of which raises on failure:
    stages of ``synth_core`` over 10 batches queued back to back, so the
    host runs ahead and the intervals hold device work, not waits for the
    host; median per stage), then the operators and kernels with the most
-   device time (``torch.profiler`` over 3 batches).
+   device time (``torch.profiler`` over 3 batches);
+7. the public API on the real ``data/sub-sta21`` fixture at 256^3, one
+   sample per call on the card, with the generator of
+   ``configs/dataset/generator/default.yaml`` less its SR artifacts, in
+   three configurations: the seed path of ``synth_train.yaml`` (K1), the
+   image as intensity plus the co-deformed T2w of ``real_train.yaml`` (K1
+   and K2), and that with ``nonlinear_transform=False`` (K2 in both modes).
+   For each: the kernels' launch counts, the image in [0, 1], labels a
+   subset of the input's, replay from the returned genparams bit-identical,
+   the same sample through the port on the CPU (image within 1e-4, labels
+   differing on at most 1e-5 of voxels); then samples/s of ``ds[0]`` over 10
+   draws after 2 warm-ups, peak device memory, and 10 draws split into the
+   steps of ``ds.sample``: host load (NIfTI decode), prepare (seed sum,
+   upload, draws), generation (host wall and CUDA events), download plus
+   scaling.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -38,18 +56,33 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from fetalsyngen_torch.data.datasets import FetalSynthDataset
+from fetalsyngen_torch.data.transforms import scale_intensity
 from fetalsyngen_torch.generator import pipeline as tpipe
 from fetalsyngen_torch.generator.config import GeneratorCfg, IntensityCfg
-from fetalsyngen_torch.generator.params import sample_params
+from fetalsyngen_torch.generator.model import (
+    FetalSynthGen,
+    ImageFromSeeds,
+    RandBiasField,
+    RandGamma,
+    RandNoise,
+    RandResample,
+    SpatialDeformation,
+)
+from fetalsyngen_torch.generator.params import genparams_to_dict, sample_params
+from fetalsyngen_torch.io import nifti
 from fetalsyngen_torch.kernels import build, hat
 from fetalsyngen_torch.ops.affine import make_affine_matrix
 from fetalsyngen_torch.ops.warp import FIELD_LIM, ul_decompose
 from fetalsyngen_torch.testing import phantom_seeds_and_seg
 
+REPO = Path(__file__).resolve().parent
+DATA = REPO / "data"
 SHAPE = (256, 256, 256)
 BATCH = 4
 LABELS = tuple([0] + list(range(10, 50)))
@@ -61,6 +94,11 @@ LABEL_TOL = 1e-5  # fraction of labels allowed to differ between GPU and CPU
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_counts() -> None:
+    for k in hat.LAUNCHES:
+        hat.LAUNCHES[k] = 0
 
 
 def cuda_ms(fn) -> float:
@@ -82,6 +120,22 @@ def bench_cfg():
     )
 
 
+def craft_disp(disp, pos0, S):
+    """``disp`` with exact half-integer positions (Sterbenz-exact
+    differences) and positions past both edges mixed in, given the
+    positions ``pos0`` without displacement."""
+    lane = torch.arange(S, device=disp.device)
+    half = (torch.round(pos0) + 0.5) - pos0
+    disp = torch.where(lane % 7 == 3, half, disp)
+    disp = torch.where(lane % 11 == 5, -pos0 - 2.5, disp)
+    return torch.where(lane % 13 == 6, (S + 2.0) - pos0, disp)
+
+
+def count_positions(pos, S):
+    """(exact half-integer positions, saturated positions)."""
+    return int((pos - torch.floor(pos) == 0.5).sum()), int(((pos <= 0) | (pos >= S - 1)).sum())
+
+
 def check_kernel(dev, cfg):
     """Phase 3: K1 against its plain version at the three main-path passes."""
     p = sample_params(tpipe.make_generators(range(BATCH), dev), cfg)
@@ -96,18 +150,9 @@ def check_kernel(dev, cfg):
     for name, ci in (("L-y", L[:, 1, 0]), ("L-z", L[:, 2, 0]), ("x", zero)):
         coefs = torch.stack([ci, zero, zero + 1, zero], 1).contiguous()
         disp = (torch.rand((BATCH, R, S), generator=g, device=dev) * 2 - 1) * FIELD_LIM
-        pos0 = hat.positions(coefs, R, H, S, torch.zeros_like(disp))
-        lane = torch.arange(S, device=dev)
-        # exact half-integer positions (Sterbenz-exact differences), and
-        # positions past both edges
-        half = (torch.round(pos0) + 0.5) - pos0
-        disp = torch.where(lane % 7 == 3, half, disp)
-        disp = torch.where(lane % 11 == 5, -pos0 - 2.5, disp)
-        disp = torch.where(lane % 13 == 6, (S + 2.0) - pos0, disp)
+        disp = craft_disp(disp, hat.positions(coefs, R, H, S, None), S)
         disp = disp.reshape(BATCH, D, H, S).contiguous()
-        pos = hat.positions(coefs, R, H, S, disp.reshape(BATCH, R, S))
-        n_half = int((pos - torch.floor(pos) == 0.5).sum())
-        n_out = int(((pos <= 0) | (pos >= S - 1)).sum())
+        n_half, n_out = count_positions(hat.positions(coefs, R, H, S, disp.reshape(BATCH, R, S)), S)
         ka, kb = hat.hat_pass_pair(xa, xb, coefs, disp)
         ra, rb = hat.hat_pass_pair_ref(xa, xb, coefs, disp)
         torch.cuda.synchronize()
@@ -129,6 +174,71 @@ def check_kernel(dev, cfg):
     return results
 
 
+def check_single_kernel(dev, cfg):
+    """Phase 3: K2 against its plain version at the pass geometries of
+    ``warp_affine_separable`` and ``warp_affine_field_separable`` (B=1, as
+    the API runs them), in both modes, and at crafted coefficients."""
+    p = sample_params(tpipe.make_generators([0], dev), cfg)
+    A = make_affine_matrix(p.rotations, p.shears, p.scalings)
+    U, L = ul_decompose(A)
+    c = torch.full((1, 3), (SHAPE[0] - 1) / 2.0, device=dev)
+    t = c - torch.einsum("bij,bj->bi", A, c)
+    z = torch.zeros(1, device=dev)
+    one = z + 1
+    geometries = [
+        ("U-z", (z, z, U[:, 2, 2], t[:, 2]), False),
+        ("U-y", (z, U[:, 1, 2], U[:, 1, 1], t[:, 1]), False),
+        ("U-x", (U[:, 0, 1], U[:, 0, 2], U[:, 0, 0], t[:, 0]), False),
+        ("L-y", (L[:, 1, 0], z, one, z), False),
+        ("L-z", (L[:, 2, 0], L[:, 2, 1], one, z), False),
+        ("field L-y", (L[:, 1, 0], z, one, z), True),
+        ("field L-z", (L[:, 2, 0], L[:, 2, 1], one, z), True),
+        ("field x", (z, z, one, z), True),
+        # crafted: quarter-voxel rows give exact half-integers, the row
+        # terms reach past both edges
+        ("crafted", (z + 0.25, z - 0.5, one, z + 0.5), False),
+    ]
+    g = torch.Generator(device=dev).manual_seed(4321)
+    D = H = S = SHAPE[0]
+    R = D * H
+    volumes = {
+        False: 100.0 * torch.rand((1, D, H, S), generator=g, device=dev),
+        True: torch.randint(0, 50, (1, D, H, S), generator=g, device=dev).to(torch.float32),
+    }
+    results = []
+    for name, cs, with_disp in geometries:
+        coefs = torch.stack(cs, 1).contiguous()
+        disp = None
+        if with_disp:
+            disp = (torch.rand((1, R, S), generator=g, device=dev) * 2 - 1) * FIELD_LIM
+            disp = craft_disp(disp, hat.positions(coefs, R, H, S, None), S)
+        n_half, n_out = count_positions(hat.positions(coefs, R, H, S, disp), S)
+        if disp is not None:
+            disp = disp.reshape(1, D, H, S).contiguous()
+        for nearest in (False, True):
+            x = volumes[nearest]
+            k = hat.hat_pass(x, coefs, disp, nearest)
+            r = hat.hat_pass_ref(x, coefs, disp, nearest)
+            torch.cuda.synchronize()
+            err = float((k - r).abs().max())
+            differ = int((k != r).sum())
+            bar = KERNEL_TOL * float(x.abs().max())
+            ms = cuda_ms(lambda: hat.hat_pass(x, coefs, disp, nearest))
+            plain_ms = cuda_ms(lambda: hat.hat_pass_ref(x, coefs, disp, nearest))
+            mode = "nearest" if nearest else "linear"
+            log(
+                f"kernel hat_pass {name} {mode}: B=1 R={R} S=OW={S} half-integer positions={n_half} "
+                f"saturated={n_out} max|kernel-plain|={err:.3e} (bar {0.0 if nearest else bar:.3e}) "
+                f"elements differing={differ} kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+            )
+            if (with_disp or name == "crafted") and (n_half == 0 or n_out == 0):
+                raise RuntimeError(f"{name}: the crafted half-integer/edge positions did not occur")
+            if (nearest and differ) or not err <= bar:
+                raise RuntimeError(f"{name} {mode}: kernel disagrees with plain ({differ} differ, {err})")
+            results.append((err, ms, plain_ms))
+    return results
+
+
 def run_slice(dev, cfg, seeds_np, seg_np):
     """Phase 4: the main path end to end, then one sample again on the CPU."""
     seeds = torch.from_numpy(seeds_np.astype(np.int32)).to(dev).expand(BATCH, *SHAPE).contiguous()
@@ -139,14 +249,14 @@ def run_slice(dev, cfg, seeds_np, seg_np):
     # the main path must not synchronise the host with the stream: under
     # "error" mode any synchronising CUDA call raises
     torch.cuda.set_sync_debug_mode("error")
-    hat.LAUNCHES = 0
+    reset_counts()
     out, seg, p = tpipe.synth_batch(seeds, segs, cfg, sample_seeds, dev)
-    launches = hat.LAUNCHES
+    launches = dict(hat.LAUNCHES)
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log(f"synth_batch: hat_pass_pair launches={launches}")
-    if launches != 3:
-        raise RuntimeError(f"expected 3 hat_pass_pair launches, got {launches}")
+    log(f"synth_batch: launches {launches}")
+    if launches != {"hat_pass_pair": 3, "hat_pass": 0}:
+        raise RuntimeError(f"expected 3 hat_pass_pair launches and no hat_pass, got {launches}")
 
     if tuple(out.shape) != (BATCH, *SHAPE) or tuple(seg.shape) != (BATCH, *SHAPE):
         raise RuntimeError(f"bad output shapes {tuple(out.shape)} {tuple(seg.shape)}")
@@ -178,7 +288,7 @@ def run_slice(dev, cfg, seeds_np, seg_np):
         if not torch.equal(v, getattr(p, k)[b : b + 1]):
             raise RuntimeError(f"replayed parameter {k} differs")
     t0 = time.perf_counter()
-    out_cpu, seg_cpu = tpipe.synth_core(
+    out_cpu, seg_cpu, _ = tpipe.synth_core(
         pb.to("cpu"), fb.to("cpu"), seeds[b : b + 1].cpu(), segs[b : b + 1].cpu(), cfg
     )
     cpu_s = time.perf_counter() - t0
@@ -259,7 +369,7 @@ def where_time_goes(dev, cfg, seeds, segs):
         ev[2].record()
         out = tpipe.intensity_stage(seeds, p, f.intensity)
         ev[3].record()
-        out, _ = tpipe.deform_stage(p, f.nonlin, cfg, out, segs)
+        out, _, _ = tpipe.deform_stage(p, f.nonlin, cfg, out, segs)
         ev[4].record()
         out = tpipe.gamma_stage(out, p)
         ev[5].record()
@@ -298,6 +408,155 @@ def where_time_goes(dev, cfg, seeds, segs):
                 f"{e.count / 3:6.1f} calls/batch  {e.key[:160]}")
 
 
+def api_generator(device, nonlinear_transform=True, seed=0):
+    """``configs/dataset/generator/default.yaml``'s generator less its SR
+    artifacts, built with the port's constructors (a CPU test holds it equal
+    to ``instantiate`` of the YAML)."""
+    return FetalSynthGen(
+        shape=SHAPE,
+        resolution=(0.5, 0.5, 0.5),
+        intensity_generator=ImageFromSeeds(
+            min_subclusters=1, max_subclusters=6, seed_labels=LABELS, generation_classes=GEN_CLASSES
+        ),
+        spatial_deform=SpatialDeformation(
+            max_rotation=20, max_shear=0.02, max_scaling=0.1, size=SHAPE, prob=0.9,
+            nonlinear_transform=nonlinear_transform, nonlin_scale_min=0.03,
+            nonlin_scale_max=0.06, nonlin_std_max=4, flip_prb=0.5,
+        ),
+        resampler=RandResample(prob=0.9, min_resolution=0.5, max_resolution=1.5),
+        bias_field=RandBiasField(prob=0.9, scale_min=0.004, scale_max=0.02, std_min=0.01, std_max=0.3),
+        noise=RandNoise(prob=0.9, std_min=5, std_max=15),
+        gamma=RandGamma(prob=0.9, gamma_std=0.1),
+        device=device,
+        seed=seed,
+    )
+
+
+# name -> (dataset keyword arguments, nonlinear_transform, expected launches
+# per sample): synth_train.yaml's seed path, real_train.yaml's image as
+# intensity with the co-deformed T2w, and that without the nonlinear field
+API_CONFIGS = {
+    "synth_train": (
+        dict(seed_path=str(DATA / "derivatives" / "seeds")), True, {"hat_pass_pair": 3, "hat_pass": 0},
+    ),
+    "real_train": (
+        dict(load_image=True, image_as_intensity=True), True, {"hat_pass_pair": 3, "hat_pass": 6},
+    ),
+    "real_train_affine": (
+        dict(load_image=True, image_as_intensity=True), False, {"hat_pass_pair": 0, "hat_pass": 15},
+    ),
+}
+
+
+def api_path(dev, name):
+    """Phase 7 for one configuration: check, replay, CPU comparison, timing.
+    Returns the kernels' launch counts of the checked sample."""
+    ds_kwargs, nonlinear, expected = API_CONFIGS[name]
+    gen = api_generator(dev, nonlinear)
+    ds = FetalSynthDataset(str(DATA), gen, **ds_kwargs)
+    seg_in = nifti.load_ras(ds.segm_paths[0]).data
+    in_labels = set(np.unique(seg_in).tolist())
+
+    torch.cuda.synchronize()
+    reset_counts()
+    item = ds.sample_with_meta(0)
+    launches = dict(hat.LAUNCHES)
+    gp = item["generation_params"]
+    img, lab = item["image"], item["label"]
+    log(f"api {name}: launches {launches}, seed {gp['seed']}, image {img.shape} {img.dtype} "
+        f"[{img.min():.6f}, {img.max():.6f}], labels {sorted(np.unique(lab).tolist())}, "
+        f"gates deform={gp['deform_params']['deform_apply']} "
+        f"resample={gp['resample_params']['spacing'] is not None}")
+    if launches != expected:
+        raise RuntimeError(f"api {name}: expected launches {expected}, got {launches}")
+    if img.shape != (1, *SHAPE) or img.dtype != np.float32 or not np.isfinite(img).all():
+        raise RuntimeError(f"api {name}: bad image {img.shape} {img.dtype}")
+    if img.min() < 0.0 or img.max() > 1.0:
+        raise RuntimeError(f"api {name}: image outside [0, 1]")
+    if not set(np.unique(lab).tolist()) <= in_labels:
+        raise RuntimeError(f"api {name}: labels outside the input's {sorted(in_labels)}")
+
+    again = ds.sample_with_meta(0, genparams=gp)
+    if not (np.array_equal(again["image"], img) and np.array_equal(again["label"], lab)):
+        raise RuntimeError(f"api {name}: replay from the genparams is not bit-identical")
+
+    # the same sample through the port on the CPU: the card's parameters and
+    # fields (torch's CUDA and CPU generators differ), the CPU's plain paths
+    image = nifti.load_ras(ds.img_paths[0]).data if ds.load_image else None
+    seeds = None if ds.image_as_intensity else ds.seed_paths[ds._sub_ses_idx(0)]
+    inputs, _, _ = gen.prepare(image, seg_in, seeds, genparams=gp)
+    p_dev = inputs["p"]
+    inputs = {k: (v.to("cpu") if v is not None else None) for k, v in inputs.items()}
+    t0 = time.perf_counter()
+    out_cpu, seg_cpu, _ = tpipe.synth_core(**inputs, cfg=gen.cfg)
+    cpu_s = time.perf_counter() - t0
+    out_cpu = scale_intensity(out_cpu[0].numpy(), 0.0, 1.0)
+    img_err = float(np.abs(out_cpu - img[0]).max())
+    mism = np.argwhere(seg_cpu[0].numpy() != lab[0])
+    frac = len(mism) / float(np.prod(SHAPE))
+    # the affine each device computes from the same parameters
+    p_cpu = inputs["p"]
+    d_affine = float((make_affine_matrix(p_dev.rotations, p_dev.shears, p_dev.scalings).cpu()
+                      - make_affine_matrix(p_cpu.rotations, p_cpu.shears, p_cpu.scalings)).abs().max())
+    log(f"api {name}: GPU vs CPU port ({cpu_s:.1f} s on the CPU): image max|d|={img_err:.3e} "
+        f"(bar {IMAGE_TOL}), label mismatch fraction={frac:.3e} (bar {LABEL_TOL}), "
+        f"first at {mism[:4].tolist()}; max|A_gpu - A_cpu|={d_affine:.3e}")
+    if not img_err <= IMAGE_TOL or frac > LABEL_TOL:
+        raise RuntimeError(f"api {name}: GPU and CPU paths of the port disagree beyond the bars")
+
+    # samples/s of ds[0], then the same draw split into its steps
+    for _ in range(2):
+        ds[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = 10
+    draws = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        ds[0]
+        draws.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the steps of ds.sample, each timed: NIfTI decode; prepare (the host
+    # seed selection and sum, the uploads, the parameter and field draws);
+    # synth_core (host wall and CUDA events); the genparams, download and
+    # scaling of the output, the co-deformed image and the labels
+    split = {"load_s": [], "prepare_s": [], "core_host_s": [], "core_events_ms": [],
+             "download_scale_s": [], "total_s": []}
+    for _ in range(n):
+        t0 = time.perf_counter()
+        seg_np = nifti.load_ras(ds.segm_paths[0]).data
+        img_np = nifti.load_ras(ds.img_paths[0]).data if ds.load_image else None
+        t1 = time.perf_counter()
+        inputs, _, _ = gen.prepare(img_np, seg_np, seeds)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, seg, img_out = tpipe.synth_core(**inputs, cfg=gen.cfg)
+        end.record()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        genparams_to_dict(inputs["p"])
+        for v in (out, img_out):
+            if v is not None:
+                scale_intensity(v[0].cpu().numpy(), 0.0, 1.0)[None].astype(np.float32)
+        seg[0].cpu().numpy()[None].astype(np.int64)
+        t4 = time.perf_counter()
+        steps = (t1 - t0, t2 - t1, t3 - t2, start.elapsed_time(end), t4 - t3, t4 - t0)
+        for k, v in zip(split, steps):
+            split[k].append(v)
+    log(json.dumps({
+        "api": name,
+        "samples_per_s": n / sum(draws),
+        "draws": n,
+        "draw_s_median": statistics.median(draws),
+        "draw_s_max": max(draws),
+        "peak_mem_bytes": peak,
+        **{f"{k}_median": statistics.median(v) for k, v in split.items()},
+    }))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU")
@@ -312,27 +571,38 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    lib = build.build()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    t_start = time.perf_counter()
+    libs = build.build()
+    log(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t_start:.2f} s")
 
     cfg = bench_cfg()
-    kernel = check_kernel(dev, cfg)
+    checks = {"hat_pass_pair": check_kernel(dev, cfg), "hat_pass": check_single_kernel(dev, cfg)}
+    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     seeds_np, seg_np = phantom_seeds_and_seg(SHAPE)
     launches, seeds, segs = run_slice(dev, cfg, seeds_np, seg_np)
     time_slice(dev, cfg, seeds, segs)
     where_time_goes(dev, cfg, seeds, segs)
+    del seeds, segs
+    log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+    for name in API_CONFIGS:
+        for k, v in api_path(dev, name).items():
+            launches[k] += v
+        log(f"api {name} done at {time.perf_counter() - t_start:.1f} s")
 
+    sources = {
+        "hat_pass_pair": ("fetalsyngen_torch/csrc/hat_pass.cu", "fetalsyngen_tpu/ops/warp.py:1217"),
+        "hat_pass": ("fetalsyngen_torch/csrc/hat_single.cu", "fetalsyngen_tpu/ops/warp.py:150"),
+    }
     log(json.dumps({"kernels": [{
-        "name": "hat_pass_pair",
+        "name": name,
         "route": "cuda",
-        "source": "fetalsyngen_torch/csrc/hat_pass.cu",
-        "replaces": "fetalsyngen_tpu/ops/warp.py:1217",
-        "launches": launches,
-        "max_abs_err": max(r[0] for r in kernel),
-        "ms": statistics.median(r[1] for r in kernel),
-        "plain_ms": statistics.median(r[2] for r in kernel),
-    }]}))
+        "source": sources[name][0],
+        "replaces": sources[name][1],
+        "launches": launches[name],
+        "max_abs_err": max(r[0] for r in results),
+        "ms": statistics.median(r[1] for r in results),
+        "plain_ms": statistics.median(r[2] for r in results),
+    } for name, results in checks.items()]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -1,8 +1,10 @@
 """fetalsyngen-torch: the PyTorch/CUDA port of the fetalsyngen-tpu generator.
 
-Runs the artifact-free generator core batch-first on an NVIDIA Hopper GPU,
-with the paired hat warp pass as a hand-written CUDA kernel. The JAX package
-``fetalsyngen_tpu`` is the reference it is tested against.
+Runs the artifact-free generator core batch-first, and the public dataset
+API (``FetalSynthGen``, ``FetalSynthDataset``, ``FetalTestDataset``, driven
+by the repository's YAML configs), on an NVIDIA Hopper GPU, with the warp's
+hat passes as hand-written CUDA kernels. The JAX package ``fetalsyngen_tpu``
+is the reference it is tested against.
 """
 
 __version__ = "0.1.0"

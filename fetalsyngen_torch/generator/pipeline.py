@@ -27,7 +27,14 @@ from ..ops.affine import centered_grid, make_affine_matrix
 from ..ops.interp import nearest_interp, trilinear_interp, zoom_coords
 from ..ops.linops import apply_separable, gaussian_blur_mm, interp_matrix, zoom_mm
 from ..ops.numerics import device_const
-from ..ops.warp import FIELD_LIM, ul_decompose, warp_affine_field_pair_pre
+from ..ops.warp import (
+    FIELD_LIM,
+    ul_decompose,
+    warp_affine_field_pair,
+    warp_affine_field_pair_pre,
+    warp_affine_field_separable,
+    warp_affine_separable,
+)
 from .config import GeneratorCfg
 from .params import GenParams, sample_params
 
@@ -192,40 +199,97 @@ def _deform_pair_small_fields(p, f_nonlin, cfg, A, c1, c2, vol_lin, vol_near):
     return torch.where(ok, a, 0.0), b.to(vol_near.dtype)
 
 
-def _deform_separable(p, f_nonlin, cfg, vol_lin, vol_near):
-    """Separable warp of the (image, segmentation) pair: affine triangular
-    passes plus the field passes (``warp_impl='separable'``)."""
-    if not cfg.deform.nonlinear_transform:
-        raise NotImplementedError(
-            "warp_impl='separable' with nonlinear_transform=False needs the single-operand "
-            "hat kernel K2 (ROADMAP.md §1, next item 5: hat_pass / warp_affine_separable)"
-        )
-    B = vol_lin.shape[0]
-    c = device_const([(s - 1.0) / 2.0 for s in cfg.shape], torch.float32, vol_lin.device)
-    c1 = c.expand(B, 3)
+def _deform_separable(p, f_nonlin, cfg, volumes_linear, volumes_nearest):
+    """Separable warp (``warp_impl='separable'``) of lists of linear and
+    nearest volumes: ``V[A (o - c1 + F(o)) + c2 - shift]`` with the composite
+    OOB mask and margin shift in closed form. Returns (linear list, nearest
+    list).
+
+    The branches are the JAX package's: the (image, segmentation) pair alone
+    forms its field combinations on the small field; with an extra linear
+    volume the pair takes the paired passes on full-resolution fields and the
+    extra volume the single-operand field warp (six K2 passes); without the
+    nonlinear field every volume takes the affine warp (five K2 passes).
+    """
+    shape = tuple(cfg.shape)
+    nonlinear = cfg.deform.nonlinear_transform
+    dev = volumes_linear[0].device
+    B = volumes_linear[0].shape[0]
+    c1 = device_const([(s - 1.0) / 2.0 for s in shape], torch.float32, dev).expand(B, 3)
     c2 = c1  # random_shift degenerates to the centre when the crop equals the shape
     A = make_affine_matrix(p.rotations, p.shears, p.scalings)
-    return _deform_pair_small_fields(p, f_nonlin, cfg, A, c1, c2, vol_lin, vol_near)
+
+    if nonlinear and len(volumes_linear) == 1 and len(volumes_nearest) == 1:
+        a, b = _deform_pair_small_fields(
+            p, f_nonlin, cfg, A, c1, c2, volumes_linear[0], volumes_nearest[0]
+        )
+        return [a], [b]
+
+    if nonlinear:
+        Fx, Fy, Fz = _nonlin_field(p, f_nonlin, cfg)
+    else:
+        Fx = Fy = Fz = torch.zeros((B, *shape), dtype=torch.float32, device=dev)
+
+    # composite raw coordinates, their clamp, the margin shift and the mask
+    xc, yc, zc = centered_grid(shape, dev)
+    g = (xc + Fx, yc + Fy, zc + Fz)
+    coords = []
+    for r in range(3):
+        v = (_bcast(A[:, r, 0]) * g[0] + _bcast(A[:, r, 1]) * g[1] + _bcast(A[:, r, 2]) * g[2]
+             + _bcast(c2[:, r]))
+        coords.append(torch.clamp(v, 0, shape[r] - 1))
+    if cfg.deform.margin_shift:
+        shift = torch.stack([torch.floor(torch.amin(c, dim=(1, 2, 3))) for c in coords], dim=1)
+    else:
+        shift = torch.zeros_like(c2)
+    ok = None
+    for r, c in enumerate(coords):
+        cr = c - _bcast(shift[:, r])
+        okr = (cr > 0) & (cr <= shape[r] - 1)
+        ok = okr if ok is None else ok & okr
+
+    t = c2 - torch.einsum("bij,bj->bi", A, c1) - shift
+
+    def run(vol, nearest):
+        if nonlinear:
+            return warp_affine_field_separable(vol, A, t, Fx, Fy, Fz, nearest=nearest)
+        return warp_affine_separable(vol, A, t, nearest=nearest)
+
+    if nonlinear and len(volumes_nearest) == 1:
+        a, b = warp_affine_field_pair(volumes_linear[0], volumes_nearest[0], A, t, Fx, Fy, Fz)
+        lin = [torch.where(ok, a, 0.0)] + [
+            torch.where(ok, run(v, False), 0.0) for v in volumes_linear[1:]
+        ]
+        return lin, [b.to(volumes_nearest[0].dtype)]
+    lin = [torch.where(ok, run(v, False), 0.0) for v in volumes_linear]
+    near = [run(v.to(torch.float32), True).to(v.dtype) for v in volumes_nearest]
+    return lin, near
 
 
-def deform_stage(p: GenParams, f_nonlin: torch.Tensor, cfg: GeneratorCfg, output, segmentation):
-    """Flip + warp of the output (linear) and segmentation (nearest).
+def deform_stage(p: GenParams, f_nonlin: torch.Tensor, cfg: GeneratorCfg, output, segmentation,
+                 image=None):
+    """Flip + warp of the output and the optional co-deformed ``image``
+    (linear) and the segmentation (nearest). Returns (output, segmentation,
+    image or None).
 
     When the gate is off there is neither flip nor warp
     (``generate_deformation_and_flip``, ``affine_nonrigid.py:122-162``).
     """
     apply = _bcast(p.deform_apply)
     flip = _bcast(p.flip & p.deform_apply)
-    out_f = torch.where(flip, output.flip(1), output)
+    lins = [output] + ([image] if image is not None else [])
+    lins_f = [torch.where(flip, v.flip(1), v) for v in lins]
     seg_f = torch.where(flip, segmentation.flip(1), segmentation)
 
     if cfg.deform.warp_impl == "exact":
         xx2, yy2, zz2 = deformation_coords(p, f_nonlin, cfg)
-        out_w = trilinear_interp(out_f, xx2, yy2, zz2)
+        lin_w = [trilinear_interp(v, xx2, yy2, zz2) for v in lins_f]
         seg_w = nearest_interp(seg_f, xx2, yy2, zz2)
     else:
-        out_w, seg_w = _deform_separable(p, f_nonlin, cfg, out_f, seg_f)
-    return torch.where(apply, out_w, output), torch.where(apply, seg_w, segmentation)
+        lin_w, (seg_w,) = _deform_separable(p, f_nonlin, cfg, lins_f, [seg_f])
+    out_w = [torch.where(apply, w, v) for w, v in zip(lin_w, lins)]
+    img = out_w[1] if image is not None else None
+    return out_w[0], torch.where(apply, seg_w, segmentation), img
 
 
 # ---------------------------------------------------------------------------
@@ -307,23 +371,39 @@ def resample_noise_stage(output: torch.Tensor, p: GenParams, f_noise: torch.Tens
 # Full pipeline
 # ---------------------------------------------------------------------------
 
+# Stage sets of the reference's split public API (model.py:94-159 generate =
+# intensity + deform; model.py:161-229 augment = gamma .. resize back).
+STAGES_ALL = ("intensity", "deform", "augment")
+STAGES_GENERATE = ("intensity", "deform")
+STAGES_AUGMENT = ("augment",)
+
+
 def synth_core(
-    p: GenParams, fields: Fields, seeds: torch.Tensor, seg: torch.Tensor, cfg: GeneratorCfg,
-    image: torch.Tensor | None = None,
+    p: GenParams, fields: Fields, seeds: torch.Tensor | None, seg: torch.Tensor, cfg: GeneratorCfg,
+    image: torch.Tensor | None = None, intensity_prior: torch.Tensor | None = None,
+    stages: tuple = STAGES_ALL,
 ):
-    """One batch through every stage (counterpart of ``_synth_core_body``):
-    (B, D, H, W) seed labels and segmentation -> (image, segmentation)."""
-    if image is not None:
-        raise NotImplementedError(
-            "an extra co-deformed image needs the single-operand hat kernel K2 "
-            "(ROADMAP.md §1, next item 5: warp_affine_field_separable)"
-        )
-    output = intensity_stage(seeds, p, fields.intensity)
-    output, seg = deform_stage(p, fields.nonlin, cfg, output, seg)
-    output = gamma_stage(output, p)
-    output = bias_stage(output, p, fields.bias, cfg)
-    output = resample_noise_stage(output, p, fields.noise, cfg)
-    return output, seg
+    """One batch through the ``stages`` (counterpart of ``_synth_core_body``).
+
+    (B, D, H, W) seed labels and segmentation -> (output, segmentation,
+    image or None). The output starts as the GMM intensities of ``seeds``,
+    or as ``intensity_prior`` when given (image as intensity, or augment
+    alone; ``seeds`` is then unused). An ``image`` is co-deformed with the
+    output.
+    """
+    if intensity_prior is not None:
+        output = intensity_prior
+    elif "intensity" in stages:
+        output = intensity_stage(seeds, p, fields.intensity)
+    else:
+        raise ValueError(f"stages {stages} without 'intensity' need an intensity_prior")
+    if "deform" in stages:
+        output, seg, image = deform_stage(p, fields.nonlin, cfg, output, seg, image)
+    if "augment" in stages:
+        output = gamma_stage(output, p)
+        output = bias_stage(output, p, fields.bias, cfg)
+        output = resample_noise_stage(output, p, fields.noise, cfg)
+    return output, seg, image
 
 
 def synth_batch(seeds, segs, cfg: GeneratorCfg, seeds_per_sample, device, overrides=None):
@@ -336,7 +416,7 @@ def synth_batch(seeds, segs, cfg: GeneratorCfg, seeds_per_sample, device, overri
     gens = make_generators(seeds_per_sample, device)
     p = sample_params(gens, cfg, overrides)
     fields = draw_fields(gens, cfg, device)
-    out, seg = synth_core(p, fields, seeds.to(device), segs.to(device), cfg)
+    out, seg, _ = synth_core(p, fields, seeds.to(device), segs.to(device), cfg)
     return out, seg, p
 
 

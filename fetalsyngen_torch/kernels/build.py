@@ -1,10 +1,12 @@
 """Build the package's CUDA sources with ``nvcc`` and load them through ``ctypes``.
 
-The sources under ``fetalsyngen_torch/csrc/`` have a plain C interface (no
-PyTorch headers), so one ``nvcc`` call builds them in seconds. The shared
-library lands in ``<repo>/build/fetalsyngen_torch_kernels/`` under a name keyed
-by a hash of the sources and flags: an edited source rebuilds, an unchanged one
-is loaded as it is. A failed build raises with nvcc's stderr.
+Each ``fetalsyngen_torch/csrc/*.cu`` has a plain C interface (no PyTorch
+headers) and builds into a shared library of its own, all ``nvcc`` calls
+started together, so a build takes as long as the slowest source (seconds).
+The libraries land in ``<repo>/build/fetalsyngen_torch_kernels/`` under names
+keyed by a hash of the source, the shared headers (``*.cuh``) and the flags:
+an edited source rebuilds, an unchanged one is loaded as it is. A failed
+build raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -37,34 +39,51 @@ def _nvcc() -> str:
 
 
 def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    """The kernel sources, one shared library each."""
+    return sorted(CSRC.glob("*.cu"))
 
 
-def _library_path() -> Path:
-    """Where the build for the current sources and flags lives."""
+def _library_path(src: Path) -> Path:
+    """Where the build of ``src`` for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libfsg_kernels-{h.hexdigest()[:16]}.so"
+    for f in [src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` into one shared library, unless already built."""
-    out = _library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+def build() -> list[Path]:
+    """Compile every ``csrc/*.cu`` not yet built, one ``nvcc`` per source,
+    all at once; returns the libraries' paths."""
+    outs = [_library_path(src) for src in _sources()]
+    todo = [(src, out) for src, out in zip(_sources(), outs) if not out.exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = []
+        for src, out in todo:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            procs.append((cmd, tmp, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )))
+        failed = []
+        for cmd, tmp, out, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return outs
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build if needed and load the kernels' shared library (once per process)."""
-    return ctypes.CDLL(str(build()))
+def load_library(stem: str) -> ctypes.CDLL:
+    """Build if needed and load the library of ``csrc/<stem>.cu`` (once per process)."""
+    src = CSRC / f"{stem}.cu"
+    if src not in _sources():
+        raise ValueError(f"no kernel source {src}")
+    build()
+    return ctypes.CDLL(str(_library_path(src)))

@@ -1,20 +1,26 @@
-"""Paired hat pass: the CUDA kernel's binding, its wrapper and its plain version.
+"""Hat passes: the CUDA kernels' bindings, their wrappers and plain versions.
 
-Port of ``fetalsyngen_tpu.ops.warp.hat_pass_pair`` (TPU kernel
-``_hat_pair_kernel``) for batch-first tensors. For each sample ``b``, row
-``r`` of the (D, H) row grid (``row_i = r // H``, ``row_j = r % H``) and output
-lane ``l``, both operands are sampled along their last axis at the shared
-position
+Ports of ``fetalsyngen_tpu.ops.warp.hat_pass_pair`` (TPU kernel
+``_hat_pair_kernel``, K1) and ``hat_pass`` (TPU kernel ``_hat_kernel``, K2)
+for batch-first tensors. For each sample ``b``, row ``r`` of the (D, H) row
+grid (``row_i = r // H``, ``row_j = r % H``) and output lane ``l``, rows are
+sampled along their last axis at
 
-    pos = ((ci*row_i + cj*row_j) + ck*l) + bias + disp[b, i, j, l]
+    pos = ((ci*row_i + cj*row_j) + ck*l) + bias [+ disp[b, i, j, l]]
 
-edge-clamped, the first operand linearly (the image) and the second nearest,
-rounding half to even (the labels), taking ``x[0]`` where ``pos <= 0`` and
-``x[S-1]`` where ``pos >= S-1`` (``_hat_pass_jnp`` semantics with modes
-(linear, nearest), the only pair the main path uses). ``coefs`` is one (ci, cj, ck, bias) row per
-sample. The kernel is ``csrc/hat_pass.cu``; :func:`hat_pass_pair_ref` is the
-plain version it is held against. The wrapper takes the plain version only
-for tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
+edge-clamped, linearly or nearest (rounding half to even), taking ``x[0]``
+where ``pos <= 0`` and ``x[S-1]`` where ``pos >= S-1`` (``_hat_pass_jnp``
+semantics). ``coefs`` is one (ci, cj, ck, bias) row per sample.
+
+- :func:`hat_pass_pair` (K1, ``csrc/hat_pass.cu``) samples two operands at
+  shared positions, the first linearly (the image), the second nearest (the
+  labels), with a displacement volume, the only form the main path uses.
+- :func:`hat_pass` (K2, ``csrc/hat_single.cu``) samples one operand, linearly
+  or nearest, with or without a displacement volume; OW == W.
+
+:func:`hat_pass_pair_ref` and :func:`hat_pass_ref` are the plain versions the
+kernels are held against. The wrappers take the plain version only for
+tensors on the CPU; on a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -24,16 +30,16 @@ import functools
 
 import torch
 
-# Kernel launches made by :func:`hat_pass_pair` (one per call, whole batch).
-LAUNCHES = 0
+# Kernel launches made by each wrapper (one per call, whole batch).
+LAUNCHES = {"hat_pass_pair": 0, "hat_pass": 0}
 
 _MAX_S = 6144  # two staged f32 rows must fit the 48 KB default shared memory
 
 
-def positions(coefs: torch.Tensor, R: int, H: int, OW: int, disp: torch.Tensor) -> torch.Tensor:
+def positions(coefs: torch.Tensor, R: int, H: int, OW: int, disp: torch.Tensor | None) -> torch.Tensor:
     """(B, R, OW) f32 sample positions of rows ``r`` (``row_i = r // H``,
     ``row_j = r % H``) and lanes ``l``: one eager op per product and sum, in
-    the association order the kernel pins."""
+    the association order the kernels pin. ``disp``: (B, R, OW) or None."""
     dev = coefs.device
     rows = torch.arange(R, device=dev)
     ri = (rows // H).to(torch.float32)[None, :, None]
@@ -41,7 +47,7 @@ def positions(coefs: torch.Tensor, R: int, H: int, OW: int, disp: torch.Tensor) 
     lanes = torch.arange(OW, dtype=torch.float32, device=dev)[None, None, :]
     c = coefs.to(torch.float32)[:, :, None, None]
     pos = c[:, 0] * ri + c[:, 1] * rj + c[:, 2] * lanes + c[:, 3]
-    return pos + disp
+    return pos if disp is None else pos + disp
 
 
 def _sample_ref(x: torch.Tensor, pos: torch.Tensor, nearest: bool) -> torch.Tensor:
@@ -64,7 +70,7 @@ def _sample_ref(x: torch.Tensor, pos: torch.Tensor, nearest: bool) -> torch.Tens
 
 
 def hat_pass_pair_ref(va, vb, coefs, disp):
-    """Plain PyTorch paired hat pass (the kernel's reference).
+    """Plain PyTorch paired hat pass (K1's reference).
 
     ``va`` (linear), ``vb`` (nearest): (B, D, H, S) f32; ``disp``:
     (B, D, H, OW) f32; ``coefs``: (B, 4). Returns two (B, D, H, OW) tensors.
@@ -78,42 +84,70 @@ def hat_pass_pair_ref(va, vb, coefs, disp):
     return oa.reshape(B, D, H, OW), ob.reshape(B, D, H, OW)
 
 
+def hat_pass_ref(x, coefs, disp=None, nearest=False):
+    """Plain PyTorch single-operand hat pass (K2's reference).
+
+    ``x``: (B, D, H, S) f32; ``coefs``: (B, 4); ``disp``: (B, D, H, S) f32 or
+    None. Returns a (B, D, H, S) tensor, sampled nearest if ``nearest``.
+    """
+    B, D, H, S = x.shape
+    R = D * H
+    pos = positions(coefs, R, H, S, None if disp is None else disp.reshape(B, R, S))
+    return _sample_ref(x.reshape(B, R, S), pos, nearest).reshape(B, D, H, S)
+
+
 @functools.cache
-def _bind():
+def _bind(stem: str, symbol: str, n_ptrs: int, n_ints: int):
+    """``symbol`` of ``csrc/<stem>.cu``: ``n_ptrs`` pointers, ``n_ints`` ints,
+    then the stream; returns a cudaError code."""
     from .build import load_library
 
-    lib = load_library()
-    fn = lib.fsg_hat_pass_pair_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = getattr(load_library(stem), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(va, vb, coefs, disp):
-    if va.dim() != 4 or vb.shape != va.shape:
+def _check(x, others, coefs, disp, ow_free):
+    """Validate a CUDA launch: ``x`` (B, D, H, S) and ``others`` of its shape,
+    (B, 4) ``coefs``, a (B, D, H, OW) ``disp`` (OW == S unless ``ow_free``)
+    or None; all f32, contiguous, on ``x``'s device."""
+    if x.dim() != 4 or any(o.shape != x.shape for o in others):
         raise ValueError(
-            f"va, vb must be equal (B, D, H, S) volumes, got {tuple(va.shape)}, {tuple(vb.shape)}"
+            f"volumes must be equal (B, D, H, S), got {[tuple(t.shape) for t in (x, *others)]}"
         )
-    B, D, H, S = va.shape
-    if disp.dim() != 4 or tuple(disp.shape[:3]) != (B, D, H):
-        raise ValueError(f"disp must be (B, D, H, OW) = ({B}, {D}, {H}, OW), got {tuple(disp.shape)}")
+    B, D, H, S = x.shape
+    if disp is not None and (
+        disp.dim() != 4 or tuple(disp.shape[:3]) != (B, D, H) or not (ow_free or disp.shape[3] == S)
+    ):
+        want = "OW" if ow_free else str(S)
+        raise ValueError(f"disp must be (B, D, H, {want}) = ({B}, {D}, {H}, {want}), got {tuple(disp.shape)}")
     if tuple(coefs.shape) != (B, 4):
         raise ValueError(f"coefs must be ({B}, 4), got {tuple(coefs.shape)}")
     if not 2 <= S <= _MAX_S:
         raise ValueError(f"row length S={S} outside [2, {_MAX_S}]")
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the grid's 65535 samples")
-    for name, t in (("va", va), ("vb", vb), ("coefs", coefs), ("disp", disp)):
+    if D * H > 2**31 - 1:
+        raise ValueError(f"{D * H} rows exceed the grid")
+    named = [("x", x), *((f"operand {i + 2}", o) for i, o in enumerate(others)), ("coefs", coefs)]
+    if disp is not None:
+        named.append(("disp", disp))
+    for name, t in named:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != va.device:
-            raise ValueError(f"{name} is on {t.device}, va on {va.device}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def hat_pass_pair(va, vb, coefs, disp):
-    """Paired hat pass over a batch; see the module docstring.
+    """Paired hat pass (K1) over a batch; see the module docstring.
 
     CPU tensors take :func:`hat_pass_pair_ref`. CUDA tensors must be f32 and
     contiguous; the kernel launches once for the whole batch on the current
@@ -123,20 +157,44 @@ def hat_pass_pair(va, vb, coefs, disp):
         return hat_pass_pair_ref(va, vb, coefs, disp)
     if va.device.type != "cuda":
         raise ValueError(f"hat_pass_pair runs on cpu or cuda tensors, got {va.device}")
-    _check(va, vb, coefs, disp)
+    _check(va, [vb], coefs, disp, ow_free=True)
     B, D, H, S = va.shape
     OW = disp.shape[-1]
-    fn = _bind()
+    fn = _bind("hat_pass", "fsg_hat_pass_pair_f32", 6, 5)
     oa = torch.empty((B, D, H, OW), dtype=torch.float32, device=va.device)
     ob = torch.empty_like(oa)
     with torch.cuda.device(va.device):
-        stream = torch.cuda.current_stream(va.device).cuda_stream
         rc = fn(
             va.data_ptr(), vb.data_ptr(), disp.data_ptr(), coefs.data_ptr(),
-            oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, OW, stream,
+            oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, OW, _stream(va.device),
         )
     if rc != 0:
         raise RuntimeError(f"hat_pass_pair kernel launch failed: cudaError {rc}")
-    global LAUNCHES
-    LAUNCHES += 1
+    LAUNCHES["hat_pass_pair"] += 1
     return oa, ob
+
+
+def hat_pass(x, coefs, disp=None, nearest=False):
+    """Single-operand hat pass (K2) over a batch; see the module docstring.
+
+    CPU tensors take :func:`hat_pass_ref`. CUDA tensors must be f32 and
+    contiguous; the kernel launches once for the whole batch on the current
+    stream, without synchronising.
+    """
+    if x.device.type == "cpu":
+        return hat_pass_ref(x, coefs, disp, nearest)
+    if x.device.type != "cuda":
+        raise ValueError(f"hat_pass runs on cpu or cuda tensors, got {x.device}")
+    _check(x, [], coefs, disp, ow_free=False)
+    B, D, H, S = x.shape
+    fn = _bind("hat_single", "fsg_hat_pass_f32", 4, 5)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = fn(
+            x.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(),
+            out.data_ptr(), B, D * H, H, S, int(nearest), _stream(x.device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"hat_pass kernel launch failed: cudaError {rc}")
+    LAUNCHES["hat_pass"] += 1
+    return out

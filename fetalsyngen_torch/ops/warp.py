@@ -1,19 +1,26 @@
-"""Separable affine + field warp, main-path subset (port of ``fetalsyngen_tpu.ops.warp``).
+"""Separable affine + field warps (port of ``fetalsyngen_tpu.ops.warp``).
 
 The affine map ``o -> A o + t`` factors as ``A = U L`` (upper x unit-lower),
 so the warp runs as single-axis resampling passes with closed-form positions.
-Passes without a displacement or a ``row_i`` term are batched matmuls with a
-banded (B, J, K, S) operator (:func:`_row_affine_matmul_pair`); the three
-displacement-carrying passes go through the paired hat kernel
-(:func:`fetalsyngen_torch.kernels.hat.hat_pass_pair`). All tensors are
-batch-first; per-sample scalars are (B,) tensors.
+
+- The (image, labels) pair: passes without a displacement or a ``row_i``
+  term are batched matmuls with a banded (B, J, K, S) operator
+  (:func:`_row_affine_matmul_pair`); the three displacement-carrying passes
+  go through the paired hat kernel
+  (:func:`fetalsyngen_torch.kernels.hat.hat_pass_pair`).
+- One volume (:func:`warp_affine_separable`,
+  :func:`warp_affine_field_separable`): every pass goes through the
+  single-operand hat kernel (:func:`fetalsyngen_torch.kernels.hat.hat_pass`).
+
+All tensors are batch-first; per-sample scalars are (B,) tensors. The pass
+order, layouts and coefficients are the JAX package's.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.hat import hat_pass_pair
+from ..kernels.hat import hat_pass, hat_pass_pair
 
 # Displacement fields are clipped to +-FIELD_LIM voxels: ~3.5 sigma of the
 # largest default nonlin_std (4.0), beyond the field's realizable range.
@@ -90,12 +97,10 @@ def _row_affine_matmul_pair(xa, xb, slope, amount, bias, out_order="ijk"):
     return torch.einsum(spec, m_lin, xa), torch.einsum(spec, m_near, xb)
 
 
-def warp_affine_field_pair(va, vb, A, t, Fx, Fy, Fz):
-    """Affine + field warp of a (linear, nearest) pair from full-resolution
-    (B, D, H, W) field components: forms the L-mixed displacement combos and
-    transposes them into the pass layouts, then runs
-    :func:`warp_affine_field_pair_pre`."""
-    _, L = ul_decompose(A)
+def _field_combos(L, Fx, Fy, Fz):
+    """The L-mixed displacements of the field passes, clipped to
+    +-FIELD_LIM, in (B, D, H, W) layout: (gx, gy, gz) with gy = L10*Fx + Fy
+    and gz = L20*Fx + L21*Fy + Fz."""
     lim = FIELD_LIM
 
     def s(v):
@@ -104,7 +109,80 @@ def warp_affine_field_pair(va, vb, A, t, Fx, Fy, Fz):
     gx = torch.clamp(Fx, -lim, lim)
     gy = torch.clamp(s(L[:, 1, 0]) * Fx + Fy, -lim, lim)
     gz = torch.clamp(s(L[:, 2, 0]) * Fx + s(L[:, 2, 1]) * Fy + Fz, -lim, lim)
+    return gx, gy, gz
+
+
+def warp_affine_field_pair(va, vb, A, t, Fx, Fy, Fz):
+    """Affine + field warp of a (linear, nearest) pair from full-resolution
+    (B, D, H, W) field components: forms the L-mixed displacement combos and
+    transposes them into the pass layouts, then runs
+    :func:`warp_affine_field_pair_pre`."""
+    _, L = ul_decompose(A)
+    gx, gy, gz = _field_combos(L, Fx, Fy, Fz)
     return warp_affine_field_pair_pre(va, vb, A, t, gy.permute(0, 1, 3, 2), gz, gx.permute(0, 2, 3, 1))
+
+
+def _hat(x, ci, cj, ck, bias, nearest, disp=None):
+    """A hat pass (K2) of one (B, D, H, W) volume with per-sample (B,)
+    coefficients ``ci, cj, ck, bias`` and an optional displacement."""
+    coefs = torch.stack([ci, cj, ck, bias], dim=1).contiguous()
+    return hat_pass(x.contiguous(), coefs, None if disp is None else disp.contiguous(), nearest)
+
+
+def _u_passes(x, U, t, nearest):
+    """The U stage ``W1(p) = V[U p + t]``: U-z on (i,j,k), U-y on (i,k,j),
+    U-x on (j,k,i); returns the (j,k,i) layout."""
+    zero = torch.zeros_like(t[:, 0])
+    x = _hat(x, zero, zero, U[:, 2, 2], t[:, 2], nearest)
+    x = x.permute(0, 1, 3, 2)  # (i, k, j)
+    x = _hat(x, zero, U[:, 1, 2], U[:, 1, 1], t[:, 1], nearest)
+    x = x.permute(0, 3, 2, 1)  # (j, k, i)
+    return _hat(x, U[:, 0, 1], U[:, 0, 2], U[:, 0, 0], t[:, 0], nearest)
+
+
+def warp_affine_separable(vol, A, t, nearest=False):
+    """``out[o] = V[A o + t]`` of a (B, D, H, W) volume via five triangular
+    hat passes (exact positions), with (B, 3, 3) ``A`` and (B, 3) ``t``.
+
+    Pass order (layouts in parentheses, resampled axis last):
+    U-z (i,j,k) -> U-y (i,k,j) -> U-x (j,k,i) -> L-y (i,k,j) -> L-z (i,j,k).
+    """
+    U, L = ul_decompose(A)
+    t = t.to(torch.float32)
+    zero = torch.zeros_like(t[:, 0])
+    one = torch.ones_like(zero)
+    x = _u_passes(vol.to(torch.float32), U, t, nearest)
+    # L stage: out(o) = W1[L o]
+    x = x.permute(0, 3, 2, 1)  # (i, k, j)
+    x = _hat(x, L[:, 1, 0], zero, one, zero, nearest)
+    x = x.permute(0, 1, 3, 2)  # (i, j, k)
+    x = _hat(x, L[:, 2, 0], L[:, 2, 1], one, zero, nearest)
+    return x.to(vol.dtype)
+
+
+def warp_affine_field_separable(vol, A, t, Fx, Fy, Fz, nearest=False):
+    """Fused affine + displacement warp ``out[o] = V[A (o + F(o)) + t]`` of
+    a (B, D, H, W) volume in six hat passes, with full-resolution (B, D, H, W)
+    field components ``Fx, Fy, Fz``.
+
+    The U stage handles the affine exactly; the L-stage passes carry the
+    displacement through ``U^{-1} (A F) = L F`` (first-order triangular
+    approximation of the field, as in the JAX package).
+    """
+    U, L = ul_decompose(A)
+    t = t.to(torch.float32)
+    zero = torch.zeros_like(t[:, 0])
+    one = torch.ones_like(zero)
+    gx, gy, gz = _field_combos(L, Fx, Fy, Fz)
+    x = _u_passes(vol.to(torch.float32), U, t, nearest)
+    # L stage with displacement: out(o) = W1[L o + g(o)]
+    x = x.permute(0, 3, 2, 1)  # (i, k, j): pos = L10*i + j + gy
+    x = _hat(x, L[:, 1, 0], zero, one, zero, nearest, gy.permute(0, 1, 3, 2))
+    x = x.permute(0, 1, 3, 2)  # (i, j, k): pos = L20*i + L21*j + k + gz
+    x = _hat(x, L[:, 2, 0], L[:, 2, 1], one, zero, nearest, gz)
+    x = x.permute(0, 2, 3, 1)  # (j, k, i): pos = i + gx
+    x = _hat(x, zero, zero, one, zero, nearest, gx.permute(0, 2, 3, 1))
+    return x.permute(0, 3, 1, 2).to(vol.dtype)
 
 
 def warp_affine_field_pair_pre(va, vb, A, t, gyT, gz, gxT):

@@ -1,5 +1,5 @@
-"""The port on a CUDA GPU: the hand-written kernel against its plain version,
-and the GPU slice against the port's CPU path.
+"""The port on a CUDA GPU: the hand-written kernels against their plain
+versions, the GPU slice against the port's CPU path, and the public API.
 
 Every test needs a CUDA device and ``nvcc`` and skips without them. This file
 imports no JAX, so on a machine without JAX run it without the suite's
@@ -45,6 +45,32 @@ def test_kernel_matches_plain(dev, D, H, S, OW):
     assert torch.equal(kb, rb)
 
 
+@pytest.mark.parametrize("nearest", [False, True])
+@pytest.mark.parametrize("with_disp", [False, True])
+@pytest.mark.parametrize("D, H, S", [(6, 10, 16), (2, 5, 300), (4, 4, 513)])
+def test_single_kernel_matches_plain(dev, D, H, S, with_disp, nearest):
+    g = torch.Generator(device=dev).manual_seed(D * 1000 + S + 10 * with_disp + nearest)
+    B = 3
+    x = torch.rand((B, D, H, S), generator=g, device=dev)
+    if nearest:
+        x = torch.randint(0, 8, (B, D, H, S), generator=g, device=dev).float()
+    # general slopes with three nonzero products, as the U passes have
+    coefs = torch.rand((B, 4), generator=g, device=dev) - 0.5
+    coefs[:, 2] += 1.0
+    coefs[:, 3] *= S / 4
+    disp = None
+    if with_disp:
+        disp = (torch.rand((B, D, H, S), generator=g, device=dev) - 0.5) * 2 * (S / 4)
+        disp[..., ::5] = torch.round(disp[..., ::5]) + 0.5  # near-half positions
+    k = hat.hat_pass(x, coefs, disp, nearest)
+    r = hat.hat_pass_ref(x, coefs, disp, nearest)
+    torch.cuda.synchronize()
+    if nearest:
+        assert torch.equal(k, r)
+    else:
+        torch.testing.assert_close(k, r, rtol=0, atol=1e-6)
+
+
 def test_wrapper_rejects_bad_inputs(dev):
     x = torch.zeros((1, 2, 3, 8), device=dev)
     coefs = torch.zeros((1, 4), device=dev)
@@ -54,6 +80,10 @@ def test_wrapper_rejects_bad_inputs(dev):
         hat.hat_pass_pair(x.double(), x.double(), coefs, x)
     with pytest.raises(ValueError, match="coefs"):
         hat.hat_pass_pair(x, x, torch.zeros((2, 4), device=dev), x)
+    with pytest.raises(ValueError, match="disp"):
+        hat.hat_pass(x, coefs, torch.zeros((1, 2, 3, 9), device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        hat.hat_pass(x.double(), coefs)
 
 
 def test_slice_gpu_matches_cpu(dev):
@@ -63,17 +93,55 @@ def test_slice_gpu_matches_cpu(dev):
     cfg = GeneratorCfg(shape=shape, intensity=IntensityCfg(1, 6, labels, classes))
     seeds, seg = (torch.from_numpy(a.astype(np.int32)) for a in phantom_seeds_and_seg(shape))
     ov = {g: True for g in ("deform_apply", "gamma_apply", "bf_apply", "resample_apply", "noise_apply")}
-    hat.LAUNCHES = 0
+    hat.LAUNCHES.update(hat_pass_pair=0, hat_pass=0)
     out, seg_out, p = tpipe.synth_batch(
         seeds[None].expand(2, *shape), seg[None].expand(2, *shape), cfg, [3, 4], dev, ov
     )
     torch.cuda.synchronize()
-    assert hat.LAUNCHES == 3
+    assert hat.LAUNCHES == {"hat_pass_pair": 3, "hat_pass": 0}
     gens = tpipe.make_generators([3, 4], dev)
     p2 = sample_params(gens, cfg, ov)
     fields = tpipe.draw_fields(gens, cfg, dev)
-    out_cpu, seg_cpu = tpipe.synth_core(
+    out_cpu, seg_cpu, _ = tpipe.synth_core(
         p2.to("cpu"), fields.to("cpu"), seeds[None].expand(2, *shape), seg[None].expand(2, *shape), cfg
     )
     torch.testing.assert_close(out.cpu(), out_cpu, rtol=0, atol=1e-4)
     assert (seg_out.cpu() != seg_cpu).float().mean() <= 1e-5
+
+
+@pytest.mark.parametrize("nonlinear", [True, False])
+def test_api_image_path_gpu_matches_cpu(dev, nonlinear):
+    """``FetalSynthGen.sample`` with the image as intensity and co-deformed
+    (K1 and K2, or K2 alone without the field) on the card, replayed
+    bit-identically, and against the port's CPU path on the same draws."""
+    from fetalsyngen_torch.generator.model import (
+        FetalSynthGen, ImageFromSeeds, RandBiasField, RandGamma, RandNoise, RandResample,
+        SpatialDeformation,
+    )
+    from fetalsyngen_torch.testing import make_phantom
+
+    shape = (48, 48, 48)
+    labels = tuple([0] + list(range(10, 50)))
+    classes = tuple([0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50)))
+    gen = FetalSynthGen(
+        shape, (0.5, 0.5, 0.5), ImageFromSeeds(1, 6, labels, classes),
+        SpatialDeformation(20, 0.02, 0.1, shape, 0.9, nonlinear, 0.03, 0.06, 4.0, 0.5),
+        RandResample(0.9, 0.5, 1.5), RandBiasField(0.9, 0.004, 0.02, 0.01, 0.3),
+        RandNoise(0.9, 5, 15), RandGamma(0.9, 0.1), device="cuda", seed=1,
+    )
+    img, seg = make_phantom(np.random.default_rng(2), shape)
+    pinned = {"deform_params": {"deform_apply": True}}
+    hat.LAUNCHES.update(hat_pass_pair=0, hat_pass=0)
+    out, seg_out, img_out, gp = gen.sample(img, seg, None, genparams=pinned)
+    torch.cuda.synchronize()
+    want = {"hat_pass_pair": 3, "hat_pass": 6} if nonlinear else {"hat_pass_pair": 0, "hat_pass": 15}
+    assert hat.LAUNCHES == want
+    out2, seg2, img2, _ = gen.sample(img, seg, None, genparams=gp)
+    assert torch.equal(out2, out) and torch.equal(seg2, seg_out) and torch.equal(img2, img_out)
+    inputs, _, _ = gen.prepare(img, seg, None, genparams=gp)
+    cpu = {k: (v.to("cpu") if v is not None else None) for k, v in inputs.items()}
+    out_c, seg_c, img_c = tpipe.synth_core(**cpu, cfg=gen.cfg)
+    for g, c in ((out, out_c[0]), (img_out, img_c[0])):
+        scale = max(1.0, float(c.abs().max()))  # the dataset scales both to [0, 1]
+        torch.testing.assert_close(g.cpu() / scale, c / scale, rtol=0, atol=1e-4)
+    assert (seg_out.cpu() != seg_c[0]).float().mean() <= 1e-5

@@ -180,6 +180,42 @@ def test_warp_affine_field_pair():
         np.testing.assert_array_equal(ob[b].numpy(), np.asarray(jb))
 
 
+@pytest.mark.parametrize("nearest", [False, True])
+@pytest.mark.parametrize("field", [False, True])
+def test_warp_affine_separable(field, nearest):
+    """The single-volume warps (every pass a K2 plain pass): the five-pass
+    affine warp and the six-pass affine + field warp, image within 1e-5,
+    labels exactly."""
+    rng = np.random.default_rng(9 + 2 * field + nearest)
+    shape = (12, 10, 14)
+    vol = rng.random((2, *shape), np.float32)
+    if nearest:
+        vol = rng.integers(0, 8, (2, *shape)).astype(np.float32)
+    rot, sh, sc = _affines(rng)
+    A = np.stack([np.asarray(jaffine.make_affine_matrix(rot[b], sh[b], sc[b])) for b in range(2)])
+    t = rng.uniform(-1, 1, (2, 3)).astype(np.float32)
+    F = rng.uniform(-2, 2, (3, 2, *shape)).astype(np.float32)
+    if field:
+        out = warp.warp_affine_field_separable(
+            _t(vol), _t(A), _t(t), _t(F[0]), _t(F[1]), _t(F[2]), nearest=nearest
+        )
+    else:
+        out = warp.warp_affine_separable(_t(vol), _t(A), _t(t), nearest=nearest)
+    assert out.shape == (2, *shape) and out.dtype == torch.float32
+    for b in range(2):
+        args = (jnp.asarray(vol[b]), jnp.asarray(A[b]), jnp.asarray(t[b]))
+        if field:
+            ref = jwarp.warp_affine_field_separable(
+                *args, *(jnp.asarray(F[c, b]) for c in range(3)), nearest=nearest
+            )
+        else:
+            ref = jwarp.warp_affine_separable(*args, nearest=nearest)
+        if nearest:
+            np.testing.assert_array_equal(out[b].numpy(), np.asarray(ref))
+        else:
+            np.testing.assert_allclose(out[b].numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+
 def test_trilinear_and_nearest_interp():
     rng = np.random.default_rng(8)
     shape = (7, 8, 9)

@@ -10,6 +10,9 @@ All cases pin the five stage gates through overrides, so each ``warp_impl``
 compiles one JAX program: the natural-key cases pin them to the values JAX
 itself draws for that key (which changes nothing), the forced case pins them
 all on. The shape is not a cube, so a swapped axis in a pass layout shows.
+Beyond the seed path, the pipeline's other branches are held the same way:
+a co-deformed image, the image as intensity prior, the generate and augment
+stage sets, and ``nonlinear_transform=False``.
 """
 
 import dataclasses
@@ -30,7 +33,7 @@ import fetalsyngen_tpu.testing
 import fetalsyngen_torch.testing
 from fetalsyngen_tpu.generator import config as jconfig
 from fetalsyngen_tpu.generator import params as jparams
-from fetalsyngen_tpu.generator.pipeline import _synth_core
+from fetalsyngen_tpu.generator.pipeline import STAGES_ALL, _synth_core
 from fetalsyngen_torch.convert import fields_from_numpy, params_from_numpy
 from fetalsyngen_torch.generator import config as tconfig
 from fetalsyngen_torch.generator import params as tparams
@@ -44,13 +47,13 @@ GATES = ("bf_apply", "deform_apply", "gamma_apply", "noise_apply", "resample_app
 NAMES = [f.name for f in dataclasses.fields(tparams.GenParams)]
 
 
-def _cfg(warp_impl="separable", mod=tconfig):
+def _cfg(warp_impl="separable", mod=tconfig, nonlinear=True, shape=SHAPE):
     """The test config, built from the port's config module or JAX's."""
     return mod.GeneratorCfg(
-        shape=SHAPE,
+        shape=shape,
         resolution=(0.5, 0.5, 0.5),
         intensity=mod.IntensityCfg(1, 6, LABELS, GEN_CLASSES),
-        deform=mod.DeformCfg(warp_impl=warp_impl),
+        deform=mod.DeformCfg(size=shape, warp_impl=warp_impl, nonlinear_transform=nonlinear),
     )
 
 
@@ -69,15 +72,18 @@ def test_phantom_matches_jax(shape, seed):
         np.testing.assert_array_equal(a, b)
 
 
-def _jax_run(cfg, k, force, seeds, seg):
+def _jax_run(cfg, k, force, seeds, seg, image=None, use_seeds=True, stages=STAGES_ALL):
     """JAX ``_synth_core`` under ``cfg`` (the JAX package's config), with
-    the parameters and fields it drew, as numpy."""
+    the parameters and fields it drew, as numpy. ``seeds`` holds the
+    intensity prior when ``use_seeds`` is false."""
     key = jax.random.PRNGKey(k)
     natural = jparams.sample_params(key, cfg)
     gates = tuple(jnp.asarray(True) if force else getattr(natural, g) for g in GATES)
-    out, seg_out, _, p = _synth_core(
-        key, jnp.asarray(seeds), jnp.asarray(seg), jnp.zeros((), jnp.float32), gates, cfg,
-        GATES, False,
+    with_image = image is not None
+    out, seg_out, img_out, p = _synth_core(
+        key, jnp.asarray(seeds), jnp.asarray(seg),
+        jnp.asarray(image) if with_image else jnp.zeros((), jnp.float32), gates, cfg,
+        GATES, with_image, use_seeds, stages,
     )
     shapes = tpipe.field_shapes(cfg)
     fields = {
@@ -85,7 +91,8 @@ def _jax_run(cfg, k, force, seeds, seg):
         for n in shapes
     }
     params = {n: np.asarray(getattr(p, n)) for n in NAMES}
-    return np.asarray(out), np.asarray(seg_out), params, fields
+    img_out = np.asarray(img_out) if with_image else None
+    return np.asarray(out), np.asarray(seg_out), img_out, params, fields
 
 
 @pytest.mark.parametrize("warp_impl", ["separable", "exact"])
@@ -93,10 +100,10 @@ def _jax_run(cfg, k, force, seeds, seg):
 def test_slice_matches_jax(warp_impl, k, force, volumes):
     seeds, seg = volumes
     cfg = _cfg(warp_impl)
-    j_out, j_seg, params, fields = _jax_run(_cfg(warp_impl, jconfig), k, force, seeds, seg)
+    j_out, j_seg, _, params, fields = _jax_run(_cfg(warp_impl, jconfig), k, force, seeds, seg)
     if force:
         assert all(bool(params[g]) for g in GATES)
-    out, seg_out = tpipe.synth_core(
+    out, seg_out, _ = tpipe.synth_core(
         params_from_numpy(params), fields_from_numpy(**fields),
         torch.from_numpy(seeds[None]), torch.from_numpy(seg[None]), cfg,
     )
@@ -131,31 +138,101 @@ def test_replay_and_batching(volumes):
     assert torch.equal(s_ov, seg_out[1])
 
 
-def test_off_slice_configs_raise(volumes):
+# (nonlinear_transform, co-deformed image, image as intensity prior, stages,
+# key, force every gate on): the image and prior cases are the dataset's
+# real_train path (K1 + K2), the affine cases the nonlinear_transform=False
+# path (K2 alone, both modes), the stage sets generate / augment.
+API_CASES = {
+    "image": (True, True, False, "all", 0, False),
+    "image_forced": (True, True, False, "all", 3, True),
+    "prior_generate": (True, True, True, "generate", 7, False),
+    "prior_augment": (True, False, True, "augment", 2, False),
+    "affine_prior_image": (False, True, True, "all", 4, True),
+    "affine_seeds": (False, False, False, "all", 5, False),
+    "affine_generate": (False, False, False, "generate", 6, False),
+}
+STAGES = {"all": tpipe.STAGES_ALL, "generate": tpipe.STAGES_GENERATE, "augment": tpipe.STAGES_AUGMENT}
+
+
+def check_core_matches_jax(cfg, jcfg, k, force, seeds, seg, image, prior, stages):
+    """Port ``synth_core`` against JAX ``_synth_core`` on the same inputs,
+    parameters and fields: the output and image within 1e-4 of their scale
+    (max(1, max|x|): the dataset scales both to [0, 1]), labels exactly."""
+    base = prior if prior is not None else seeds
+    j_out, j_seg, j_img, params, fields = _jax_run(
+        jcfg, k, force, base, seg, image=image, use_seeds=prior is None, stages=stages
+    )
+    if "deform" in stages:
+        assert bool(params["deform_apply"]), "pick a key whose deform gate is on"
+
+    def t(a):
+        return None if a is None else torch.from_numpy(a[None])
+
+    out, seg_out, img = tpipe.synth_core(
+        params_from_numpy(params), fields_from_numpy(**fields), t(seeds), t(seg), cfg,
+        image=t(image), intensity_prior=t(prior), stages=stages,
+    )
+    for port, ref in ((out, j_out), (img, j_img)):
+        if ref is None:
+            assert port is None
+            continue
+        port = port[0].numpy()
+        assert port.shape == ref.shape and np.isfinite(port).all()
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(port / scale, ref / scale, atol=1e-4, rtol=0)
+    assert seg_out.dtype == torch.int32
+    flips = np.argwhere(seg_out[0].numpy() != j_seg)
+    assert len(flips) == 0, f"{len(flips)} labels differ, first at {flips[:8].tolist()}"
+
+
+@pytest.mark.parametrize("case", list(API_CASES))
+def test_api_paths_match_jax(case, volumes):
+    """The image / intensity-prior / stage-set / affine-only branches of the
+    pipeline against JAX."""
+    nonlinear, with_image, with_prior, stages, k, force = API_CASES[case]
     seeds, seg = volumes
-    cfg = dataclasses.replace(_cfg(), deform=tconfig.DeformCfg(nonlinear_transform=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.synth_sample(
-            torch.from_numpy(seeds), torch.from_numpy(seg), cfg, 0, "cpu",
-            overrides={"deform_apply": True},
-        )
+    img = fetalsyngen_torch.testing.make_phantom(np.random.default_rng(3), SHAPE)[0]
+    check_core_matches_jax(
+        _cfg(nonlinear=nonlinear), _cfg(mod=jconfig, nonlinear=nonlinear), k, force, seeds, seg,
+        img if with_image else None, img if with_prior else None, STAGES[stages],
+    )
+
+
+def test_off_slice_configs_raise(volumes):
+    """A stage set without intensity synthesis and without a prior raises;
+    the two configurations that needed K2 (the separable warp with
+    ``nonlinear_transform=False``, an extra co-deformed image) now run."""
+    seeds, seg = volumes
+    s, g = torch.from_numpy(seeds), torch.from_numpy(seg)
+    out, seg_out, _ = tpipe.synth_sample(
+        s, g, _cfg(nonlinear=False), 0, "cpu", overrides={"deform_apply": True}
+    )
+    assert out.shape == SHAPE and bool(torch.isfinite(out).all())
+    assert set(torch.unique(seg_out).tolist()) <= set(np.unique(seg).tolist())
     gens = tpipe.make_generators([0], "cpu")
-    p = tparams.sample_params(gens, _cfg())
+    p = tparams.sample_params(gens, _cfg(), {"deform_apply": True})
     fields = tpipe.draw_fields(gens, _cfg(), "cpu")
-    vol = torch.from_numpy(seeds[None])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.synth_core(p, fields, vol, torch.from_numpy(seg[None]), _cfg(), image=vol.float())
+    image = s[None].float()
+    _, _, img = tpipe.synth_core(p, fields, s[None], g[None], _cfg(), image=image)
+    assert img.shape == (1, *SHAPE) and not torch.equal(img, image)
+    with pytest.raises(ValueError, match="intensity_prior"):
+        tpipe.synth_core(p, fields, None, g[None], _cfg(), stages=tpipe.STAGES_AUGMENT)
 
 
 def test_port_imports_no_jax():
-    """Every port module and ``chip_smoke.py`` import neither JAX nor the JAX package."""
+    """Every port module and ``chip_smoke.py`` import neither JAX nor the JAX
+    package, and import without PyYAML."""
     mods = [
         m.name
         for m in pkgutil.walk_packages(fetalsyngen_torch.__path__, "fetalsyngen_torch.")
     ]
-    assert "fetalsyngen_torch.kernels.hat" in mods and "fetalsyngen_torch.convert" in mods
+    for m in ("kernels.hat", "convert", "config", "io.nifti", "data.transforms", "data.datasets",
+              "generator.model", "testing", "test", "test_dl"):
+        assert f"fetalsyngen_torch.{m}" in mods
+    # PyYAML is blocked too: only ``config.load_yaml`` may need it
     code = (
         "import importlib, sys\n"
+        "sys.modules['yaml'] = None\n"
         f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'fetalsyngen_tpu'))\n"
         "assert not bad, bad[:5]\n"
