@@ -45,12 +45,39 @@ result. Phases, each of which raises on failure:
    upload, draws), generation (host wall and CUDA events), download plus
    scaling.
 
-The line before the last is the kernels' JSON record; the last line is
+Phase 3 also holds the scanner's forms of K1 (linear pair with a
+lane-affine table; with per-slice coefficients) and K2 (per-slice) against
+their plain versions at cubes 384 and 640 with 128 slice rows, on the pass
+tables of a real stack geometry with recorded motion: bit-identical, with
+the counts of half-integer and saturated positions. Every kernel check also
+times ``torch.nn.functional.grid_sample`` (bilinear, border, corners
+aligned) on the same positions as the library yardstick, and computes the
+kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
+operations over 67 TFLOP/s.
+
+8. the motion artifact (``SimulateMotion`` with ``default.yaml``'s
+   parameters, prob 1) on a 256^3 ``synth_train`` sample, its slice
+   resolution pinned to 0.5, 0.35 and 0.25 mm (the 384, 512 and 640 cube
+   tiers): CUDA-event ms of acquisition and reconstruction, host ms, launch
+   counts, stacks, slices, peak memory, replay from the metadata
+   bit-identical; then the card against the port's CPU path with device
+   noise off, on ``scanner_ab_case`` at cube 128 and on one 256^3 call at
+   the 384 tier: within 1e-4 of the data scale, validity flags and metadata
+   equal;
+9. ``FetalSynthDataset`` on ``synth_train.yaml`` as it is (its generator
+   with the four SR artifacts) on ``data/sub-sta21`` at 256^3, once at the
+   YAML's probabilities and once with every artifact forced on: samples/s
+   over 10 draws after 2 warm-ups, each artifact's device time (CUDA
+   events), launch counts, replay bit-identical, peak memory.
+
+Each phase prints its elapsed time. The line before the last is the
+kernels' JSON record, one entry per kernel form; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -60,10 +87,15 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fetalsyngen_torch.data.datasets import FetalSynthDataset
 from fetalsyngen_torch.data.transforms import scale_intensity
 from fetalsyngen_torch.generator import pipeline as tpipe
+from fetalsyngen_torch.generator.artifacts import quality as tq
+from fetalsyngen_torch.generator.artifacts import scanner as sc
+from fetalsyngen_torch.generator.artifacts.motion import sample_motion
+from fetalsyngen_torch.generator.artifacts.transforms import interleave_index, random_init_stack_transforms
 from fetalsyngen_torch.generator.config import GeneratorCfg, IntensityCfg
 from fetalsyngen_torch.generator.model import (
     FetalSynthGen,
@@ -78,8 +110,10 @@ from fetalsyngen_torch.generator.params import genparams_to_dict, sample_params
 from fetalsyngen_torch.io import nifti
 from fetalsyngen_torch.kernels import build, hat
 from fetalsyngen_torch.ops.affine import make_affine_matrix
+from fetalsyngen_torch.ops.morphology import box_sum
+from fetalsyngen_torch.ops.numerics import device_const
 from fetalsyngen_torch.ops.warp import FIELD_LIM, ul_decompose
-from fetalsyngen_torch.testing import phantom_seeds_and_seg
+from fetalsyngen_torch.testing import phantom_seeds_and_seg, run_scanner_ab, scanner_ab_case
 
 REPO = Path(__file__).resolve().parent
 DATA = REPO / "data"
@@ -90,6 +124,17 @@ GEN_CLASSES = tuple([0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50)
 KERNEL_TOL = 1e-5  # image |kernel - plain| <= KERNEL_TOL * max|x|
 IMAGE_TOL = 1e-4  # |GPU - CPU| on the [0, 1] image
 LABEL_TOL = 1e-5  # fraction of labels allowed to differ between GPU and CPU
+SCANNER_TOL = 1e-4  # |GPU - CPU| of the scanner's outputs over their max |x|
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+# the kernels' sources and the TPU kernels they replace, by LAUNCHES key
+KERNELS = {
+    "hat_pass_pair": ("fetalsyngen_torch/csrc/hat_pass.cu", "fetalsyngen_tpu/ops/warp.py:1217"),
+    "hat_pass_pair_lane": ("fetalsyngen_torch/csrc/hat_pass.cu", "fetalsyngen_tpu/ops/warp.py:1217"),
+    "hat_pass_pair_slice": ("fetalsyngen_torch/csrc/hat_pass.cu", "fetalsyngen_tpu/ops/warp.py:1217"),
+    "hat_pass": ("fetalsyngen_torch/csrc/hat_single.cu", "fetalsyngen_tpu/ops/warp.py:150"),
+    "hat_pass_slice": ("fetalsyngen_torch/csrc/hat_single.cu", "fetalsyngen_tpu/ops/warp.py:150"),
+}
 
 
 def log(msg: str) -> None:
@@ -101,10 +146,15 @@ def reset_counts() -> None:
         hat.LAUNCHES[k] = 0
 
 
-def cuda_ms(fn) -> float:
-    """Median milliseconds of ``fn()`` over 20 CUDA-event timed runs."""
+def counts(**nonzero) -> dict:
+    """A full LAUNCHES dict: zero but for ``nonzero``."""
+    return {**dict.fromkeys(hat.LAUNCHES, 0), **nonzero}
+
+
+def cuda_ms(fn, n: int = 20) -> float:
+    """Median milliseconds of ``fn()`` over ``n`` CUDA-event timed runs."""
     times = []
-    for _ in range(20):
+    for _ in range(n):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -112,6 +162,43 @@ def cuda_ms(fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move ``nbytes`` and do ``ops`` f32 operations."""
+    b, o = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def hat_bound(pair: bool, B, D, H, S, OW, disp=None, nearest=False):
+    """:func:`bound` of one hat pass over (B, D, H, S) rows to OW lanes: each
+    input read once (the rows of one or two operands, the displacement volume
+    or lane-affine table, the coefficients), each output written once; per
+    output element the position polynomial (6 operations, +1 with a volume,
+    +5 with a table) and 5 per linear sample (the second operand of a pair
+    is nearest if ``nearest``, the single operand too)."""
+    n_in, out = (2 if pair else 1), B * D * H * OW
+    n_lin = n_in - int(nearest)
+    disp_elems, pos_ops = 0, 6
+    if disp is not None:
+        disp_elems, pos_ops = (disp.numel(), 7) if disp.dim() == 4 else (disp.numel(), 11)
+    nbytes = 4 * (n_in * B * D * H * S + disp_elems + B * D * 4 + n_in * out)
+    return bound(nbytes, out * (pos_ops + 5 * n_lin))
+
+
+def grid_sample_ms(vols, pos, n: int = 20) -> float:
+    """Library yardstick: ms of one ``grid_sample`` (bilinear, border, corners
+    aligned) of the rows of the (B, D, H, S) ``vols`` stacked as channels at
+    the (B, D*H, OW) positions ``pos`` (the grid is built beforehand)."""
+    B, D, H, S = vols[0].shape
+    OW = pos.shape[-1]
+    inp = torch.stack(vols, 2).reshape(B * D, len(vols), H, S)
+    x = pos.reshape(B * D, H, OW) * (2.0 / (S - 1)) - 1.0
+    y = torch.arange(H, dtype=torch.float32, device=pos.device) * (2.0 / max(H - 1, 1)) - 1.0
+    grid = torch.stack([x, y[None, :, None].expand(B * D, H, OW)], -1)
+    del x
+    return cuda_ms(lambda: F.grid_sample(inp, grid, "bilinear", "border", align_corners=True), n)
 
 
 def bench_cfg():
@@ -161,16 +248,20 @@ def check_kernel(dev, cfg):
         bar = KERNEL_TOL * float(xa.abs().max())
         ms = cuda_ms(lambda: hat.hat_pass_pair(xa, xb, coefs, disp))
         plain_ms = cuda_ms(lambda: hat.hat_pass_pair_ref(xa, xb, coefs, disp))
+        lib_ms = grid_sample_ms([xa, xb], hat.positions(coefs, R, H, S, disp.reshape(BATCH, R, S)))
+        bound_ms, bound_by = hat_bound(True, BATCH, D, H, S, S, disp, nearest=True)
         log(
             f"kernel hat_pass_pair {name}: B={BATCH} R={R} S=OW={S} half-integer positions={n_half} "
             f"saturated={n_out} image max|kernel-plain|={err:.3e} (bar {bar:.3e}) "
-            f"labels differing={label_diff} kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+            f"labels differing={label_diff} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"grid_sample {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})"
         )
         if n_half == 0 or n_out == 0:
             raise RuntimeError(f"{name}: the crafted half-integer/edge positions did not occur")
         if label_diff or not err <= bar:
             raise RuntimeError(f"{name}: kernel disagrees with plain (labels {label_diff}, image {err})")
-        results.append((err, ms, plain_ms))
+        results.append(dict(key="hat_pass_pair", err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bound_ms, bound_by=bound_by))
     return results
 
 
@@ -225,17 +316,109 @@ def check_single_kernel(dev, cfg):
             bar = KERNEL_TOL * float(x.abs().max())
             ms = cuda_ms(lambda: hat.hat_pass(x, coefs, disp, nearest))
             plain_ms = cuda_ms(lambda: hat.hat_pass_ref(x, coefs, disp, nearest))
+            pos = hat.positions(coefs, R, H, S, None if disp is None else disp.reshape(1, R, S))
+            lib_ms = grid_sample_ms([x], pos)
+            del pos
+            bound_ms, bound_by = hat_bound(False, 1, D, H, S, S, disp, nearest)
             mode = "nearest" if nearest else "linear"
             log(
                 f"kernel hat_pass {name} {mode}: B=1 R={R} S=OW={S} half-integer positions={n_half} "
                 f"saturated={n_out} max|kernel-plain|={err:.3e} (bar {0.0 if nearest else bar:.3e}) "
-                f"elements differing={differ} kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+                f"elements differing={differ} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"grid_sample {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})"
             )
             if (with_disp or name == "crafted") and (n_half == 0 or n_out == 0):
                 raise RuntimeError(f"{name}: the crafted half-integer/edge positions did not occur")
             if (nearest and differ) or not err <= bar:
                 raise RuntimeError(f"{name} {mode}: kernel disagrees with plain ({differ} differ, {err})")
-            results.append((err, ms, plain_ms))
+            results.append(dict(key="hat_pass", err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                bound_ms=bound_ms, bound_by=bound_by))
+    return results
+
+
+# cube tier -> a slice-to-volume resolution ratio that selects it at 256^3
+TIER_RS = {384: 1.0, 512: 0.7, 640: 0.5}
+# (cube tier, pinned slice resolution in mm) of phase 8's motion calls
+MOTION_TIERS = ((384, 0.5), (512, 0.35), (640, 0.25))
+
+
+def stack_tables(dev, cube: int, rs: float, shape=(256, 256, 256), ns_grid: int = 128, seed: int = 0):
+    """The pass tables of one stack of a ``shape`` volume at 0.5 mm, gap 3
+    mm, recorded motion with interleaved slices, slice resolution ``rs``
+    times the volume's, on a ``cube`` stack frame: (name, pair?, (D, H, S),
+    coefs, disp) per hat pass of the acquisition and the reconstruction."""
+    res, gap = 0.5, 3.0
+    gap_vox = gap / res
+    ns = min(int(max(shape) * res / gap) + 2, ns_grid)
+    rng = np.random.default_rng(seed)
+    t_init = random_init_stack_transforms(ns, gap, False, 3.0, rng)
+    t_motion = sample_motion(np.arange(ns) * 1.5, rng)[np.asarray(interleave_index(ns, 3))]
+    mats = t_motion.compose(t_init).matrix(True).copy()
+    mats[:, :, 3] /= res
+    geo = sc._stack_geometry(t_init.matrix(True)[0, :, :3], mats, shape, ns, cube, ns_grid)
+    G = device_const(geo["G"], torch.float32, dev)
+    c_ss = (cube - 1) / 2.0
+    rs, gap_vox = sc._f32(rs), sc._f32(gap_vox)
+    z0 = sc._f32(c_ss - (ns - 1) / 2.0 * gap_vox)
+    dz, dv, du = sc._slice_coef_tables(G, rs, c_ss, z0, gap_vox, ns_grid)
+    idv, idu = sc._inplane_coef_tables(G, rs, c_ss, -1.0)
+    unit = sc._unit_coefs(dev)[None]
+    dz_tab = sc._dz_lane_table(dz, rs, c_ss, z0, gap_vox, cube, ns_grid)[None].contiguous()
+    dzr_tab = sc._dzr_lane_table(G, rs, c_ss, z0, gap_vox, ns_grid)[None].contiguous()
+    slab = (ns_grid, cube, cube)
+    return [
+        ("acquire dz", True, (cube, cube, cube), unit, dz_tab),
+        ("acquire dv", True, slab, dv[None].contiguous(), None),
+        ("acquire du", True, slab, du[None].contiguous(), None),
+        ("recon dz", True, (cube, cube, dzr_tab.shape[-1]), unit, dzr_tab),
+        ("recon du", False, slab, idu[None].contiguous(), None),
+        ("recon dv", False, slab, idv[None].contiguous(), None),
+    ]
+
+
+def check_scanner_kernels(dev, cubes=(384, 640)):
+    """Phase 3: the scanner's K1 and K2 forms against their plain versions,
+    bit-identical, at each cube's real pass tables."""
+    g = torch.Generator(device=dev).manual_seed(99)
+    results = []
+    for cube in cubes:
+        if sc.slice_grid(SHAPE, TIER_RS[cube]) != cube:
+            raise RuntimeError(f"slice resolution ratio {TIER_RS[cube]} does not select the {cube} tier")
+        for name, pair, (D, H, S), coefs, disp in stack_tables(dev, cube, TIER_RS[cube], SHAPE):
+            xa = 100.0 * torch.rand((1, D, H, S), generator=g, device=dev)
+            xb = torch.rand((1, D, H, S), generator=g, device=dev) if pair else None
+            if pair:
+                key = "hat_pass_pair_lane" if disp is not None else "hat_pass_pair_slice"
+                run = lambda: hat.hat_pass_pair(xa, xb, coefs, disp, nearest_b=False)  # noqa: E731
+                plain = lambda: hat.hat_pass_pair_ref(xa, xb, coefs, disp, nearest_b=False)  # noqa: E731
+            else:
+                key = "hat_pass_slice"
+                run = lambda: (hat.hat_pass(xa, coefs),)  # noqa: E731
+                plain = lambda: (hat.hat_pass_ref(xa, coefs),)  # noqa: E731
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = max(float((k - r).abs().max()) for k, r in zip(got, want))
+            differ = sum(int((k != r).sum()) for k, r in zip(got, want))
+            del got, want
+            pos = hat._positions_of(coefs, 1, D, H, S, disp)
+            n_half, n_out = count_positions(pos, S)
+            n = 20 if D * H * S <= 2**26 else 5
+            ms = cuda_ms(run, n)
+            plain_ms = cuda_ms(plain, n)
+            lib_ms = grid_sample_ms([xa] + ([xb] if pair else []), pos, n)
+            del pos
+            bound_ms, bound_by = hat_bound(pair, 1, D, H, S, S, disp)
+            log(
+                f"kernel {key} {name} cube {cube}: R={D * H} S=OW={S} half-integer positions={n_half} "
+                f"saturated={n_out} max|kernel-plain|={err:.3e} elements differing={differ} "
+                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms grid_sample {lib_ms:.4f} ms "
+                f"bound {bound_ms:.4f} ms ({bound_by})"
+            )
+            if differ or err != 0.0:
+                raise RuntimeError(f"{key} {name} cube {cube}: kernel differs from plain ({differ}, {err})")
+            results.append(dict(key=key, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                bound_ms=bound_ms, bound_by=bound_by, cube=cube, form=name))
+            del xa, xb
     return results
 
 
@@ -255,8 +438,8 @@ def run_slice(dev, cfg, seeds_np, seg_np):
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     log(f"synth_batch: launches {launches}")
-    if launches != {"hat_pass_pair": 3, "hat_pass": 0}:
-        raise RuntimeError(f"expected 3 hat_pass_pair launches and no hat_pass, got {launches}")
+    if launches != counts(hat_pass_pair=3):
+        raise RuntimeError(f"expected 3 hat_pass_pair launches and no other, got {launches}")
 
     if tuple(out.shape) != (BATCH, *SHAPE) or tuple(seg.shape) != (BATCH, *SHAPE):
         raise RuntimeError(f"bad output shapes {tuple(out.shape)} {tuple(seg.shape)}")
@@ -408,10 +591,56 @@ def where_time_goes(dev, cfg, seeds, segs):
                 f"{e.count / 3:6.1f} calls/batch  {e.key[:160]}")
 
 
-def api_generator(device, nonlinear_transform=True, seed=0):
-    """``configs/dataset/generator/default.yaml``'s generator less its SR
-    artifacts, built with the port's constructors (a CPU test holds it equal
-    to ``instantiate`` of the YAML)."""
+def default_artifacts(forced: bool = False) -> dict:
+    """``configs/dataset/generator/default.yaml``'s four SR artifacts, built
+    with the port's constructors (a CPU test holds them equal to
+    ``instantiate`` of the YAML); ``forced`` turns each always on (the
+    boundaries: halo and fuzzy)."""
+    perlin = dict(perlin_res_list=[1, 2], perlin_octaves_list=[1, 2, 4], perlin_persistence=0.5,
+                  perlin_lacunarity=2)
+    on = 1.0 if forced else 0.4
+    return {
+        "blur_cortex": tq.BlurCortex(
+            prob=on, cortex_label=2, nblur_min=50, nblur_max=200, sigma_gamma_loc=3,
+            sigma_gamma_scale=1, std_blur_shape=2, std_blur_scale=1,
+        ),
+        "struct_noise": tq.StructNoise(
+            prob=on, wm_label=3, std_min=0.2, std_max=0.4, nstages_min=1, nstages_max=5,
+            merge_params=tq.StructNoiseMergeParams(
+                merge_type="perlin", gauss_nloc_min=5, gauss_nloc_max=15, gauss_sigma_mu=25,
+                gauss_sigma_std=5, perlin_increase_size=0.1, **perlin,
+            ),
+        ),
+        "simulate_motion": sc.SimulateMotion(
+            prob=on,
+            scanner_params=sc.ScannerParams(
+                resolution_slice_fac_min=0.5, resolution_slice_fac_max=2, resolution_slice_max=1.5,
+                slice_thickness_min=1.5, slice_thickness_max=3.5, gap_min=1.5, gap_max=5.5,
+                min_num_stack=2, max_num_stack=6, max_num_slices=250, noise_sigma_min=0,
+                noise_sigma_max=0.1, TR_min=1, TR_max=2, prob_gamma=0.1, gamma_std=0.05,
+                prob_void=0.2, slice_size=None, restrict_transform=False, txy=3.0,
+            ),
+            recon_params=sc.ReconParams(
+                prob_misreg_slice=0.1, slices_misreg_ratio=0.1, prob_misreg_stack=0.1, txy=3.0,
+                prob_merge=1.0, prob_smooth=0.2, prob_rm_slices=0.3, rm_slices_min=0.1,
+                rm_slices_max=0.4,
+                merge_params=tq.ReconMergeParams(
+                    merge_type="perlin", gauss_ngaussians_min=2, gauss_ngaussians_max=4,
+                    perlin_increase_size=0.25, **perlin,
+                ),
+            ),
+        ),
+        "boundaries": tq.SimulatedBoundaries(
+            prob_no_mask=0.0 if forced else 0.5, prob_if_mask_halo=1.0 if forced else 0.5,
+            prob_if_mask_fuzzy=1.0 if forced else 0.5,
+        ),
+    }
+
+
+def api_generator(device, nonlinear_transform=True, seed=0, artifacts=None):
+    """``configs/dataset/generator/default.yaml``'s generator, built with the
+    port's constructors (a CPU test holds it equal to ``instantiate`` of the
+    YAML), with the SR artifacts of ``artifacts`` (a dict) or none."""
     return FetalSynthGen(
         shape=SHAPE,
         resolution=(0.5, 0.5, 0.5),
@@ -429,6 +658,7 @@ def api_generator(device, nonlinear_transform=True, seed=0):
         gamma=RandGamma(prob=0.9, gamma_std=0.1),
         device=device,
         seed=seed,
+        **(artifacts or {}),
     )
 
 
@@ -436,15 +666,9 @@ def api_generator(device, nonlinear_transform=True, seed=0):
 # per sample): synth_train.yaml's seed path, real_train.yaml's image as
 # intensity with the co-deformed T2w, and that without the nonlinear field
 API_CONFIGS = {
-    "synth_train": (
-        dict(seed_path=str(DATA / "derivatives" / "seeds")), True, {"hat_pass_pair": 3, "hat_pass": 0},
-    ),
-    "real_train": (
-        dict(load_image=True, image_as_intensity=True), True, {"hat_pass_pair": 3, "hat_pass": 6},
-    ),
-    "real_train_affine": (
-        dict(load_image=True, image_as_intensity=True), False, {"hat_pass_pair": 0, "hat_pass": 15},
-    ),
+    "synth_train": (dict(seed_path=str(DATA / "derivatives" / "seeds")), True, dict(hat_pass_pair=3)),
+    "real_train": (dict(load_image=True, image_as_intensity=True), True, dict(hat_pass_pair=3, hat_pass=6)),
+    "real_train_affine": (dict(load_image=True, image_as_intensity=True), False, dict(hat_pass=15)),
 }
 
 
@@ -467,7 +691,7 @@ def api_path(dev, name):
         f"[{img.min():.6f}, {img.max():.6f}], labels {sorted(np.unique(lab).tolist())}, "
         f"gates deform={gp['deform_params']['deform_apply']} "
         f"resample={gp['resample_params']['spacing'] is not None}")
-    if launches != expected:
+    if launches != counts(**expected):
         raise RuntimeError(f"api {name}: expected launches {expected}, got {launches}")
     if img.shape != (1, *SHAPE) or img.dtype != np.float32 or not np.isfinite(img).all():
         raise RuntimeError(f"api {name}: bad image {img.shape} {img.dtype}")
@@ -557,6 +781,235 @@ def api_path(dev, name):
     return launches
 
 
+def synth_train_sample(dev, seed=5):
+    """One 256^3 ``synth_train`` sample on the card (generator without the
+    artifacts): (image (D, H, W), labels (D, H, W)) tensors."""
+    gen = api_generator(dev, seed=seed)
+    ds = FetalSynthDataset(str(DATA), gen, seed_path=str(DATA / "derivatives" / "seeds"))
+    seg_np = nifti.load_ras(ds.segm_paths[0]).data
+    out, seg, _, _ = gen.sample(None, seg_np, ds.seed_paths[ds._sub_ses_idx(0)])
+    return out, seg
+
+
+def motion_parts(motion, out, seg, genparams):
+    """``motion``'s scan and reconstruction as ``SimulateMotion`` runs them,
+    from ``genparams`` with ``rng_seed`` and ``device_seed``: (volume, the
+    accepted stacks' validity flags, the accumulated value and weight before
+    the equalization, the reconstructor's draws)."""
+    sp = sc.ScannerParams(**{**motion.scanner_args.__dict__, "resolution_recon": 0.5})
+    data = {"resolution": 0.5, "volume": out, "mask": (seg > 0).float(), "seg": seg.float()}
+    rng = np.random.default_rng(genparams["rng_seed"])
+    d = sc.Scanner(sp, motion.tiers, motion.ns_grid).scan(data, genparams, rng=rng,
+                                                          device_seed=genparams["device_seed"])
+    recon = sc.PSFReconstructor(motion.recon_args)
+    acc = {}
+    finalize = sc._finalize
+
+    def capture(value, weight, *rest):
+        acc.update(value=value, weight=weight)
+        return finalize(value, weight, *rest)
+
+    sc._finalize = capture
+    try:
+        o, _ = recon.recon_psf(d, genparams, rng=rng)
+    finally:
+        sc._finalize = finalize
+    return o, [st["valid"] for st in d["stacks"]], acc["value"], acc["weight"], recon.get_seeds()
+
+
+@contextlib.contextmanager
+def phase_events(events: dict):
+    """Record CUDA events around each ``Scanner.scan`` (``events["acquire"]``)
+    and ``PSFReconstructor.recon_psf`` (``events["recon"]``) call."""
+    originals = {}
+    for cls, name, key in ((sc.Scanner, "scan", "acquire"), (sc.PSFReconstructor, "recon_psf", "recon")):
+        originals[cls, name] = orig = getattr(cls, name)
+
+        def timed(self, *args, _orig=orig, _key=key, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = _orig(self, *args, **kw)
+            end.record()
+            events[_key] = (start, end)
+            return result
+
+        setattr(cls, name, timed)
+    try:
+        yield
+    finally:
+        for (cls, name), orig in originals.items():
+            setattr(cls, name, orig)
+
+
+def profile_motion(motion, out, seg):
+    """Where the time of one motion call at the first tier goes: the kernels
+    with the most device time (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        motion(out, seg, genparams={"resolution_slice": MOTION_TIERS[0][1]}, rng=np.random.default_rng(1), seed=1)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    log(f"profiler, one motion call at the {MOTION_TIERS[0][0]} tier: kernel time {busy_ms:.3f} ms, "
+        f"wall {wall_ms:.3f} ms (profiler on)")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
+        ms = e.self_device_time_total / 1e3
+        log(f"  kernel {100 * ms / busy_ms:5.1f}% {ms:9.3f} ms {e.count:5d} calls  {e.key[:150]}")
+
+
+def scanner_phase(dev, t_start):
+    """Phase 8: the motion artifact at each cube tier, then the card against
+    the port's CPU path. Returns the launch counts of the tier calls."""
+    out, seg = synth_train_sample(dev)
+    motion = default_artifacts(forced=True)["simulate_motion"]
+    total = counts()
+    for cube, res_s in MOTION_TIERS:
+        if sc.slice_grid(SHAPE, res_s / 0.5) != cube:
+            raise RuntimeError(f"resolution_slice {res_s} does not select the {cube} tier")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        events = {}
+        t0 = time.perf_counter()
+        with phase_events(events):
+            o, meta = motion(out, seg, genparams={"resolution_slice": res_s}, rng=np.random.default_rng(cube),
+                             seed=cube)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launches = dict(hat.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        (a0, a1), (r0, r1) = events["acquire"], events["recon"]
+        row = {
+            "motion_tier": cube, "resolution_slice": res_s, "acquire_events_ms": a0.elapsed_time(a1),
+            "recon_events_ms": r0.elapsed_time(r1), "host_ms": 1e3 * host_s,
+            "launches": {k: v for k, v in launches.items() if v}, "nstacks": meta["nstacks"],
+            "total_slices": meta["total_slices"], "peak_mem_bytes": peak,
+        }
+        if tuple(o.shape) != SHAPE or not bool(torch.isfinite(o).all()) or meta["nstacks"] < 1:
+            raise RuntimeError(f"motion tier {cube}: bad output {tuple(o.shape)} or no stack ({meta})")
+        if not (launches["hat_pass_pair_lane"] and launches["hat_pass_pair_slice"] and launches["hat_pass_slice"]):
+            raise RuntimeError(f"motion tier {cube}: a scanner kernel form was not launched: {launches}")
+        for k, v in launches.items():
+            total[k] += v
+        again, _ = motion(out, seg, genparams=meta)
+        row["replay_bit_identical"] = bool(torch.equal(again, o))
+        log(json.dumps(row))
+        if not row["replay_bit_identical"]:
+            raise RuntimeError(f"motion tier {cube}: replay from the metadata differs")
+        del o, again
+    log(f"phase 8 tiers done at {time.perf_counter() - t_start:.1f} s")
+    profile_motion(motion, out, seg)
+
+    # the card against the port's CPU path, device noise off
+    case = scanner_ab_case(128, 32)
+    gpu, cpu = run_scanner_ab(case, 128, 32, device=dev), run_scanner_ab(case, 128, 32, device="cpu")
+    errs = [float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-30)) for g, c in zip(gpu, cpu)]
+    flags = bool(np.array_equal(gpu[1], cpu[1]))
+    log(f"scanner_ab_case cube 128 GPU vs CPU: relative max|d| slices {errs[0]:.3e} value {errs[2]:.3e} "
+        f"weight {errs[3]:.3e} (bar {SCANNER_TOL}), validity flags equal {flags}")
+    if not flags or max(errs) > SCANNER_TOL:
+        raise RuntimeError("scanner_ab_case: GPU and CPU paths disagree")
+    quiet = default_artifacts(forced=True)["simulate_motion"]
+    quiet.scanner_args = sc.ScannerParams(**{**quiet.scanner_args.__dict__, "noise_sigma_max": 0.0,
+                                             "prob_void": 0.0, "min_num_stack": 2, "max_num_stack": 2})
+    quiet.recon_args = sc.ReconParams(**{**quiet.recon_args.__dict__, "prob_merge": 0.0})
+    gp = {"rng_seed": 11, "device_seed": 11, "resolution_slice": MOTION_TIERS[0][1]}
+    g_out, g_valid, g_val, g_w, g_seeds = motion_parts(quiet, out, seg, gp)
+    t0 = time.perf_counter()
+    c_out, c_valid, c_val, c_w, c_seeds = motion_parts(quiet, out.cpu(), seg.cpu(), gp)
+    cpu_s = time.perf_counter() - t0
+    flags = len(g_valid) == len(c_valid) and all(np.array_equal(a, b) for a, b in zip(g_valid, c_valid))
+    errs = {k: float((g.cpu() - c).abs().max() / c.abs().max())
+            for k, g, c in (("value", g_val, c_val), ("weight", g_w, c_w), ("volume", g_out, c_out))}
+    # the equalization divides by the weight where it exceeds 1e-2: a voxel
+    # whose weight lies within rounding of that threshold flips between the
+    # devices; the comparison of the volume leaves those voxels (and, with the
+    # box smooth on, their 3^3 neighbourhoods) out and counts them
+    g_w, g_out = g_w.cpu(), g_out.cpu()
+    flips = (g_w > 1e-2) != (c_w > 1e-2)
+    if c_seeds["smooth_volume_on"]:
+        flips = box_sum(flips, 3) > 0
+    rest = float(torch.where(flips, 0.0, (g_out - c_out).abs()).max() / c_out.abs().max())
+    worst = np.unravel_index(int((g_out - c_out).abs().argmax()), g_out.shape)
+    log(f"motion at the {MOTION_TIERS[0][0]} tier GPU vs CPU ({cpu_s:.1f} s on the CPU): {len(g_valid)} stacks, "
+        f"validity flags equal {flags}, relative max|d| value {errs['value']:.3e} weight {errs['weight']:.3e} "
+        f"volume {errs['volume']:.3e} (at {tuple(int(i) for i in worst)}, weight there GPU "
+        f"{float(g_w[worst]):.9g} CPU {float(c_w[worst]):.9g}); threshold flips "
+        f"{int(((g_w > 1e-2) != (c_w > 1e-2)).sum())} voxels, volume elsewhere {rest:.3e} (bar {SCANNER_TOL}); "
+        f"reconstructor draws {json.dumps(c_seeds)}")
+    if not flags or g_seeds != c_seeds or not max(errs["value"], errs["weight"], rest) <= SCANNER_TOL:
+        raise RuntimeError("motion: GPU and CPU paths disagree")
+    return total
+
+
+class Timed:
+    """An artifact whose calls are timed with CUDA events; each span records
+    whether the artifact changed the volume (its gate fired)."""
+
+    def __init__(self, artifact):
+        self.artifact = artifact
+        self.spans = []
+
+    def __call__(self, *args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, meta = self.artifact(*args, **kw)
+        end.record()
+        fired = bool(meta) and meta.get("nblur", 0) is not None and not meta.get("no_mask_on", False)
+        self.spans.append((start, end, fired))
+        return out, meta
+
+
+def api_artifacts_phase(dev, forced: bool):
+    """Phase 9: ``synth_train.yaml`` as it is (or with every artifact forced
+    on) through ``FetalSynthDataset``. Returns the checked sample's launches."""
+    name = "synth_train_artifacts_forced" if forced else "synth_train_artifacts"
+    timed = {k: Timed(a) for k, a in default_artifacts(forced).items()}
+    gen = api_generator(dev, seed=9, artifacts=timed)
+    ds = FetalSynthDataset(str(DATA), gen, seed_path=str(DATA / "derivatives" / "seeds"))
+    torch.cuda.synchronize()
+    reset_counts()
+    item = ds.sample_with_meta(0)
+    launches = dict(hat.LAUNCHES)
+    gp = item["generation_params"]
+    img = item["image"]
+    log(f"api {name}: launches {launches}, artifacts {json.dumps(gp['artifacts'])[:600]}")
+    if img.shape != (1, *SHAPE) or not np.isfinite(img).all() or img.min() < 0.0 or img.max() > 1.0:
+        raise RuntimeError(f"api {name}: bad image {img.shape} [{img.min()}, {img.max()}]")
+    if forced and not (launches["hat_pass_pair_lane"] and launches["hat_pass_slice"]):
+        raise RuntimeError(f"api {name}: the motion artifact's kernels were not launched: {launches}")
+    again = ds.sample_with_meta(0, genparams=gp)
+    if not (np.array_equal(again["image"], img) and np.array_equal(again["label"], item["label"])):
+        raise RuntimeError(f"api {name}: replay from the genparams is not bit-identical")
+    for _ in range(2):
+        ds[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for t in timed.values():
+        t.spans.clear()
+    n = 10
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ds[0]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    per_artifact = {}
+    for k, t in timed.items():
+        fired = [a.elapsed_time(b) for a, b, f in t.spans if f]
+        per_artifact[k] = {"fired": len(fired), "events_ms_median": statistics.median(fired) if fired else None,
+                           "events_ms_max": max(fired) if fired else None}
+    log(json.dumps({"api": name, "samples_per_s": n / dt, "draws": n, "replay_bit_identical": True,
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), "artifacts": per_artifact}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU")
@@ -576,7 +1029,8 @@ def main() -> int:
     log(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t_start:.2f} s")
 
     cfg = bench_cfg()
-    checks = {"hat_pass_pair": check_kernel(dev, cfg), "hat_pass": check_single_kernel(dev, cfg)}
+    checks = check_kernel(dev, cfg) + check_single_kernel(dev, cfg)
+    checks += check_scanner_kernels(dev)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     seeds_np, seg_np = phantom_seeds_and_seg(SHAPE)
     launches, seeds, segs = run_slice(dev, cfg, seeds_np, seg_np)
@@ -588,21 +1042,35 @@ def main() -> int:
         for k, v in api_path(dev, name).items():
             launches[k] += v
         log(f"api {name} done at {time.perf_counter() - t_start:.1f} s")
+    for k, v in scanner_phase(dev, t_start).items():
+        launches[k] += v
+    log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+    for forced in (False, True):
+        for k, v in api_artifacts_phase(dev, forced).items():
+            launches[k] += v
+        log(f"phase 9 ({'forced' if forced else 'yaml'}) done at {time.perf_counter() - t_start:.1f} s")
+    missing = [k for k, v in launches.items() if not v]
+    if missing:
+        raise RuntimeError(f"kernel forms never launched on the main paths: {missing}")
 
-    sources = {
-        "hat_pass_pair": ("fetalsyngen_torch/csrc/hat_pass.cu", "fetalsyngen_tpu/ops/warp.py:1217"),
-        "hat_pass": ("fetalsyngen_torch/csrc/hat_single.cu", "fetalsyngen_tpu/ops/warp.py:150"),
-    }
-    log(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": sources[name][0],
-        "replaces": sources[name][1],
-        "launches": launches[name],
-        "max_abs_err": max(r[0] for r in results),
-        "ms": statistics.median(r[1] for r in results),
-        "plain_ms": statistics.median(r[2] for r in results),
-    } for name, results in checks.items()]}))
+    entries = []
+    for key, (source, replaces) in KERNELS.items():
+        rs = [r for r in checks if r["key"] == key]
+        mid = sorted(rs, key=lambda r: r["ms"])[len(rs) // 2]
+        entries.append({
+            "name": key,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[key],
+            "max_abs_err": max(r["err"] for r in rs),
+            "ms": statistics.median(r["ms"] for r in rs),
+            "plain_ms": statistics.median(r["plain_ms"] for r in rs),
+            "bound_ms": statistics.median(r["bound_ms"] for r in rs),
+            "bound_by": mid["bound_by"],
+            "library_ms": statistics.median(r["library_ms"] for r in rs),
+        })
+    log(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -10,13 +10,20 @@ constructor signatures and carry configuration: the voxel math is
 :func:`fetalsyngen_torch.generator.pipeline.synth_core`, one sample (B=1) per
 call, on the generator's device.
 
+The four SR artifacts (``blur_cortex``, ``struct_noise``,
+``simulate_motion``, ``boundaries``) run after the generator's stages, in
+that order, as the JAX package's ``_apply_artifacts`` runs them
+(``generator/model.py:271-295``), on the generator's device.
+
 Randomness: a numpy ``default_rng(seed)`` draws one integer per sample. That
 integer seeds the sample's ``torch.Generator`` (parameters, then voxel
 fields) and the seed-selection rng, and is written into the genparams as
-``"seed"``: passing the dict back replays the sample. A ``"key"`` entry, as
-in the JAX package's genparams, is ignored: the port cannot reproduce
-threefry streams. Every parameter such a dict holds, and its
-``selected_seeds``, still pin the port's sample.
+``"seed"``: passing the dict back replays the sample. Each artifact gets a
+seed derived from it and the artifact's tag (301-304, JAX's ``fold_in``
+tags), which seeds both its numpy rng and its device draws. A ``"key"``
+entry, as in the JAX package's genparams, is ignored: the port cannot
+reproduce threefry streams. Every parameter such a dict holds, its
+``selected_seeds`` and its artifacts' metadata still pin the port's sample.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from ..io import nifti
+from .artifacts.draws import derive_seed
 from .config import (
     BiasFieldCfg,
     DeformCfg,
@@ -49,6 +57,8 @@ from .pipeline import (
 )
 
 ARTIFACTS = ("blur_cortex", "struct_noise", "simulate_motion", "boundaries")
+# each artifact's stream tag (the JAX package's fold_in tags)
+ARTIFACT_TAGS = {"blur_cortex": 301, "struct_noise": 302, "simulate_motion": 303, "boundaries": 304}
 
 
 class _HostSeedCache:
@@ -205,8 +215,8 @@ class FetalSynthGen:
     ``device``: where the samples are generated; ``None`` means ``"cuda"``.
     Without a CUDA device that raises: set ``device: cpu`` to run the plain
     PyTorch path. The SR artifacts (``blur_cortex``, ``struct_noise``,
-    ``simulate_motion``, ``boundaries``) are not ported yet and raise when
-    given.
+    ``simulate_motion``, ``boundaries``; each optional) are applied by
+    ``sample`` and ``augment``.
     """
 
     def __init__(
@@ -226,13 +236,7 @@ class FetalSynthGen:
         boundaries: Any | None = None,
         seed: int | None = None,
     ):
-        given = (blur_cortex, struct_noise, simulate_motion, boundaries)
-        named = [k for k, v in zip(ARTIFACTS, given) if v is not None]
-        if named:
-            raise NotImplementedError(
-                f"the SR artifacts {named} are not ported to fetalsyngen_torch yet "
-                "(ROADMAP.md §1, items 4 and 6); drop them from the generator config"
-            )
+        self.artifacts = dict(zip(ARTIFACTS, (blur_cortex, struct_noise, simulate_motion, boundaries)))
         self.device = torch.device(device if device is not None else "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -258,6 +262,21 @@ class FetalSynthGen:
         if "seed" in genparams:
             return int(genparams["seed"])
         return int(self._rng.integers(0, 2**31 - 1))
+
+    def _apply_artifacts(self, out, seg, genparams_artifacts: dict, seed: int):
+        """The configured SR artifacts on one (D, H, W) volume, each with its
+        own stream (reference ``model.py:210-220``); returns the volume and
+        each artifact's metadata."""
+        meta = {}
+        for name, artifact in self.artifacts.items():
+            if artifact is None:
+                continue
+            aseed = derive_seed(seed, ARTIFACT_TAGS[name])
+            out, meta[name] = artifact(
+                out, seg, genparams=genparams_artifacts.get(name, {}),
+                resolution=self.cfg.resolution, rng=np.random.default_rng(aseed), seed=aseed,
+            )
+        return out, meta
 
     def _check_shape(self, segmentation) -> None:
         """Fail fast on a volume/config shape mismatch.
@@ -337,16 +356,22 @@ class FetalSynthGen:
         return out[0], seg[0], (img[0] if img is not None else None), params_out
 
     def augment(self, image, segmentation, genparams: dict | None = None, seed: int | None = None):
-        """Intensity augmentations on a given image (reference
-        ``model.py:161-229``; the SR artifacts are not ported). Returns
-        (output, params) with a (D, H, W) tensor on the device."""
+        """Intensity augmentations and the SR artifacts on a given image
+        (reference ``model.py:161-229``). Artifact pins are read from
+        ``genparams["artifacts"]``, or from ``"artifact_params"`` as the JAX
+        package also accepts. Returns (output, params) with a (D, H, W)
+        tensor on the device."""
         self._check_shape(segmentation)
         genparams = dict(genparams or {})
         seed = self._resolve_seed(genparams, seed)
         p, fields = self._draw(genparams, seed)
+        seg = self._upload(segmentation, torch.int32)
         out, _, _ = synth_core(
-            p, fields, None, self._upload(segmentation, torch.int32), self.cfg,
+            p, fields, None, seg, self.cfg,
             intensity_prior=self._upload(image, torch.float32), stages=STAGES_AUGMENT,
+        )
+        out, artifact_meta = self._apply_artifacts(
+            out[0], seg[0], genparams.get("artifacts", genparams.get("artifact_params", {})), seed
         )
         full = genparams_to_dict(p)
         params_out = {
@@ -355,9 +380,9 @@ class FetalSynthGen:
             "bf_params": full["bf_params"],
             "resample_params": full["resample_params"],
             "noise_params": full["noise_params"],
-            "artifacts": {},
+            "artifacts": artifact_meta,
         }
-        return out[0], params_out
+        return out, params_out
 
     def sample(self, image, segmentation, seeds, genparams: dict | None = None,
                seed: int | None = None):
@@ -381,10 +406,13 @@ class FetalSynthGen:
         """
         inputs, seed, selected = self.prepare(image, segmentation, seeds, genparams, seed)
         out, seg, img = synth_core(**inputs, cfg=self.cfg, stages=STAGES_ALL)
+        out, artifact_meta = self._apply_artifacts(
+            out[0], seg[0], (genparams or {}).get("artifacts", {}), seed
+        )
         params_out = {
             "seed": seed,
             "selected_seeds": selected,
             **genparams_to_dict(inputs["p"]),
-            "artifacts": {},
+            "artifacts": artifact_meta,
         }
-        return out[0], seg[0], (img[0] if img is not None else None), params_out
+        return out, seg[0], (img[0] if img is not None else None), params_out

@@ -92,6 +92,19 @@ def apply_axis_matrix(vol: torch.Tensor, M: torch.Tensor, axis: int) -> torch.Te
     return torch.einsum(_AXIS_SPEC[axis], M, vol)
 
 
+def interp_matrix_1d(coords: torch.Tensor, in_size: int, out_valid: int | None = None) -> torch.Tensor:
+    """Unbatched :func:`interp_matrix` (the SR artifacts' form): (out,
+    in_size) at (out,) ``coords``, clamped; rows at or past ``out_valid``
+    are zero."""
+    valid = None if out_valid is None else torch.full((1,), out_valid, device=coords.device)
+    return interp_matrix(coords[None], in_size, out_valid=valid)[0]
+
+
+def axis_mm(vol: torch.Tensor, M: torch.Tensor, axis: int) -> torch.Tensor:
+    """Unbatched :func:`apply_axis_matrix`: (D, H, W) ``vol``, (out, in) ``M``."""
+    return apply_axis_matrix(vol[None], M[None], axis)[0]
+
+
 def apply_separable(vol: torch.Tensor, Ms) -> torch.Tensor:
     """Apply one operator per spatial axis (order 0, 1, 2)."""
     for axis, M in enumerate(Ms):

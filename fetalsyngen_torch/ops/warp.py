@@ -11,16 +11,24 @@ so the warp runs as single-axis resampling passes with closed-form positions.
 - One volume (:func:`warp_affine_separable`,
   :func:`warp_affine_field_separable`): every pass goes through the
   single-operand hat kernel (:func:`fetalsyngen_torch.kernels.hat.hat_pass`).
+- The scanner's rigid maps of cube volumes (:func:`warp_rigid_pair_traced`
+  with its host decompositions): a quarter turn, unit shears as batched
+  matmuls (:func:`_shear_pass_pair_mm`) and a separable zoom, unbatched.
 
-All tensors are batch-first; per-sample scalars are (B,) tensors. The pass
-order, layouts and coefficients are the JAX package's.
+The affine warps are batch-first, with per-sample scalars as (B,) tensors;
+the rigid warps take one (D, H, W) volume or pair. The pass order, layouts
+and coefficients are the JAX package's.
 """
 
 from __future__ import annotations
 
+import itertools
+
+import numpy as np
 import torch
 
 from ..kernels.hat import hat_pass, hat_pass_pair
+from .linops import axis_mm, interp_matrix_1d
 
 # Displacement fields are clipped to +-FIELD_LIM voxels: ~3.5 sigma of the
 # largest default nonlin_std (4.0), beyond the field's realizable range.
@@ -183,6 +191,209 @@ def warp_affine_field_separable(vol, A, t, Fx, Fy, Fz, nearest=False):
     x = x.permute(0, 2, 3, 1)  # (j, k, i): pos = i + gx
     x = _hat(x, zero, zero, one, zero, nearest, gx.permute(0, 2, 3, 1))
     return x.permute(0, 3, 1, 2).to(vol.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rigid warps of cube volumes (the scanner's stack-frame maps)
+# ---------------------------------------------------------------------------
+#
+# A rotation-times-isotropic-scale map is split on the host into one of the
+# 24 cube rotations (a pure permute/flip) and a residual rotation whose Euler
+# angles stay well below 90 degrees; the residual runs as unit shears and a
+# final separable zoom, each a matmul. Unbatched (D, H, W) volumes.
+
+# rotation axis -> rotated plane
+_PLANE = {0: (1, 2), 1: (2, 0), 2: (0, 1)}
+
+
+def _exact_quarter_np(V, P):
+    S = V.shape[0]
+    c = (S - 1) / 2.0
+    q = np.indices(V.shape).astype(np.float64) - c
+    i = np.rint(np.einsum("ab,b...->a...", P, q) + c).astype(int)
+    return V[i[0], i[1], i[2]]
+
+
+def _init_quarter_table():
+    """The 24 proper cube rotations ``P`` and, for each, the (transpose,
+    flip axes) layout op with ``out[q] = V[P (q - c) + c]``."""
+    mats, ops = [], []
+    probe = np.arange(4**3).reshape(4, 4, 4)
+    layouts = [
+        (tp, ax)
+        for tp in itertools.permutations(range(3))
+        for ax in itertools.chain.from_iterable(
+            itertools.combinations(range(3), k) for k in range(4)
+        )
+    ]
+    for perm in itertools.permutations(range(3)):
+        for signs in itertools.product([1, -1], repeat=3):
+            P = np.zeros((3, 3))
+            for a in range(3):
+                P[a, perm[a]] = signs[a]
+            if round(np.linalg.det(P)) != 1:
+                continue
+            want = _exact_quarter_np(probe, P)
+            for tp, ax in layouts:
+                cand = np.transpose(probe, tp)
+                if ax:
+                    cand = np.flip(cand, ax)
+                if np.array_equal(cand, want):
+                    mats.append(P.astype(np.float64))
+                    ops.append((tp, tuple(ax)))
+                    break
+            else:  # pragma: no cover
+                raise AssertionError(f"no layout op found for quarter turn {P}")
+    return mats, ops
+
+
+_QUARTER_MATS, _QUARTER_OPS = _init_quarter_table()
+_QUARTER_STACK = np.stack(_QUARTER_MATS)  # (24, 3, 3)
+
+
+def nearest_quarter_index(R) -> int:
+    """Host: index of the cube rotation nearest (Frobenius) to ``R``."""
+    R = np.asarray(R, np.float64)
+    return int(np.argmax(np.einsum("kij,ij->k", _QUARTER_STACK, R)))
+
+
+def quarter_matrix(idx: int) -> np.ndarray:
+    return _QUARTER_MATS[idx]
+
+
+def apply_quarter_turn(x: torch.Tensor, idx: int) -> torch.Tensor:
+    """``out[q] = V[P_idx (q - c) + c]`` on a cube volume: the permute/flip
+    of table entry ``idx`` (a host int)."""
+    tp, ax = _QUARTER_OPS[idx]
+    x = x.permute(tp)
+    return torch.flip(x, ax) if ax else x
+
+
+def decompose_rigid_host(R, t, in_center, out_center):
+    """Host: split ``p_in = R q_out + t_c`` (about centers) into a quarter
+    turn and a near-identity residual: (q_idx, A_res, t_res) with
+    ``R = P[q_idx] @ A_res`` and ``out[q] = quarter(V)[A_res q + t_res]``."""
+    R = np.asarray(R, np.float64)
+    t = np.asarray(t, np.float64)
+    idx = nearest_quarter_index(R)
+    P = _QUARTER_MATS[idx]
+    A_res = P.T @ R
+    c_in = np.asarray(in_center, np.float64)
+    c_out = np.asarray(out_center, np.float64)
+    t_res = c_in + P.T @ t - A_res @ c_out
+    return idx, A_res.astype(np.float32), t_res.astype(np.float32)
+
+
+def decompose_affine_paeth_host(A, t, cube):
+    """Host: split an uncentered ``p_in = A q_out + t`` (rotation times
+    isotropic scale, input = the cube grid) into (q_idx, angles (3,), scale,
+    delta (3,)) with ``V[A q + t] == zoom_{scale, delta}(rot_{angles}(
+    quarter_{q_idx}(V)))[q]``: rot samples ``Rx(a0) Ry(a1) Rz(a2)`` about the
+    cube center, zoom samples axis coordinate ``scale * q + delta``."""
+    from scipy.spatial.transform import Rotation
+
+    A = np.asarray(A, np.float64)
+    t = np.asarray(t, np.float64)
+    s = float(np.cbrt(np.linalg.det(A)))
+    R = A / s
+    idx = nearest_quarter_index(R)
+    P = _QUARTER_MATS[idx]
+    R_res = P.T @ R
+    angles = Rotation.from_matrix(R_res).as_euler("XYZ")
+    c = np.full(3, (cube - 1) / 2.0)
+    t_res = P.T @ (t - c) + c
+    delta = R_res.T @ (t_res - c) + c
+    return idx, angles.astype(np.float32), np.float32(s), delta.astype(np.float32)
+
+
+def _shear_matrices_jks(J, K, S, amount, c_fix):
+    """(J, K, S) banded per-row linear resampling operators
+    ``M[j,k,s] = hat(pos(j,k) - s)``, ``pos = k + amount*(j - c_fix)``,
+    edge-clamped; ``amount`` a 0-d tensor. Built in place: at a 640 cube the
+    operator alone is 1 GB."""
+    dev = amount.device
+    jj = torch.arange(J, dtype=torch.float32, device=dev)[:, None, None]
+    kk = torch.arange(K, dtype=torch.float32, device=dev)[None, :, None]
+    ss = torch.arange(S, dtype=torch.float32, device=dev)[None, None, :]
+    pos = torch.clamp(kk + amount * (jj - c_fix), 0.0, S - 1.0)
+    # max(0, 1 - |pos - s|), in place
+    return (pos - ss).abs_().neg_().add_(1.0).clamp_min_(0.0)
+
+
+def _shear_pass_pair_mm(va, vb, axis_move, axis_fix, amount):
+    """Shear of one volume or a pair (``vb`` may be None) as a batched matmul,
+    one (K, S) operator per ``axis_fix`` row shared by both operands:
+    ``pos[axis_move] = idx + amount * centered(axis_fix)``."""
+    axis_other = next(a for a in range(3) if a not in (axis_move, axis_fix))
+    perm = (axis_other, axis_fix, axis_move)
+    inv = tuple(int(i) for i in np.argsort(perm))
+    xa = va.permute(perm)
+    J, K = xa.shape[1], xa.shape[2]
+    M = _shear_matrices_jks(J, K, K, amount, (va.shape[axis_fix] - 1) / 2.0)
+    oa = torch.einsum("jks,ijs->ijk", M, xa).permute(inv)
+    if vb is None:
+        return oa, None
+    return oa, torch.einsum("jks,ijs->ijk", M, vb.permute(perm)).permute(inv)
+
+
+def _interp_or_nearest_matrix(coords, in_size: int, nearest: bool) -> torch.Tensor:
+    """(out, in_size) clamped linear operator, or the nearest (one-hot,
+    half to even) one."""
+    if not nearest:
+        return interp_matrix_1d(coords, in_size)
+    idx = torch.clamp(torch.round(coords), 0, in_size - 1).to(torch.int64)
+    cols = torch.arange(in_size, device=coords.device)
+    return (cols[None, :] == idx[:, None]).to(torch.float32)
+
+
+def warp_rigid_pair_traced(
+    va, vb, q_idx, angles, scale, delta, out_shape=None, post_a=None, post_b=None, out_perm=None,
+):
+    """``out[q] = V[A q + t]`` for one or two (``vb`` may be None) cube
+    volumes, linearly, with the map of :func:`decompose_affine_paeth_host`:
+    ``q_idx`` a host int, ``angles`` (3,), ``scale`` (0-d) and ``delta``
+    (3,) f32 tensors on the volumes' device.
+
+    The quarter turn is a permute/flip; each residual axis rotation
+    ``[[c,-s],[s,c]]`` factors as ``diag(1/c, c)`` times two unit shears, the
+    diagonals carried in ``C`` (f32, computed in f32 as the JAX package does)
+    and folded into the final zoom, which runs as three separable matmuls.
+    ``post_a``/``post_b``: per-axis (out, out) operators (or None) applied to
+    each operand in the output frame, composed into the zoom matrices.
+    ``out_perm=(1, 2, 0)`` emits the outputs as (axis1, axis2, axis0).
+    """
+    cube = va.shape[0]
+    out_shape = tuple(out_shape) if out_shape is not None else tuple(va.shape)
+    cc = (cube - 1) / 2.0
+    a = apply_quarter_turn(va.to(torch.float32), q_idx)
+    b = apply_quarter_turn(vb.to(torch.float32), q_idx) if vb is not None else None
+    C = [torch.ones((), dtype=torch.float32, device=va.device)] * 3
+    for axis in range(3):
+        u_ax, v_ax = _PLANE[axis]
+        c = torch.cos(angles[axis])
+        s = torch.sin(angles[axis])
+        C[u_ax] = C[u_ax] / c
+        C[v_ax] = C[v_ax] * c
+        amt_u = (-s * c) * C[u_ax] / C[v_ax]
+        amt_v = (s / c) * C[v_ax] / C[u_ax]
+        a, b = _shear_pass_pair_mm(a, b, u_ax, v_ax, amt_u)
+        a, b = _shear_pass_pair_mm(a, b, v_ax, u_ax, amt_v)
+    last_spec = {None: None, (1, 2, 0): "oi,jki->koj"}[out_perm]
+
+    def zoom(x, post, axis, M):
+        if post is not None and post[axis] is not None:
+            M = post[axis] @ M
+        if axis == 2 and last_spec is not None:
+            return torch.einsum(last_spec, M, x)
+        return axis_mm(x, M, axis)
+
+    for axis in range(3):
+        lanes = torch.arange(out_shape[axis], dtype=torch.float32, device=va.device)
+        M = interp_matrix_1d(C[axis] * (scale * lanes + delta[axis] - cc) + cc, cube)
+        a = zoom(a, post_a, axis, M)
+        if b is not None:
+            b = zoom(b, post_b, axis, M)
+    return a, b
 
 
 def warp_affine_field_pair_pre(va, vb, A, t, gyT, gz, gxT):

@@ -4,8 +4,9 @@ and genparams JSON.
 
     python -m fetalsyngen_torch.test --config configs/dataset/synth_train.yaml [--device cpu]
 
-The SR artifacts are not ported yet: their entries are dropped from the
-generator config, and the script says so.
+``--shape N`` shrinks the generator grid for a smoke run; it scales the
+motion artifact's stack-frame tiers and slice grid with it (their defaults
+are sized for 256^3 volumes).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ def load_dataset(args):
     """The dataset of ``args.config`` with the command line's overrides,
     built with the port's classes."""
     from fetalsyngen_torch.config import instantiate, load_yaml, resolve_interpolations
-    from fetalsyngen_torch.generator.model import ARTIFACTS
+    from fetalsyngen_torch.generator.artifacts.scanner import DEFAULT_TIERS, NS
 
     cfg = resolve_interpolations(load_yaml(args.config))
     cfg = cfg.get("dataset", cfg)
@@ -30,14 +31,17 @@ def load_dataset(args):
     if args.seed_path:
         cfg["seed_path"] = args.seed_path
     gen_cfg = cfg.pop("generator")
-    dropped = [k for k in ARTIFACTS if gen_cfg.pop(k, None) is not None]
-    if dropped:
-        print(f"not yet ported, left out of the generator: {', '.join(dropped)}")
     if args.device:
         gen_cfg["device"] = args.device
     if args.shape:
         gen_cfg["shape"] = [args.shape] * 3
         gen_cfg.get("spatial_deform", {})["size"] = [args.shape] * 3
+        if gen_cfg.get("simulate_motion"):
+            def scaled(n):  # n * shape / 256, rounded up to a multiple of 32
+                return max(32, -(-n * args.shape // (256 * 32)) * 32)
+
+            gen_cfg["simulate_motion"]["tiers"] = sorted({scaled(t) for t in DEFAULT_TIERS})
+            gen_cfg["simulate_motion"]["ns_grid"] = scaled(NS)
     generator = instantiate(gen_cfg)
     return instantiate(cfg, generator=generator)
 

@@ -61,6 +61,76 @@ def build_bids_tree(
     return root
 
 
+def scanner_ab_case(cube: int = 128, ns_grid: int = 32):
+    """Deterministic single-stack scanner geometry for A/B tests (copy of
+    ``fetalsyngen_tpu.testing.scanner_ab_case``, built with the port's host
+    modules): a blurred box phantom (96^3) and its mask, a production-scale
+    gap (gap_vox = 4) with recorded-trajectory motion. Returns the phantom,
+    the stack geometry and the scalars :func:`run_scanner_ab` takes."""
+    from scipy.ndimage import gaussian_filter
+
+    from .generator.artifacts import scanner as sc
+    from .generator.artifacts.motion import sample_motion
+    from .generator.artifacts.transforms import random_init_stack_transforms
+
+    rng = np.random.default_rng(11)
+    shape = (96, 96, 96)
+    base = np.zeros(shape, np.float32)
+    base[20:76, 24:72, 22:74] = 100.0
+    vol = gaussian_filter(
+        base + rng.normal(0, 5, shape).astype(np.float32) * (base > 0), 1.0
+    ).astype(np.float32)
+    mask = (vol > 5).astype(np.float32)
+
+    res, res_s, thick, gap = 0.5, 0.7, 2.0, 2.0
+    rs, gap_vox = res_s / res, gap / res
+    ns = min(int(max(shape) * res / gap) + 2, ns_grid)
+    t_init = random_init_stack_transforms(ns, gap, False, 3.0, rng)
+    t_target = sample_motion(np.arange(ns) * 1.0, rng).compose(t_init)
+    mats_vox = t_target.matrix(True).copy()
+    mats_vox[:, :, 3] /= res
+    geo = sc._stack_geometry(t_init.matrix(True)[0, :, :3], mats_vox, shape, ns, cube, ns_grid)
+    z0 = float((cube - 1) / 2.0 - (ns - 1) / 2.0 * gap_vox)
+    inv = sc.decompose_affine_paeth_host(geo["Minv"], -geo["Minv"] @ geo["t_stack"], cube)
+    return dict(
+        shape=shape, vol=vol, mask=mask, res=res, rs=rs, gap_vox=gap_vox,
+        thick=thick, ns=ns, z0=z0, geo=geo, mats_vox=mats_vox, inv=inv,
+        sig=(sc.GAUSSIAN_FWHM * thick / res, sc.SINC_FWHM * rs, sc.SINC_FWHM * rs),
+        sig_rec=(sc.GAUSSIAN_FWHM * thick / res, sc.SINC_FWHM * rs),
+    )
+
+
+def run_scanner_ab(case, cube: int = 128, ns_grid: int = 32, device="cpu"):
+    """One acquisition and reconstruction of :func:`scanner_ab_case` through
+    the port's per-stack functions on ``device``, with the JAX package's
+    ``run_scanner_ab`` settings (validity threshold 0.15, no gamma, noise or
+    voids). Returns numpy (slices, valid, value, weight)."""
+    import torch
+
+    from .generator.artifacts import scanner as sc
+    from .generator.artifacts.draws import make_generator
+
+    s = case
+    f32 = torch.float32
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float32), dtype=f32, device=device)
+
+    slices, valid = sc._acquire_one(
+        sc._pad_centered(dev(s["vol"]), cube), sc._pad_centered(dev(s["mask"]), cube),
+        sc._fwd_tensors(s["geo"]["fwd"], device), dev(s["geo"]["G"]),
+        sc._f32(s["rs"]), sc._f32(s["gap_vox"]), sc._f32(s["z0"]), dev(s["sig"]),
+        sc._f32(0.15), s["ns"], 1.0, False, 0.0, 0.0, sc._f32(0.1), cube, ns_grid,
+        sc.draw_slice_artifacts(make_generator(0, device), ns_grid, cube, device),
+    )
+    v_s, w_s = sc._recon_one(
+        slices, valid, dev(s["geo"]["G"]), sc._f32(s["rs"]), sc._f32(s["gap_vox"]),
+        sc._f32(s["z0"]), dev(s["sig_rec"]), sc._fwd_tensors(s["inv"], device),
+        cube, ns_grid, s["shape"],
+    )
+    return tuple(t.cpu().numpy() for t in (slices, valid, v_s, w_s))
+
+
 def phantom_seeds_and_seg(shape=(256, 256, 256), seed: int = 0):
     """Procedural (seeds, segmentation) pair shaped like real preprocessed data.
 

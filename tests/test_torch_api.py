@@ -146,10 +146,36 @@ def test_test_dataset_transforms_and_inverse(bids_root):
     assert rev["image"].shape == (1, *SHAPE)
 
 
-def test_artifacts_and_device_errors(monkeypatch):
-    for name in ARTIFACTS:
-        with pytest.raises(NotImplementedError, match="items 4 and 6"):
-            small_generator(**{name: object()})
+def _small_artifacts():
+    """Each SR artifact, always on, sized for SHAPE (the motion artifact on a
+    64 cube)."""
+    from fetalsyngen_torch.generator.artifacts import quality as q
+    from fetalsyngen_torch.generator.artifacts import scanner as sc
+
+    merge = dict(perlin_res_list=[1, 2], perlin_octaves_list=[1, 2], perlin_persistence=0.5,
+                 perlin_lacunarity=2, perlin_increase_size=0.25)
+    return {
+        "blur_cortex": q.BlurCortex(1.0, 2, 5, 20),
+        "struct_noise": q.StructNoise(1.0, 3, 0.2, 0.4, q.StructNoiseMergeParams("perlin", **merge)),
+        "simulate_motion": sc.SimulateMotion(
+            1.0,
+            sc.ScannerParams(0.5, 2, 1.5, 1.5, 3.5, 1.5, 5.5, 1, 2, 250, 0, 0.1, 1, 2, 0.2, 0.1, 0.05),
+            sc.ReconParams(0.1, 0.1, 0.1, 3.0, 0.2, 0.3, 0.1, 0.4, 1.0, q.ReconMergeParams("perlin", **merge)),
+            tiers=(64,), ns_grid=32,
+        ),
+        "boundaries": q.SimulatedBoundaries(0.0, 1.0, 1.0),
+    }
+
+
+def test_artifacts_and_device_errors(monkeypatch, bids_root):
+    """Each SR artifact object is accepted and runs in ``sample``; the
+    device and shape checks raise."""
+    seg = nifti.load_ras(seed_ds(bids_root).segm_paths[0]).data
+    for name, artifact in _small_artifacts().items():
+        gen = small_generator(**{name: artifact})
+        out, _, _, params = gen.sample(None, seg, seed_ds(bids_root).seed_paths[FIXTURE_SUBJECTS[0]], seed=3)
+        assert list(params["artifacts"]) == [name] and params["artifacts"][name], name
+        assert out.shape == SHAPE and bool(torch.isfinite(out).all()), name
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device: cpu"):
         small_generator(device=None)
@@ -207,6 +233,23 @@ def test_chip_smoke_generator_matches_yaml(nonlinear):
     assert got == want
 
 
+@pytest.mark.parametrize("forced", [False, True])
+def test_chip_smoke_artifacts_match_yaml(forced):
+    """The SR artifacts ``chip_smoke.py`` builds in Python are
+    ``configs/dataset/generator/default.yaml``'s (``forced``: every
+    probability 1, the boundaries' no-mask 0)."""
+    gen_cfg = resolve_interpolations(load_yaml("configs/dataset/generator/default.yaml"))
+    if forced:
+        for k in ("blur_cortex", "struct_noise", "simulate_motion"):
+            gen_cfg[k]["prob"] = 1.0
+        gen_cfg["boundaries"].update(prob_no_mask=0.0, prob_if_mask_halo=1.0, prob_if_mask_fuzzy=1.0)
+    got = chip_smoke.default_artifacts(forced)
+    assert list(got) == list(ARTIFACTS)
+    for k in ARTIFACTS:
+        want = instantiate(gen_cfg[k])
+        assert type(got[k]) is type(want) and vars(got[k]) == vars(want), k
+
+
 def test_host_seed_cache_byte_budget():
     blob = np.zeros(1000, np.int16)  # 2000 bytes each
     loads = []
@@ -246,3 +289,118 @@ def test_jax_genparams_pin_the_port(bids_root):
         np.testing.assert_array_equal(
             np.asarray(got[name], np.float32), np.asarray(value, np.float32), err_msg=name
         )
+
+
+ART_SHAPE = (48, 48, 48)
+
+
+@pytest.fixture(scope="module")
+def art_root(tmp_path_factory):
+    return build_bids_tree(tmp_path_factory.mktemp("bids48"), shape=ART_SHAPE)
+
+
+def _default_generator_all_artifacts(seed=0):
+    """``configs/dataset/generator/default.yaml`` at 48^3 on the CPU, every SR
+    artifact forced on (prob 1; boundaries: halo and fuzzy), the motion
+    artifact on a 96 cube with 32 slice rows (its default tiers are sized
+    for 256^3)."""
+    gen = resolve_interpolations(load_yaml("configs/dataset/generator/default.yaml"))
+    gen.update(device="cpu", shape=list(ART_SHAPE), seed=seed)
+    gen["spatial_deform"]["size"] = list(ART_SHAPE)
+    gen["intensity_generator"]["max_subclusters"] = 2
+    for k in ("blur_cortex", "struct_noise", "simulate_motion"):
+        gen[k]["prob"] = 1.0
+    gen["simulate_motion"].update(tiers=[96], ns_grid=32)
+    gen["boundaries"].update(prob_no_mask=0.0, prob_if_mask_halo=1.0, prob_if_mask_fuzzy=1.0)
+    return instantiate(gen)
+
+
+@pytest.fixture(scope="module")
+def art_sample(art_root):
+    gen = _default_generator_all_artifacts()
+    ds = FetalSynthDataset(str(art_root), gen, str(art_root / "derivatives" / "seeds"))
+    return ds, ds.sample_with_meta(0)
+
+
+def test_default_generator_runs_all_artifacts(art_sample):
+    ds, item = art_sample
+    gen = ds.generator
+    assert [type(gen.artifacts[k]).__module__ for k in ARTIFACTS] == [
+        "fetalsyngen_torch.generator.artifacts.quality",
+        "fetalsyngen_torch.generator.artifacts.quality",
+        "fetalsyngen_torch.generator.artifacts.scanner",
+        "fetalsyngen_torch.generator.artifacts.quality",
+    ]
+    meta = item["generation_params"]["artifacts"]
+    assert list(meta) == list(ARTIFACTS)
+    assert meta["blur_cortex"]["nblur"] is not None and "nstages" in meta["struct_noise"]
+    assert meta["simulate_motion"]["nstacks"] >= 1 and "device_seed" in meta["simulate_motion"]
+    assert meta["boundaries"] == {"no_mask_on": False, "halo_on": True, "fuzzy_on": True}
+    img = item["image"]
+    assert img.shape == (1, *ART_SHAPE) and np.isfinite(img).all() and 0 <= img.min() <= img.max() <= 1
+
+
+def test_artifact_genparams_replay_is_bit_identical(art_sample):
+    ds, item = art_sample
+    gp = json.loads(json.dumps(item["generation_params"], default=lambda o: np.asarray(o).tolist()))
+    again = ds.sample_with_meta(0, genparams=gp)
+    np.testing.assert_array_equal(again["image"], item["image"])
+    np.testing.assert_array_equal(again["label"], item["label"])
+    assert again["generation_params"]["artifacts"] == gp["artifacts"]
+
+
+def test_artifact_pins_are_honored(art_sample):
+    """A pin replaces its draw and leaves the later draws of the artifact's
+    stream unchanged (the JAX package's ``tests/test_artifacts.py:430-443``)."""
+    ds, item = art_sample
+    gp = item["generation_params"]
+    meta = gp["artifacts"]
+    pins = {
+        "blur_cortex": {"nblur": meta["blur_cortex"]["nblur"] + 7},
+        "struct_noise": {"nstages": 1 + meta["struct_noise"]["nstages"] % 4},
+        "simulate_motion": {"slice_thickness": meta["simulate_motion"]["slice_thickness"] * 1.3},
+    }
+    pinned = ds.sample_with_meta(0, genparams={"seed": gp["seed"], "artifacts": pins})
+    got = pinned["generation_params"]["artifacts"]
+    assert got["blur_cortex"]["nblur"] == pins["blur_cortex"]["nblur"]
+    assert got["blur_cortex"]["std_blurs"] == meta["blur_cortex"]["std_blurs"]
+    assert got["struct_noise"]["nstages"] == pins["struct_noise"]["nstages"]
+    assert got["struct_noise"]["noise_std"] == meta["struct_noise"]["noise_std"]
+    sm = got["simulate_motion"]
+    assert sm["slice_thickness"] == pytest.approx(pins["simulate_motion"]["slice_thickness"])
+    assert sm["gap"] == meta["simulate_motion"]["gap"]
+    assert sm["resolution_slice"] == meta["simulate_motion"]["resolution_slice"]
+    assert got["boundaries"] == meta["boundaries"]
+    assert not np.array_equal(pinned["image"], item["image"])
+
+
+def test_augment_applies_artifacts(art_root):
+    gen = _default_generator_all_artifacts()
+    gen.artifacts["simulate_motion"] = None  # the motion artifact is covered by sample above
+    seg = nifti.load_ras(FetalTestDataset(str(art_root)).segm_paths[0]).data
+    image = nifti.load_ras(FetalTestDataset(str(art_root)).img_paths[0]).data
+    out, params = gen.augment(image, seg, seed=11)
+    assert set(params["artifacts"]) == {"blur_cortex", "struct_noise", "boundaries"}
+    again, _ = gen.augment(image, seg, genparams={"seed": 11, "artifact_params": {"blur_cortex": {"nblur": 9}}})
+    assert torch.equal(gen.augment(image, seg, genparams=params)[0], out)
+    assert not torch.equal(again, out)
+    plain = small_generator()
+    assert plain.augment(image[:32, :32, :32], seg[:32, :32, :32], seed=11)[1]["artifacts"] == {}
+
+
+def test_entry_script_runs_the_yaml_untrimmed(art_root, tmp_path):
+    """``python -m fetalsyngen_torch.test`` builds ``synth_train.yaml``'s
+    generator with its four artifacts and generates on the CPU at 48^3."""
+    import subprocess
+    import sys
+
+    r = subprocess.run(
+        [sys.executable, "-m", "fetalsyngen_torch.test", "--config", "configs/dataset/synth_train.yaml",
+         "--bids_path", str(art_root), "--seed_path", str(art_root / "derivatives" / "seeds"),
+         "--device", "cpu", "--shape", "48", "--count", "1", "--out", str(tmp_path / "out")],
+        capture_output=True, text=True, timeout=600,
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "dataset: FetalSynthDataset" in r.stdout and "not yet ported" not in r.stdout
+    meta = json.loads((tmp_path / "out" / "image_0.json").read_text())
+    assert set(meta["artifacts"]) <= set(ARTIFACTS) and "boundaries" in meta["artifacts"]

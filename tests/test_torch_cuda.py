@@ -71,6 +71,35 @@ def test_single_kernel_matches_plain(dev, D, H, S, with_disp, nearest):
         torch.testing.assert_close(k, r, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("form", ["lane", "slice"])
+@pytest.mark.parametrize("D, H, S", [(6, 10, 16), (2, 5, 300), (4, 4, 513)])
+def test_scanner_forms_match_plain(dev, D, H, S, form):
+    """K1's (linear, linear) lane-affine and per-slice forms and K2's
+    per-slice form against their plain versions, bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(D * 1000 + S + len(form))
+    B = 2
+    xa = torch.rand((B, D, H, S), generator=g, device=dev)
+    xb = torch.rand((B, D, H, S), generator=g, device=dev)
+    if form == "lane":
+        coefs = torch.tensor([[0.0, 0.0, 1.0, 0.0]] * B, device=dev)
+        disp = (torch.rand((B, 3, S), generator=g, device=dev) - 0.5) * torch.tensor([[[0.2], [0.2], [S / 4]]], device=dev)
+    else:
+        coefs = torch.rand((B, D, 4), generator=g, device=dev) - 0.5
+        coefs[..., 0] = 0.0
+        coefs[..., 2] += 1.0
+        coefs[..., 3] *= S / 4
+        disp = None
+    ka, kb = hat.hat_pass_pair(xa, xb, coefs, disp, nearest_b=False)
+    ra, rb = hat.hat_pass_pair_ref(xa, xb, coefs, disp, nearest_b=False)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, ra) and torch.equal(kb, rb)
+    if form == "slice":
+        assert torch.equal(hat.hat_pass(xa, coefs), hat.hat_pass_ref(xa, coefs))
+    else:
+        with pytest.raises(ValueError, match="no kernel"):
+            hat.hat_pass_pair(xa, xb, coefs, disp, nearest_b=True)
+
+
 def test_wrapper_rejects_bad_inputs(dev):
     x = torch.zeros((1, 2, 3, 8), device=dev)
     coefs = torch.zeros((1, 4), device=dev)
@@ -93,12 +122,12 @@ def test_slice_gpu_matches_cpu(dev):
     cfg = GeneratorCfg(shape=shape, intensity=IntensityCfg(1, 6, labels, classes))
     seeds, seg = (torch.from_numpy(a.astype(np.int32)) for a in phantom_seeds_and_seg(shape))
     ov = {g: True for g in ("deform_apply", "gamma_apply", "bf_apply", "resample_apply", "noise_apply")}
-    hat.LAUNCHES.update(hat_pass_pair=0, hat_pass=0)
+    hat.LAUNCHES.update(dict.fromkeys(hat.LAUNCHES, 0))
     out, seg_out, p = tpipe.synth_batch(
         seeds[None].expand(2, *shape), seg[None].expand(2, *shape), cfg, [3, 4], dev, ov
     )
     torch.cuda.synchronize()
-    assert hat.LAUNCHES == {"hat_pass_pair": 3, "hat_pass": 0}
+    assert hat.LAUNCHES == {**dict.fromkeys(hat.LAUNCHES, 0), "hat_pass_pair": 3}
     gens = tpipe.make_generators([3, 4], dev)
     p2 = sample_params(gens, cfg, ov)
     fields = tpipe.draw_fields(gens, cfg, dev)
@@ -131,11 +160,11 @@ def test_api_image_path_gpu_matches_cpu(dev, nonlinear):
     )
     img, seg = make_phantom(np.random.default_rng(2), shape)
     pinned = {"deform_params": {"deform_apply": True}}
-    hat.LAUNCHES.update(hat_pass_pair=0, hat_pass=0)
+    hat.LAUNCHES.update(dict.fromkeys(hat.LAUNCHES, 0))
     out, seg_out, img_out, gp = gen.sample(img, seg, None, genparams=pinned)
     torch.cuda.synchronize()
     want = {"hat_pass_pair": 3, "hat_pass": 6} if nonlinear else {"hat_pass_pair": 0, "hat_pass": 15}
-    assert hat.LAUNCHES == want
+    assert hat.LAUNCHES == {**dict.fromkeys(hat.LAUNCHES, 0), **want}
     out2, seg2, img2, _ = gen.sample(img, seg, None, genparams=gp)
     assert torch.equal(out2, out) and torch.equal(seg2, seg_out) and torch.equal(img2, img_out)
     inputs, _, _ = gen.prepare(img, seg, None, genparams=gp)
@@ -145,3 +174,19 @@ def test_api_image_path_gpu_matches_cpu(dev, nonlinear):
         scale = max(1.0, float(c.abs().max()))  # the dataset scales both to [0, 1]
         torch.testing.assert_close(g.cpu() / scale, c / scale, rtol=0, atol=1e-4)
     assert (seg_out.cpu() != seg_c[0]).float().mean() <= 1e-5
+
+
+def test_scanner_ab_gpu_matches_cpu(dev):
+    """One stack's acquisition and reconstruction (``scanner_ab_case``) on the
+    card through K1's and K2's scanner forms, against the port's CPU path."""
+    from fetalsyngen_torch.testing import run_scanner_ab, scanner_ab_case
+
+    case = scanner_ab_case(128, 32)
+    hat.LAUNCHES.update(dict.fromkeys(hat.LAUNCHES, 0))
+    gpu = run_scanner_ab(case, 128, 32, device=dev)
+    assert hat.LAUNCHES == {**dict.fromkeys(hat.LAUNCHES, 0), "hat_pass_pair_lane": 2,
+                            "hat_pass_pair_slice": 2, "hat_pass_slice": 2}
+    cpu = run_scanner_ab(case, 128, 32, device="cpu")
+    np.testing.assert_array_equal(gpu[1], cpu[1])
+    for g, c in zip(gpu, cpu):
+        np.testing.assert_allclose(g, c, rtol=0, atol=1e-4 * float(np.abs(c).max()))

@@ -198,3 +198,89 @@ def test_hat_single_half_integer_rounds_to_even():
     assert out.flatten().tolist() == [0, 2, 2, 4, 4, 6, 6, 7]
     lin = hat.hat_pass(x, torch.tensor([[0.0, 0.0, 1.0, 0.5]]))
     assert lin.flatten().tolist() == [0.5, 1.5, 2.5, 3.5, 4.5, 5.5, 6.5, 7.0]
+
+
+def _smooth(rng, shape, scale):
+    """A smooth random f32 volume in [0, scale]."""
+    from scipy.ndimage import gaussian_filter
+
+    x = gaussian_filter(rng.random(shape), 2.0)
+    return (scale * (x - x.min()) / (x.max() - x.min())).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def scanner_tables():
+    """One stack's pass tables from the scanner's real geometry
+    (``scanner_ab_case``: cube 128, ns_grid 32, recorded motion): the
+    acquisition's lane-affine dz table and per-slice dv/du tables, the
+    reconstruction's per-slice inverse tables and its lane-affine slice-axis
+    table padded to 128 lanes."""
+    from fetalsyngen_torch.generator.artifacts import scanner as sc
+    from fetalsyngen_torch.testing import scanner_ab_case
+
+    case = scanner_ab_case(128, 32)
+    cube, ns_grid = 128, 32
+    c_ss = (cube - 1) / 2.0
+    G = torch.from_numpy(case["geo"]["G"])
+    rs, gap, z0 = (sc._f32(case[k]) for k in ("rs", "gap_vox", "z0"))
+    dz, dv, du = sc._slice_coef_tables(G, rs, c_ss, z0, gap, ns_grid)
+    dz_tab = sc._dz_lane_table(dz, rs, c_ss, z0, gap, cube, ns_grid)
+    idv, idu = sc._inplane_coef_tables(G, rs, c_ss, -1.0)
+    dzr = sc._dzr_lane_table(G, rs, c_ss, z0, gap, ns_grid)
+    assert dzr.shape == (3, 128) and not dzr[:, ns_grid:].any()
+    return dict(dz=dz_tab, dv=dv, du=du, idv=idv, idu=idu, dzr=dzr, cube=cube, ns_grid=ns_grid)
+
+
+@pytest.mark.parametrize("form", ["acquire_dz", "acquire_dv", "acquire_du", "recon_dz"])
+def test_hat_pair_scanner_forms_match_jax(scanner_tables, form):
+    """K1's (linear, linear) forms at the scanner's geometries: lane-affine
+    with unit coefficients, and per-slice coefficients without a
+    displacement (JAX runs each as two single passes). The operands are
+    smooth, as the scanner's PSF-blurred volumes are: XLA contracts the
+    position polynomial into FMAs where the port does not, and an ulp of
+    position times a white-noise row's jumps would exceed the bar."""
+    t = scanner_tables
+    cube, ns = t["cube"], t["ns_grid"]
+    shape = {"acquire_dz": (cube, cube, cube), "recon_dz": (cube, cube, 128)}.get(form, (ns, cube, cube))
+    rng = np.random.default_rng(zlib.crc32(form.encode()))
+    xa, xb = (_smooth(rng, shape, s) for s in (100.0, 1.0))
+    if form.endswith("_dz"):
+        tab = t["dz"] if form == "acquire_dz" else t["dzr"]
+        coefs, disp = torch.tensor([[0.0, 0.0, 1.0, 0.0]]), tab[None].contiguous()
+        jc, jd = (0.0, 0.0, 1.0, 0.0), jnp.asarray(tab.numpy())
+    else:
+        coefs, disp = t[form[-2:]][None].contiguous(), None
+        jc, jd = jnp.asarray(coefs[0].numpy()), None
+    oa, ob = hat.hat_pass_pair(torch.from_numpy(xa[None]), torch.from_numpy(xb[None]), coefs, disp, nearest_b=False)
+    ja, jb = W.hat_pass_pair(jnp.asarray(xa), jnp.asarray(xb), jc, jd, shape, 128,
+                             modes=(False, False), unit_slope=True)
+    pos = hat._positions_of(coefs, 1, shape[0], shape[1], shape[2], disp)
+    assert bool(((pos > 0) & (pos < shape[2] - 1)).any()) and bool((pos - torch.floor(pos) > 0).any())
+    np.testing.assert_allclose(oa[0].numpy(), np.asarray(ja), rtol=0, atol=1e-5 * 100)
+    np.testing.assert_allclose(ob[0].numpy(), np.asarray(jb), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("table", ["idu", "idv"])
+def test_hat_single_scanner_forms_match_jax(scanner_tables, table):
+    """K2's per-slice linear form at the reconstruction's in-plane passes."""
+    t = scanner_tables
+    shape = (t["ns_grid"], t["cube"], t["cube"])
+    x = _smooth(np.random.default_rng(len(table)), shape, 100.0)
+    coefs = t[table][None].contiguous()
+    out = hat.hat_pass(torch.from_numpy(x[None]), coefs)
+    ref = W.hat_pass(jnp.asarray(x), jnp.asarray(coefs[0].numpy()), None, shape, 128, False, unit_slope=True)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref), rtol=0, atol=1e-5 * 100)
+
+
+def test_lane_affine_and_per_slice_positions():
+    """The plain positions of the new forms on exact binary fractions: the
+    per-slice row of slice row_i, the lane-affine table added in JAX's
+    association order."""
+    D, H, OW = 3, 4, 5
+    coefs = torch.tensor([[[0.0, 0.5, 1.0, 0.25], [0.0, -0.5, 1.0, 1.0], [0.0, 0.25, 0.5, 0.0]]])
+    pos = hat.positions(coefs, D * H, H, OW)
+    i, j, l = 2, 3, 4
+    assert float(pos[0, i * H + j, l]) == 0.25 * j + 0.5 * l
+    tab = torch.tensor([[[0.5] * OW, [-0.25] * OW, list(range(OW))]], dtype=torch.float32)
+    pos = hat.positions(torch.tensor([[0.0, 0.0, 1.0, 0.0]]), D * H, H, OW, lane=tab)
+    assert float(pos[0, i * H + j, l]) == l + (0.5 * i - 0.25 * j + l)

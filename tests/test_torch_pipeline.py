@@ -227,13 +227,18 @@ def test_port_imports_no_jax():
         for m in pkgutil.walk_packages(fetalsyngen_torch.__path__, "fetalsyngen_torch.")
     ]
     for m in ("kernels.hat", "convert", "config", "io.nifti", "data.transforms", "data.datasets",
-              "generator.model", "testing", "test", "test_dl"):
+              "generator.model", "testing", "test", "test_dl", "ops.morphology", "ops.noise",
+              "generator.artifacts.draws", "generator.artifacts.transforms", "generator.artifacts.motion",
+              "generator.artifacts.psf", "generator.artifacts.quality", "generator.artifacts.scanner"):
         assert f"fetalsyngen_torch.{m}" in mods
-    # PyYAML is blocked too: only ``config.load_yaml`` may need it
+    # PyYAML is blocked too: only ``config.load_yaml`` may need it. The
+    # recorded trajectories are the port's own file.
     code = (
         "import importlib, sys\n"
         "sys.modules['yaml'] = None\n"
         f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
+        "from fetalsyngen_torch.generator.artifacts import motion\n"
+        "assert 'fetalsyngen_torch' in motion._TRAJ_PATH and motion.get_trajectory()['dT'] > 0\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'fetalsyngen_tpu'))\n"
         "assert not bad, bad[:5]\n"
     )
