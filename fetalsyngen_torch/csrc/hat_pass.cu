@@ -17,11 +17,13 @@
 //   a, b: edge-clamped samples of the two rows at pos
 // (hat_common.cuh holds the position and sample code shared with K2, with the
 // rounding rules that keep it bit-equal to the plain version). The forms are
-// template parameters; only the three the callers use are instantiated: the
-// generator's (nearest labels, per-sample coefficients, displacement volume)
-// and the scanner's (linear pair, per-sample coefficients, lane-affine table:
+// template parameters; only the four the callers use are instantiated: the
+// generator's (nearest labels, per-sample coefficients, displacement volume),
+// the scanner's (linear pair, per-sample coefficients, lane-affine table:
 // the z-extraction and slice-placement passes; linear pair, per-slice
-// coefficients, no displacement: the in-plane motion passes).
+// coefficients, no displacement: the in-plane motion passes) and the kernel
+// probes' plain passes (nearest labels, per-sample coefficients, no
+// displacement).
 //
 // Bound: device memory. Per output element it reads (amortised over the row)
 // one source value per operand, a displacement when the form has a volume,
@@ -97,6 +99,8 @@ extern "C" int fsg_hat_pass_pair_f32(const float* xa, const float* xb, const flo
     launch<true, kCoefPerSample, kDispVolume>(xa, xb, disp, coefs, oa, ob, B, R, H, S, OW, st);
   } else if (!nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispLaneAffine) {
     launch<false, kCoefPerSample, kDispLaneAffine>(xa, xb, disp, coefs, oa, ob, B, R, H, S, OW, st);
+  } else if (nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispNone) {
+    launch<true, kCoefPerSample, kDispNone>(xa, xb, disp, coefs, oa, ob, B, R, H, S, OW, st);
   } else if (!nearest_b && coef_mode == kCoefPerSlice && disp_mode == kDispNone) {
     launch<false, kCoefPerSlice, kDispNone>(xa, xb, disp, coefs, oa, ob, B, R, H, S, OW, st);
   } else {

@@ -17,12 +17,14 @@ volume ``disp[b, i, j, l]``, a (B, 3, OW) lane-affine table
 
 - :func:`hat_pass_pair` (K1, ``csrc/hat_pass.cu``) samples two operands at
   shared positions, the first linearly, the second nearest (the generator's
-  image and labels: per-sample coefficients and a displacement volume) or
+  image and labels: per-sample coefficients and a displacement volume; the
+  kernel probes' plain passes: per-sample coefficients, no displacement) or
   linearly (the scanner's pairs: a lane-affine table, or per-slice
   coefficients without a displacement).
 - :func:`hat_pass` (K2, ``csrc/hat_single.cu``) samples one operand, OW == W:
   per-sample coefficients, linearly or nearest, with or without a
-  displacement volume; or per-slice coefficients, linearly, without one.
+  displacement volume, or linearly with a (B, 3, W) lane-affine table; or
+  per-slice coefficients, linearly, without a displacement.
 
 :func:`hat_pass_pair_ref` and :func:`hat_pass_ref` are the plain versions the
 kernels are held against; they take every combination. The wrappers take the
@@ -38,11 +40,12 @@ import functools
 import torch
 
 # Kernel launches of each instantiated form (one per wrapper call, whole
-# batch): K1's main-path form and its scanner forms, K2's per-sample forms
-# and its per-slice form.
+# batch): K1's main-path form, its scanner forms and its form without a
+# displacement; K2's per-sample forms, its lane-affine form and its
+# per-slice form.
 LAUNCHES = {
     "hat_pass_pair": 0, "hat_pass_pair_lane": 0, "hat_pass_pair_slice": 0,
-    "hat_pass": 0, "hat_pass_slice": 0,
+    "hat_pass_pair_nodisp": 0, "hat_pass": 0, "hat_pass_lane": 0, "hat_pass_slice": 0,
 }
 
 _MAX_S = 6144  # two staged f32 rows must fit the 48 KB default shared memory
@@ -57,9 +60,11 @@ _PAIR_FORMS = {
     (True, _COEF_PER_SAMPLE, _DISP_VOLUME): "hat_pass_pair",
     (False, _COEF_PER_SAMPLE, _DISP_LANE_AFFINE): "hat_pass_pair_lane",
     (False, _COEF_PER_SLICE, _DISP_NONE): "hat_pass_pair_slice",
+    (True, _COEF_PER_SAMPLE, _DISP_NONE): "hat_pass_pair_nodisp",
 }
 _SINGLE_FORMS = {
     **{(n, _COEF_PER_SAMPLE, d): "hat_pass" for n in (False, True) for d in (_DISP_NONE, _DISP_VOLUME)},
+    (False, _COEF_PER_SAMPLE, _DISP_LANE_AFFINE): "hat_pass_lane",
     (False, _COEF_PER_SLICE, _DISP_NONE): "hat_pass_slice",
 }
 
@@ -140,8 +145,8 @@ def hat_pass_ref(x, coefs, disp=None, nearest=False):
     """Plain PyTorch single-operand hat pass (K2's reference).
 
     ``x``: (B, D, H, S) f32; ``coefs``: (B, 4) or (B, D, 4); ``disp``:
-    (B, D, H, S) f32 or None. Returns a (B, D, H, S) tensor, sampled nearest
-    if ``nearest``.
+    (B, D, H, S), (B, 3, S) or None. Returns a (B, D, H, S) tensor, sampled
+    nearest if ``nearest``.
     """
     B, D, H, S = x.shape
     pos = _positions_of(coefs, B, D, H, S, disp)
@@ -256,17 +261,16 @@ def hat_pass(x, coefs, disp=None, nearest=False):
         return hat_pass_ref(x, coefs, disp, nearest)
     if x.device.type != "cuda":
         raise ValueError(f"hat_pass runs on cpu or cuda tensors, got {x.device}")
-    if disp is not None and disp.dim() != 4:
-        raise ValueError(f"hat_pass takes a (B, D, H, S) displacement volume, got {tuple(disp.shape)}")
     _check(x, [], coefs, disp, ow_free=False)
     form = _form(nearest, coefs, disp, _SINGLE_FORMS, "hat_pass")
+    _, coef_mode, disp_mode = form
     B, D, H, S = x.shape
-    fn = _bind("hat_single", "fsg_hat_pass_f32", 4, 6)
+    fn = _bind("hat_single", "fsg_hat_pass_f32", 4, 7)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = fn(
             x.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(),
-            out.data_ptr(), B, D * H, H, S, int(nearest), form[1], _stream(x.device),
+            out.data_ptr(), B, D * H, H, S, int(nearest), coef_mode, disp_mode, _stream(x.device),
         )
     if rc != 0:
         raise RuntimeError(f"hat_pass kernel launch failed: cudaError {rc}")

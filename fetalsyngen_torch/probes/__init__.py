@@ -1,0 +1,10 @@
+"""The kernel probes' entry points: ports of ``scripts/microbench_warp.py``,
+``scripts/probe_blocktp.py`` and ``scripts/profile_kernel_variants.py``.
+
+Each runs on a CUDA device unless ``--device cpu`` is given (then it runs
+its work once with the plain versions and prints no time)::
+
+    python -m fetalsyngen_torch.probes.microbench_warp --variant probe2_taps8
+    python -m fetalsyngen_torch.probes.probe_blocktp
+    python -m fetalsyngen_torch.probes.profile_kernel_variants
+"""

@@ -190,3 +190,76 @@ def test_scanner_ab_gpu_matches_cpu(dev):
     np.testing.assert_array_equal(gpu[1], cpu[1])
     for g, c in zip(gpu, cpu):
         np.testing.assert_allclose(g, c, rtol=0, atol=1e-4 * float(np.abs(c).max()))
+
+
+@pytest.mark.parametrize("D, H, S", [(6, 10, 16), (2, 5, 300), (4, 4, 513)])
+def test_new_hat_forms_match_plain(dev, D, H, S):
+    """K1 without a displacement (nearest labels) and K2's lane-affine form
+    against their plain versions, bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(D * 100 + S)
+    B = 2
+    xa = torch.rand((B, D, H, S), generator=g, device=dev)
+    xb = torch.randint(0, 8, (B, D, H, S), generator=g, device=dev).float()
+    coefs = torch.rand((B, 4), generator=g, device=dev) - 0.5
+    coefs[:, 2] += 1.0
+    coefs[:, 3] *= S / 4
+    ka, kb = hat.hat_pass_pair(xa, xb, coefs, None)
+    ra, rb = hat.hat_pass_pair_ref(xa, xb, coefs, None)
+    table = (torch.rand((B, 3, S), generator=g, device=dev) - 0.5) * torch.tensor([[[0.2], [0.2], [S / 4]]], device=dev)
+    k = hat.hat_pass(xa, coefs, table)
+    r = hat.hat_pass_ref(xa, coefs, table)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, ra) and torch.equal(kb, rb) and torch.equal(k, r)
+    with pytest.raises(ValueError, match="no kernel"):
+        hat.hat_pass(xb, coefs, table, nearest=True)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 7), (2, 64, 96), (1, 33, 65, 40)])
+def test_pair_copy_and_transpose_match_plain(dev, shape):
+    from fetalsyngen_torch.kernels import probes
+
+    g = torch.Generator(device=dev).manual_seed(len(shape) * 100 + shape[-1])
+    xa, xb = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+    for kernel, plain in ((probes.pair_copy, probes.pair_copy_ref), (probes.pair_transpose, probes.pair_transpose_ref)):
+        got, want = kernel(xa, xb), plain(xa, xb)
+        torch.cuda.synchronize()
+        assert all(torch.equal(k, r) for k, r in zip(got, want))
+
+
+@pytest.mark.parametrize("S", [16, 256, 300])
+def test_probe2_matches_plain(dev, S):
+    from fetalsyngen_torch.kernels import probes
+
+    g = torch.Generator(device=dev).manual_seed(S)
+    xa, xb = (torch.randn((2, 3, 8, S), generator=g, device=dev) for _ in range(2))
+    for mode, ntaps in (("copy", 0), ("stage", 0), ("taps", 1), ("taps", 8), ("taps", S + 128)):
+        got, want = probes.probe2(xa, xb, mode, ntaps), probes.probe2_ref(xa, xb, mode, ntaps)
+        torch.cuda.synchronize()
+        assert all(torch.equal(k, r) for k, r in zip(got, want)), (mode, ntaps)
+
+
+@pytest.mark.parametrize("S", [128, 384])
+def test_probe_matches_plain(dev, S):
+    from fetalsyngen_torch.kernels import probes
+
+    x = torch.randn((2, 3, 24, S), generator=torch.Generator(device=dev).manual_seed(S), device=dev)
+    for mode in probes.SINGLE_MODES:
+        got, want = probes.probe(x, mode), probes.probe_ref(x, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), mode
+
+
+@pytest.mark.parametrize("D, H, S, scale", [(2, 32, 384, 0.02), (1, 64, 384, 0.5), (4, 16, 100, 0.3)])
+def test_hat_variant_matches_plain(dev, D, H, S, scale):
+    """K7's five variants, with saturated rows and spans past the budget in
+    the wider tables."""
+    from fetalsyngen_torch.kernels import probes
+
+    g = torch.Generator(device=dev).manual_seed(S + D)
+    x = torch.rand((D, H, S), generator=g, device=dev)
+    coefs = torch.tensor([0.25, -0.125, 1.0, 0.3], device=dev)
+    table = torch.randn((3, S), generator=g, device=dev) * scale
+    for v in probes.VARIANTS:
+        got, want = probes.hat_variant(x, coefs, table, v), probes.hat_variant_ref(x, coefs, table, v)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), v

@@ -284,3 +284,49 @@ def test_lane_affine_and_per_slice_positions():
     tab = torch.tensor([[[0.5] * OW, [-0.25] * OW, list(range(OW))]], dtype=torch.float32)
     pos = hat.positions(torch.tensor([[0.0, 0.0, 1.0, 0.0]]), D * H, H, OW, lane=tab)
     assert float(pos[0, i * H + j, l]) == l + (0.5 * i - 0.25 * j + l)
+
+
+def test_hat_single_lane_affine_matches_jax():
+    """K2's lane-affine linear form (a (B, 3, S) table) against JAX
+    ``hat_pass`` with a (3, S) displacement, which takes ``_hat_pass_jnp``
+    on the CPU. Smooth operands: XLA contracts the position polynomial into
+    FMAs where the port does not (see the scanner forms above)."""
+    D, H, S = 8, 12, 40
+    rng = np.random.default_rng(7)
+    x = _smooth(rng, (2, D, H, S), 100.0)
+    coefs = np.array([[0.11, 0.07, 1.0, 0.3], [0.05, -0.1, 1.08, -3.0]], np.float32)
+    table = (rng.normal(0, [[0.3], [0.3], [2.0]], (2, 3, S))).astype(np.float32)
+    out = hat.hat_pass(torch.from_numpy(x), torch.from_numpy(coefs), torch.from_numpy(table))
+    pos = hat.positions(torch.from_numpy(coefs), D * H, H, S, lane=torch.from_numpy(table))
+    assert bool((pos <= 0).any()) and bool((pos >= S - 1).any())
+    for b in range(2):
+        ref = W.hat_pass(jnp.asarray(x[b]), tuple(np.float32(c) for c in coefs[b]), jnp.asarray(table[b]),
+                         (D, H, S), W.MAXSPAN_U, False)
+        np.testing.assert_allclose(out[b].numpy(), np.asarray(ref), rtol=0, atol=1e-5 * 100)
+
+
+@pytest.mark.parametrize("coefs", [(0.11, 0.07, 1.0, 0.3), (0.05, 0.1, 1.08, -9.0), (0.25, -0.5, 1.0, 0.5)])
+def test_hat_pair_nodisp_matches_jax(coefs):
+    """K1's per-sample form without a displacement (linear image, nearest
+    labels) against JAX ``hat_pass_pair(..., None, ...)``: the kernel
+    probes' ``pair_l_nodisp`` and ``pair_u`` coefficients, and dyadic ones
+    that put every position of odd rows on a half-integer. The image is
+    smooth and held within 1e-5 of its scale; labels are exact wherever
+    the position is not within 1e-4 of a half-integer (an FMA-contracted
+    position can round the other way there)."""
+    D, H, S = 8, 12, 40
+    rng = np.random.default_rng(int(1000 * coefs[0]))
+    xa = _smooth(rng, (D, H, S), 100.0)
+    xb = np.floor(_smooth(rng, (D, H, S), 7.99)).astype(np.float32)
+    c = np.array(coefs, np.float32)
+    oa, ob = hat.hat_pass_pair(torch.from_numpy(xa[None]), torch.from_numpy(xb[None]), torch.from_numpy(c[None]), None)
+    ja, jb = W.hat_pass_pair(jnp.asarray(xa), jnp.asarray(xb), tuple(c), None, (D, H, S), W.MAXSPAN_U)
+    np.testing.assert_allclose(oa[0].numpy(), np.asarray(ja), rtol=0, atol=1e-5 * 100)
+    r = np.arange(D * H)
+    pos = (c[0] * (r // H) + c[1] * (r % H))[:, None].astype(np.float64) + c[2] * np.arange(S) + c[3]
+    near_half = (np.abs(pos - np.floor(pos) - 0.5) < 1e-4).reshape(D, H, S)
+    if coefs[0] == 0.25:
+        assert near_half.sum() > 100
+    np.testing.assert_array_equal(ob[0].numpy()[~near_half], np.asarray(jb)[~near_half])
+    if coefs[0] == 0.25:  # exact products: the halves round to even in both
+        np.testing.assert_array_equal(ob[0].numpy(), np.asarray(jb))

@@ -229,7 +229,9 @@ def test_port_imports_no_jax():
     for m in ("kernels.hat", "convert", "config", "io.nifti", "data.transforms", "data.datasets",
               "generator.model", "testing", "test", "test_dl", "ops.morphology", "ops.noise",
               "generator.artifacts.draws", "generator.artifacts.transforms", "generator.artifacts.motion",
-              "generator.artifacts.psf", "generator.artifacts.quality", "generator.artifacts.scanner"):
+              "generator.artifacts.psf", "generator.artifacts.quality", "generator.artifacts.scanner",
+              "kernels.probes", "probes.timing", "probes.microbench_warp", "probes.probe_blocktp",
+              "probes.profile_kernel_variants"):
         assert f"fetalsyngen_torch.{m}" in mods
     # PyYAML is blocked too: only ``config.load_yaml`` may need it. The
     # recorded trajectories are the port's own file.
