@@ -77,7 +77,11 @@ operations over 67 TFLOP/s.
     against its plain version at those sizes (K5 and K6 on B=4 256^3
     pairs, K3 taps8 and K4 on B=4 256^3 volumes, K7 V0-V4 on 147,456 rows
     of 384): bit-identical, the median of 20 CUDA-event runs, the bound and,
-    where one torch call computes the same function, its time.
+    where one torch call computes the same function, its time; then, untimed,
+    every K3 and K4 mode bit for bit (the sign of zero included) at one shape
+    per kernel whose rows end in a partial tile and whose blocks walk their
+    ring of tiles more than once, and each mode's launch geometry (tile rows,
+    ring stages, grid, dynamic shared memory) there and at B=4 256^3.
 
 Phase 3 also holds K1's form without a displacement (the probes'
 ``pair_l_nodisp`` and ``pair_u`` coefficients, and crafted half-integers)
@@ -604,6 +608,35 @@ def check_probes(dev):
         ))
         del pos
     return results
+
+
+def check_probe_tiles(dev):
+    """Phase 10: every K3 and K4 mode against its plain version, untimed, at
+    one shape per kernel whose rows end in a partial tile, whose blocks each
+    walk their ring more than once and, for K3, whose rows start off 16 bytes
+    and whose operands end inside a 16-byte unit; -0.0 among the inputs (the
+    tiles mode turns it into +0). Bit for bit, or raise. Prints each launch's
+    geometry there and at B=4 256^3."""
+    g = torch.Generator(device=dev).manual_seed(37)
+    cases = ((3, (3, 101, 101, 301), [("copy", 0), ("stage", 0), ("taps", 8), ("taps", 13)]),
+             (4, (3, 100, 101, 384), [(m, 0) for m in probes.SINGLE_MODES]))
+    for kernel, shape, modes in cases:
+        xa, xb = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+        for x in (xa, xb):
+            x.view(-1)[::7] = -0.0
+        for mode, ntaps in modes:
+            if kernel == 3:
+                got, want = probes.probe2(xa, xb, mode, ntaps), probes.probe2_ref(xa, xb, mode, ntaps)
+            else:
+                got, want = (probes.probe(xa, mode),), (probes.probe_ref(xa, mode),)
+            torch.cuda.synchronize()
+            differ = sum(int((k.view(torch.int32) != r.view(torch.int32)).sum()) for k, r in zip(got, want))
+            name = f"probe{'2' if kernel == 3 else ''}_{mode}" + (f" taps{ntaps}" if ntaps else "")
+            geo = {f"{tuple(sh)}": probes.probe_geometry(kernel, sh, mode) for sh in (shape, (BATCH, *SHAPE))}
+            log(f"kernel {name} partial tiles {shape}: bits differing={differ}; launches {json.dumps(geo)}")
+            if differ:
+                raise RuntimeError(f"{name} at {shape}: kernel differs from plain in {differ} elements")
+        del xa, xb, got, want
 
 
 def run_slice(dev, cfg, seeds_np, seg_np):
@@ -1238,6 +1271,7 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"phase 10 path done at {time.perf_counter() - t_start:.1f} s")
     checks += check_probes(dev)
+    check_probe_tiles(dev)
     log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
     missing = [k for k in KERNELS if not launches.get(k)]
     if missing:

@@ -16,50 +16,79 @@
 //   columns (no bank conflicts on the transposed read), coalesced loads and
 //   stores on both sides.
 // K3 probe2_* (replaces the probe2_* probe_kernel of
-//   scripts/microbench_warp.py): the paired hat kernel's constructs in K1's
-//   launch geometry, one block per row of two (B, R, S) operands:
-//     copy   out = 2*x, no staging;
-//     stage  both rows staged edge-padded in shared memory, s[c] =
-//            x[clamp(c - pad, 0, S - 1)], pad = max(128, S), then copied out;
-//     taps   staging, pos = (0.07*row_j + l) + 0.3, n0 = -1,
-//            d0 = (pos - l) - n0, out = sum over m < ntaps of
-//            max(0, 1 - |d0 - m|) * s[pad + n0 + m + l], in tap order.
-//   The TPU probe reads its window at the 128-aligned floor of pad + n0 and
-//   adds the remainder (127) to d0; on Hopper the window starts at pad + n0
-//   itself, one unaligned shared-memory read. The two agree where every
-//   nonzero tap lies inside both windows.
+//   scripts/microbench_warp.py): the paired hat kernel's constructs on two
+//   (B, R, S) operands, rows r = row_i*H + row_j:
+//     copy   out = 2*x, no shared memory;
+//     stage  out = the row passed through shared memory;
+//     taps   pos = (0.07*row_j + l) + 0.3, n0 = -1, d0 = (pos - l) - n0,
+//            out = sum over m < ntaps of max(0, 1 - |d0 - m|) *
+//            x[clamp(n0 + m + l, 0, S - 1)], in tap order.
+//   The TPU probe stages each row between edge pads of max(128, S) and 128 +
+//   S lanes and reads its window at the 128-aligned floor of pad + n0,
+//   adding the remainder (127) to d0; here the window starts at n0 + l
+//   itself and a pad lane is the clamp of the index. The two agree where
+//   every nonzero tap lies inside both windows.
 // K4 probe_* (replaces the probe_* probe_kernel of
-//   scripts/microbench_warp.py): the single-operand kernel's constructs in
-//   K2's launch geometry, one block per row of a (B, R, S) operand, S a
-//   multiple of 128, the row staged with a 128-lane edge pad:
-//     copy    out = 2*x;  stage  staging, copy out;
+//   scripts/microbench_warp.py): the single-operand kernel's constructs on a
+//   (B, R, S) operand, S a multiple of 128. The TPU stages a row between
+//   128-lane edge pads: padded[c] = x[clamp(c - 128, 0, S - 1)].
+//     copy    out = 2*x, no shared memory;  stage  the row through shared memory;
 //     ladder  pos = 0.11*(r % 8) + l (the TPU's sub-row of 8), n0 =
 //             floor(pos - pos) (zero, but computed), base = clamp(128 +
-//             lane0 + n0, 0, width - 384) for the lane's 128-lane tile lane0,
-//             out = s[base + l - lane0]: the window shift, which the TPU
-//             does with a seven-step roll ladder, here an unaligned read at a
-//             runtime offset;
-//     tiles   out = s[128*floor(base/128) + l - lane0] + 0*pos: the aligned
-//             window without the shift;
+//             lane0 + n0, 0, S) for the lane's 128-lane tile lane0,
+//             out = padded[base + l - lane0]: the window shift, which the TPU
+//             does with a seven-step roll ladder, here a read at a runtime
+//             offset;
+//     tiles   out = padded[128*floor(base/128) + l - lane0] + 0*pos: the
+//             aligned window without the shift (0*pos turns -0 into +0);
 //     sweep12 the ladder's window, d0 = pos - floor(pos), out = sum over
-//             m < 12 of max(0, 1 - |d0 - m|) * s[base + l - lane0 + m].
+//             m < 12 of max(0, 1 - |d0 - m|) * padded[base + l - lane0 + m].
 //   n0 is computed per element here; the TPU takes a tile-wide minimum,
 //   which for finite positions is the same zero.
 // Bound of K3 and K4: device memory (8 bytes per element and operand); the
-// taps at most ~100 operations per element pair.
+//   taps at most ~100 operations per element pair.
+// Design of K3 and K4: a block works on tiles of consecutive rows, one
+//   contiguous span per operand (at S = 256, 16 rows of 1 KB per operand for
+//   K3 and 32 for K4). copy takes one tile per block and leaves the placing
+//   of blocks to the card's scheduler: 16-byte loads and stores, four loads
+//   per operand in flight a thread, no shared memory. The staged modes run
+//   a persistent grid, as many blocks as fit the card, each with a ring of
+//   three tile buffers in shared memory (two where three do not fit): thread
+//   0 draws the block's next tile from a counter in device memory and fills
+//   a buffer with TMA bulk copies (cp.async.bulk, one mbarrier per buffer
+//   counts the bytes in) while every thread computes and stores the current
+//   tile; the __syncthreads() that ends a tile frees its buffer for the next
+//   draw. Drawing balances the blocks: with a fixed share each (a grid-stride
+//   loop) the slowest blocks on the H100 ran on alone at the end of a launch.
+//   Only the S lanes of a row are staged, so each input byte is read from
+//   device memory once: a pad lane is the clamp of its index. A thread
+//   computes four consecutive lanes of a row, reads shared memory 16 bytes
+//   at a time where the four lie in the row on a 16-byte boundary (else one
+//   by one, clamped) and stores 16 bytes, streaming past the caches, where
+//   the lanes allow (else lane by lane). A tile holds a multiple of 4 /
+//   gcd(S, 4) rows, so every tile starts on 16 bytes; the operand's last
+//   tile may end inside a 16-byte unit, and thread 0 reads its last len % 4
+//   floats itself before it arrives on the buffer's mbarrier, whose release
+//   orders them before the other threads' wait.
 
+#include <atomic>
 #include <cstddef>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRingThreads = 512;  // K3's and K4's staged modes
 constexpr int kCopyBlocks = 132 * 32;  // a grid-stride grid: 32 blocks per SM
 constexpr int kTile = 32;
 constexpr int kTileRows = 8;
 constexpr int kSinglePad = 128;  // K4's edge pad (warp.PAD)
-constexpr int kSingleWin = 384;  // K4's window width
+constexpr int kSmemMax = 232448;  // the dynamic shared memory a block may opt into on sm_90
+constexpr int kRingHeader = 128;  // the ring's mbarriers, ahead of its buffers
+constexpr int kPairTileBytes = 16 * 1024;    // K3's tile per operand
+constexpr int kSingleTileBytes = 32 * 1024;  // K4's tile
 
 __global__ void __launch_bounds__(kThreads) pair_copy_kernel(
     const float4* __restrict__ xa, const float4* __restrict__ xb, float4* __restrict__ oa,
@@ -109,112 +138,569 @@ __device__ __forceinline__ float tap_weight(float d0, int m) {
 }
 
 enum PairMode : int { kPairCopy = 0, kPairStage = 1, kPairTaps = 2 };
-
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) probe2_kernel(
-    const float* __restrict__ xa, const float* __restrict__ xb, float* __restrict__ oa,
-    float* __restrict__ ob, int R, int H, int S, int pad, int width, int ntaps) {
-  extern __shared__ float smem[];
-  float* sa = smem;
-  float* sb = smem + width;
-  const int r = blockIdx.x;
-  const size_t row = (static_cast<size_t>(blockIdx.y) * R + r) * S;
-  if (kMode == kPairCopy) {
-    for (int l = threadIdx.x; l < S; l += blockDim.x) {
-      oa[row + l] = __fmul_rn(xa[row + l], 2.0f);
-      ob[row + l] = __fmul_rn(xb[row + l], 2.0f);
-    }
-    return;
-  }
-  for (int c = threadIdx.x; c < width; c += blockDim.x) {
-    const int k = min(max(c - pad, 0), S - 1);
-    sa[c] = xa[row + k];
-    sb[c] = xb[row + k];
-  }
-  __syncthreads();
-  if (kMode == kPairStage) {
-    for (int l = threadIdx.x; l < S; l += blockDim.x) {
-      oa[row + l] = sa[pad + l];
-      ob[row + l] = sb[pad + l];
-    }
-    return;
-  }
-  constexpr int n0 = -1;
-  const float row_j = static_cast<float>(r % H);
-  for (int l = threadIdx.x; l < S; l += blockDim.x) {
-    const float lf = static_cast<float>(l);
-    const float pos = __fadd_rn(__fadd_rn(__fmul_rn(0.07f, row_j), lf), 0.3f);
-    const float d0 = __fsub_rn(__fsub_rn(pos, lf), static_cast<float>(n0));
-    const float* wa = sa + pad + n0 + l;
-    const float* wb = sb + pad + n0 + l;
-    float acc_a = 0.0f, acc_b = 0.0f;
-#pragma unroll 8
-    for (int m = 0; m < ntaps; ++m) {
-      const float w = tap_weight(d0, m);
-      acc_a = __fadd_rn(acc_a, __fmul_rn(w, wa[m]));
-      acc_b = __fadd_rn(acc_b, __fmul_rn(w, wb[m]));
-    }
-    oa[row + l] = acc_a;
-    ob[row + l] = acc_b;
-  }
-}
-
 enum SingleMode : int { kCopy = 0, kStage = 1, kLadder = 2, kTiles = 3, kSweep12 = 4 };
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) probe_kernel(const float* __restrict__ x,
-                                                         float* __restrict__ o, int R, int S,
-                                                         int width) {
-  extern __shared__ float srow[];
-  const int r = blockIdx.x;
-  const size_t row = (static_cast<size_t>(blockIdx.y) * R + r) * S;
-  if (kMode == kCopy) {
-    for (int l = threadIdx.x; l < S; l += blockDim.x) o[row + l] = __fmul_rn(x[row + l], 2.0f);
-    return;
+// --- K3 and K4: the ring of tiles ---------------------------------------------
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_addr(bar)), "r"(1u) : "memory");
+}
+
+// Arrive on `bar` (a release: this thread's earlier shared-memory writes are
+// seen by the threads its phase releases) and expect `bytes` from bulk copies.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(shared_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(shared_addr(bar)), "r"(parity)
+        : "memory");
   }
-  for (int c = threadIdx.x; c < width; c += blockDim.x) {
-    srow[c] = x[row + min(max(c - kSinglePad, 0), S - 1)];
+}
+
+// TMA: `bytes` (a multiple of 16) from global `src` to shared `dst`, both on
+// 16 bytes; completion counted on `bar`.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          shared_addr(dst)),
+      "l"(src), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+
+// The tile counter the blocks of one ring launch draw from; the launch's last
+// block to finish sets it back to zero for the next launch on its stream.
+struct TileCounter {
+  unsigned long long next;
+  unsigned int done;
+};
+
+template <int kOps>
+struct Ring {
+  unsigned char* smem;  // the block's dynamic shared memory
+  const float* x[kOps];
+  long long elems;   // floats per operand
+  long long ntiles;  // tiles per operand
+  int tile_elems;    // floats per operand and tile, a multiple of 4
+  int stages;
+
+  __device__ uint64_t* bar(int s) const { return reinterpret_cast<uint64_t*>(smem) + s; }
+  // the tile in buffer s, ntiles or more once the counter has run out
+  __device__ long long* tile(int s) const { return reinterpret_cast<long long*>(smem + kRingHeader / 2) + s; }
+  __device__ float* buf(int s, int op) const {
+    return reinterpret_cast<float*>(smem + kRingHeader) +
+           (static_cast<size_t>(s) * kOps + op) * tile_elems;
+  }
+  // thread 0: tile t of every operand into buffer s (none past the last tile)
+  __device__ void fill(long long t, int s) const {
+    *tile(s) = t;
+    const long long e0 = t * tile_elems;
+    const int len = t < ntiles ? static_cast<int>(min(static_cast<long long>(tile_elems), elems - e0)) : 0;
+    const int bulk = len & ~3;
+    for (int op = 0; op < kOps; ++op) {
+      for (int i = bulk; i < len; ++i) buf(s, op)[i] = x[op][e0 + i];
+    }
+    mbar_arrive_expect(bar(s), static_cast<uint32_t>(kOps * bulk * sizeof(float)));
+    if (bulk > 0) {
+      for (int op = 0; op < kOps; ++op) {
+        bulk_load(buf(s, op), x[op] + e0, static_cast<uint32_t>(bulk * sizeof(float)), bar(s));
+      }
+    }
+  }
+};
+
+#ifdef FSG_RING_PROFILE
+// The build of fetalsyngen_torch/probes/ring_profile.py: for each of the
+// first kRecords ring blocks, its start and end on the global timer (ns) and,
+// for thread 32, the cycles it waited on the ring's barriers and the cycles of
+// its walk.
+constexpr int kRecords = 65536;
+__device__ unsigned long long ring_records[4 * kRecords];
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+struct RingClock {
+  long long walk0 = 0, waited = 0, wait0 = 0;
+  __device__ void start() {
+    if (threadIdx.x == 0 && blockIdx.x < kRecords) ring_records[4 * blockIdx.x] = global_ns();
+    walk0 = clock64();
+  }
+  __device__ void wait_begin() { wait0 = clock64(); }
+  __device__ void wait_end() { waited += clock64() - wait0; }
+  __device__ void end() {
+    if (threadIdx.x == 32 && blockIdx.x < kRecords) {
+      ring_records[4 * blockIdx.x + 2] = waited;
+      ring_records[4 * blockIdx.x + 3] = clock64() - walk0;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && blockIdx.x < kRecords) ring_records[4 * blockIdx.x + 1] = global_ns();
+  }
+};
+#else
+struct RingClock {  // records nothing
+  __device__ void start() {}
+  __device__ void wait_begin() {}
+  __device__ void wait_end() {}
+  __device__ void end() {}
+};
+#endif
+
+// The block draws tiles from `counter` in turn into its buffers, waits for
+// each, runs body(t, s) on it and, once every thread has left the buffer,
+// refills it with the next tile drawn. The draws of one block rise, so the
+// first buffer past the last tile ends the walk with no copy in flight.
+template <int kOps, typename Body>
+__device__ __forceinline__ void ring_walk(const Ring<kOps>& ring, TileCounter* counter, Body&& body) {
+  RingClock clock;
+  clock.start();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ring.stages; ++s) mbar_init(ring.bar(s));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (kMode == kStage) {
-    for (int l = threadIdx.x; l < S; l += blockDim.x) o[row + l] = srow[kSinglePad + l];
-    return;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ring.stages; ++s) ring.fill(static_cast<long long>(atomicAdd(&counter->next, 1ull)), s);
   }
-  const float sub_row = static_cast<float>(r % 8);
-  for (int l = threadIdx.x; l < S; l += blockDim.x) {
-    const int lane0 = l & ~127;
-    const float pos = __fadd_rn(__fmul_rn(0.11f, sub_row), static_cast<float>(l));
-    const int n0 = static_cast<int>(floorf(__fsub_rn(pos, pos)));
-    const int base = min(max(kSinglePad + lane0 + n0, 0), width - kSingleWin);
-    if (kMode == kLadder) {
-      o[row + l] = srow[base + l - lane0];
-    } else if (kMode == kTiles) {
-      o[row + l] = __fadd_rn(srow[(base / 128) * 128 + l - lane0], __fmul_rn(0.0f, pos));
-    } else {
-      const float d0 = __fsub_rn(pos, floorf(pos));
-      const float* w = srow + base + l - lane0;
-      float acc = 0.0f;
-#pragma unroll
-      for (int m = 0; m < 12; ++m) acc = __fadd_rn(acc, __fmul_rn(tap_weight(d0, m), w[m]));
-      o[row + l] = acc;
+  int s = 0;
+  uint32_t parity = 0;
+  while (true) {
+    clock.wait_begin();
+    mbar_wait(ring.bar(s), parity);
+    clock.wait_end();
+    const long long t = *ring.tile(s);
+    if (t >= ring.ntiles) break;
+    body(t, s);
+    __syncthreads();
+    if (threadIdx.x == 0) ring.fill(static_cast<long long>(atomicAdd(&counter->next, 1ull)), s);
+    if (++s == ring.stages) {
+      s = 0;
+      parity ^= 1u;
+    }
+  }
+  clock.end();
+  if (threadIdx.x == 0) {
+    __threadfence();  // this block's draws before its count
+    if (atomicAdd(&counter->done, 1u) == gridDim.x - 1) {
+      counter->next = 0;
+      counter->done = 0;
     }
   }
 }
 
-template <int kMode>
-void launch_probe2(const float* xa, const float* xb, float* oa, float* ob, int B, int R, int H,
-                   int S, int pad, int width, int ntaps, cudaStream_t st) {
-  const size_t smem = kMode == kPairCopy ? 0 : 2 * static_cast<size_t>(width) * sizeof(float);
-  probe2_kernel<kMode><<<dim3(R, B), kThreads, smem, st>>>(xa, xb, oa, ob, R, H, S, pad, width, ntaps);
+// v[i] = row[clamp(c + i, 0, S - 1)], i < 4: one 16-byte read where the four
+// lie in the row on a 16-byte boundary, else four
+__device__ __forceinline__ void load4(const float* row, int c, int S, float* v) {
+  if (c >= 0 && c + 3 < S && (reinterpret_cast<uintptr_t>(row + c) & 15) == 0) {
+    const float4 q = *reinterpret_cast<const float4*>(row + c);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = row[min(max(c + i, 0), S - 1)];
+  }
 }
 
+// out[l + k] = v[k] for the lanes l + k < S: one 16-byte store where all four
+// lie in the row on a 16-byte boundary, else lane by lane
+__device__ __forceinline__ void store4(float* out, int l, int S, const float* v) {
+  if (l + 3 < S && (reinterpret_cast<uintptr_t>(out + l) & 15) == 0) {
+    __stcs(reinterpret_cast<float4*>(out + l), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (l + k < S) out[l + k] = v[k];
+    }
+  }
+}
+
+// K3 taps at lanes l..l+3 of a staged row pair (sa, sb), four taps at a time
+// from the window w[j] = row[clamp(l + n0 + m0 + j)], j < 8: the last value of
+// the previous quad, the quad at l + m0 and three of the next.
+__device__ __forceinline__ void pair_taps(const float* sa, const float* sb, int l, int S, float row_j,
+                                          int ntaps, float* acc_a, float* acc_b) {
+  constexpr int n0 = -1;
+  float d0[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float lf = static_cast<float>(l + k);
+    const float pos = __fadd_rn(__fadd_rn(__fmul_rn(0.07f, row_j), lf), 0.3f);
+    d0[k] = __fsub_rn(__fsub_rn(pos, lf), static_cast<float>(n0));
+    acc_a[k] = 0.0f;
+    acc_b[k] = 0.0f;
+  }
+  const int first = min(max(l + n0, 0), S - 1);
+  float wa[8], wb[8];
+  wa[0] = sa[first];
+  wb[0] = sb[first];
+  load4(sa, l, S, wa + 1);
+  load4(sb, l, S, wb + 1);
+  for (int m0 = 0; m0 < ntaps; m0 += 4) {
+    float na[4], nb[4];
+    load4(sa, l + m0 + 4, S, na);
+    load4(sb, l + m0 + 4, S, nb);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      wa[5 + j] = na[j];
+      wb[5 + j] = nb[j];
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (m0 + t < ntaps) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float w = tap_weight(d0[k], m0 + t);
+          acc_a[k] = __fadd_rn(acc_a[k], __fmul_rn(w, wa[k + t]));
+          acc_b[k] = __fadd_rn(acc_b[k], __fmul_rn(w, wb[k + t]));
+        }
+      }
+    }
+    wa[0] = wa[4];
+    wb[0] = wb[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wa[1 + j] = na[j];
+      wb[1 + j] = nb[j];
+    }
+  }
+}
+
+// K4's window modes at lanes l..l+3 (one 128-lane tile) of a staged row
 template <int kMode>
-void launch_probe(const float* x, float* o, int B, int R, int S, int width, cudaStream_t st) {
-  const size_t smem = kMode == kCopy ? 0 : static_cast<size_t>(width) * sizeof(float);
-  probe_kernel<kMode><<<dim3(R, B), kThreads, smem, st>>>(x, o, R, S, width);
+__device__ __forceinline__ void single_window(const float* row, int l, int S, float sub_row, float* v) {
+  const int lane0 = l & ~127;
+  float pos[4];
+  int c[4];  // the staged index of each lane's first read: padded column - 128
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    pos[k] = __fadd_rn(__fmul_rn(0.11f, sub_row), static_cast<float>(l + k));
+    const int n0 = static_cast<int>(floorf(__fsub_rn(pos[k], pos[k])));
+    const int base = min(max(kSinglePad + lane0 + n0, 0), S);  // S = width - 384
+    c[k] = (kMode == kTiles ? (base / 128) * 128 : base) + l + k - lane0 - kSinglePad;
+  }
+  const bool run = c[1] == c[0] + 1 && c[2] == c[0] + 2 && c[3] == c[0] + 3;
+  if constexpr (kMode == kSweep12) {
+    float d0[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      d0[k] = __fsub_rn(pos[k], floorf(pos[k]));
+      v[k] = 0.0f;
+    }
+    if (run) {  // one window of 16 for the four lanes
+      float w[16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) load4(row, c[0] + 4 * q, S, w + 4 * q);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int m = 0; m < 12; ++m) v[k] = __fadd_rn(v[k], __fmul_rn(tap_weight(d0[k], m), w[k + m]));
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int m = 0; m < 12; ++m) {
+          v[k] = __fadd_rn(v[k], __fmul_rn(tap_weight(d0[k], m), row[min(max(c[k] + m, 0), S - 1)]));
+        }
+      }
+    }
+    return;
+  }
+  if (run) {
+    load4(row, c[0], S, v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = row[min(max(c[k], 0), S - 1)];
+  }
+  if constexpr (kMode == kTiles) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __fadd_rn(v[k], __fmul_rn(0.0f, pos[k]));
+  }
+}
+
+// K3 (kOps 2, a PairMode) and K4 (kOps 1, a SingleMode) in their staged
+// modes on nrows rows of S lanes per operand, r = row % R within a volume.
+template <int kOps, int kMode>
+__global__ void __launch_bounds__(kRingThreads) probe_ring_kernel(
+    const float* __restrict__ xa, const float* __restrict__ xb, float* __restrict__ oa,
+    float* __restrict__ ob, long long nrows, int R, int H, int S, int tile_rows, int stages,
+    int ntaps, TileCounter* counter) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Ring<kOps> ring;
+  ring.smem = smem;
+  ring.x[0] = xa;
+  if constexpr (kOps == 2) ring.x[1] = xb;
+  ring.elems = nrows * S;
+  ring.ntiles = (nrows + tile_rows - 1) / tile_rows;
+  ring.tile_elems = tile_rows * S;
+  ring.stages = stages;
+  const int G = (S + 3) / 4;  // groups of four lanes per row
+  ring_walk(ring, counter, [&](long long t, int s) {
+    const long long n0 = t * tile_rows;
+    const int rows = static_cast<int>(min(static_cast<long long>(tile_rows), nrows - n0));
+    const int r0 = static_cast<int>(n0 % R);
+    for (int i = threadIdx.x; i < rows * G; i += kRingThreads) {
+      const int row = i / G;
+      const int l = 4 * (i - row * G);
+      int r = r0 + row;  // the row within its volume; a division only where the tile wraps
+      if (r >= R) r %= R;
+      const size_t out = static_cast<size_t>(n0 + row) * S;
+      const float* sa = ring.buf(s, 0) + row * S;
+      if constexpr (kOps == 2) {
+        const float* sb = ring.buf(s, 1) + row * S;
+        float va[4], vb[4];
+        if constexpr (kMode == kPairStage) {
+          load4(sa, l, S, va);
+          load4(sb, l, S, vb);
+        } else {
+          pair_taps(sa, sb, l, S, static_cast<float>(r % H), ntaps, va, vb);
+        }
+        store4(oa + out, l, S, va);
+        store4(ob + out, l, S, vb);
+      } else {
+        float v[4];
+        if constexpr (kMode == kStage) {
+          load4(sa, l, S, v);
+        } else {
+          single_window<kMode>(sa, l, S, static_cast<float>(r % 8), v);
+        }
+        store4(oa + out, l, S, v);
+      }
+    }
+  });
+}
+
+__device__ __forceinline__ float4 twice(float4 v) {
+  return make_float4(__fmul_rn(v.x, 2.0f), __fmul_rn(v.y, 2.0f), __fmul_rn(v.z, 2.0f),
+                     __fmul_rn(v.w, 2.0f));
+}
+
+// copy (K3 and K4): out = 2*x for kOps operands of `elems` floats, block b
+// on the b-th tile of tile_elems (a multiple of 4) floats, four 16-byte reads
+// per operand in flight per thread; the operand's last elems % 4 floats one
+// by one.
+template <int kOps>
+__global__ void __launch_bounds__(kThreads) probe_copy_kernel(
+    const float* __restrict__ xa, const float* __restrict__ xb, float* __restrict__ oa,
+    float* __restrict__ ob, long long elems, int tile_elems) {
+  constexpr int kUnroll = 4;
+  const float* const x[2] = {xa, xb};
+  float* const o[2] = {oa, ob};
+  const long long e0 = static_cast<long long>(blockIdx.x) * tile_elems;
+  const int len = static_cast<int>(min(static_cast<long long>(tile_elems), elems - e0));
+  const int n4 = len >> 2;
+  for (int i = threadIdx.x; i < n4; i += kUnroll * kThreads) {
+    float4 v[kOps][kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int op = 0; op < kOps; ++op) {
+        if (i + u * kThreads < n4) v[op][u] = __ldg(reinterpret_cast<const float4*>(x[op] + e0) + i + u * kThreads);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int op = 0; op < kOps; ++op) {
+        if (i + u * kThreads < n4) __stcs(reinterpret_cast<float4*>(o[op] + e0) + i + u * kThreads, twice(v[op][u]));
+      }
+    }
+  }
+  const int tail = static_cast<int>(threadIdx.x) + 4 * n4;
+  if (tail < len) {
+#pragma unroll
+    for (int op = 0; op < kOps; ++op) o[op][e0 + tail] = __fmul_rn(x[op][e0 + tail], 2.0f);
+  }
+}
+
+// --- K3 and K4: the launch ----------------------------------------------------
+
+struct Geometry {
+  int tile_rows, stages, grid, smem;  // stages 0: copy, no ring
+};
+
+// The host's caches below are shared by the threads that launch.
+std::atomic_flag cache_lock = ATOMIC_FLAG_INIT;
+
+struct CacheLock {
+  CacheLock() {
+    while (cache_lock.test_and_set(std::memory_order_acquire)) {
+    }
+  }
+  ~CacheLock() { cache_lock.clear(std::memory_order_release); }
+};
+
+// Blocks of the ring kernel `fn` that fit on device `dev` at `smem` bytes,
+// cached per (kernel, device, size); the first launch also lets the kernel
+// opt into all of kSmemMax and prefer shared memory over L1.
+cudaError_t card_blocks(const void* fn, int dev, int smem, int* blocks) {
+  struct Fit {
+    const void* fn;
+    int dev, smem, blocks;
+  };
+  constexpr int kFits = 64;
+  static Fit fits[kFits];
+  static int nfits = 0;
+  CacheLock lock;
+  for (int i = 0; i < nfits; ++i) {
+    if (fits[i].fn == fn && fits[i].dev == dev && fits[i].smem == smem) {
+      *blocks = fits[i].blocks;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  }
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kRingThreads, smem);
+  if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
+  if (e == cudaSuccess) {
+    *blocks = sms * per_sm;
+    if (nfits < kFits) fits[nfits++] = {fn, dev, smem, *blocks};
+  }
+  return e;
+}
+
+// The ring kernels' tile counter of (device `dev`, stream `st`), allocated and
+// zeroed on the stream at its first launch. Launches on one stream run one
+// after another and each leaves the counter at zero; launches on two streams
+// never share one.
+cudaError_t tile_counter(int dev, cudaStream_t st, TileCounter** counter) {
+  struct Slot {
+    int dev;
+    cudaStream_t st;
+    TileCounter* counter;
+  };
+  constexpr int kSlots = 64;
+  static Slot slots[kSlots];
+  static int nslots = 0;
+  CacheLock lock;
+  for (int i = 0; i < nslots; ++i) {
+    if (slots[i].dev == dev && slots[i].st == st) {
+      *counter = slots[i].counter;
+      return cudaSuccess;
+    }
+  }
+  if (nslots == kSlots) return cudaErrorMemoryAllocation;
+  cudaError_t e = cudaMalloc(reinterpret_cast<void**>(counter), sizeof(TileCounter));
+  if (e == cudaSuccess) e = cudaMemsetAsync(*counter, 0, sizeof(TileCounter), st);
+  if (e == cudaSuccess) slots[nslots++] = {dev, st, *counter};
+  return e;
+}
+
+// The launch of K3's (`ops` 2) or K4's (1) mode on nrows rows of S lanes:
+// tiles of as many rows as fit `target` bytes per operand, in units of 4 /
+// gcd(S, 4) rows (whole 16-byte units). copy: one tile per block, placed by
+// the card's block scheduler. The ring (`fn`): three stages, two where three
+// do not fit kSmemMax, and as many blocks as fit the card (at most one per
+// tile), drawing tiles from a counter: with a fixed share of tiles per
+// block (a grid-stride loop) the card's slowest blocks ran on alone at the
+// end of a launch.
+cudaError_t plan(const void* fn, int dev, int ops, long long nrows, int S, int target, Geometry* g) {
+  if (nrows < 1 || S < 1) return cudaErrorInvalidValue;
+  const int unit = S % 4 == 0 ? 1 : (S % 2 == 0 ? 2 : 4);
+  g->tile_rows = target / (4 * S) / unit * unit;
+  if (g->tile_rows < unit) g->tile_rows = unit;
+  const long long ntiles = (nrows + g->tile_rows - 1) / g->tile_rows;
+  g->stages = 0;
+  g->smem = 0;
+  if (fn == nullptr) {
+    if (ntiles > 0x7fffffff) return cudaErrorInvalidValue;
+    g->grid = static_cast<int>(ntiles);
+    return cudaSuccess;
+  }
+  const long long stage = static_cast<long long>(ops) * g->tile_rows * S * sizeof(float);
+  g->stages = kRingHeader + 3 * stage <= kSmemMax ? 3 : 2;
+  if (kRingHeader + g->stages * stage > kSmemMax) return cudaErrorInvalidValue;
+  g->smem = static_cast<int>(kRingHeader + g->stages * stage);
+  int blocks = 0;
+  const cudaError_t e = card_blocks(fn, dev, g->smem, &blocks);
+  if (e != cudaSuccess) return e;
+  g->grid = static_cast<int>(ntiles < blocks ? ntiles : blocks);
+  return cudaSuccess;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Plans the launch of K3's (kOps 2) or K4's (kOps 1) mode into g, and
+// launches it if `launch`.
+template <int kOps, int kMode>
+cudaError_t run(const float* xa, const float* xb, float* oa, float* ob, long long nrows, int R, int H,
+                int S, int ntaps, bool launch, cudaStream_t st, Geometry* g) {
+  constexpr bool kRing = kMode != 0;  // copy is mode 0 in both enums
+  const int target = kOps == 2 ? kPairTileBytes : kSingleTileBytes;
+  const void* fn = nullptr;  // the ring kernel; none for copy
+  if constexpr (kRing) fn = reinterpret_cast<const void*>(&probe_ring_kernel<kOps, kMode>);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = plan(fn, dev, kOps, nrows, S, target, g);
+  if (e != cudaSuccess || !launch) return e;
+  if (!aligned16(xa) || !aligned16(oa) || (kOps == 2 && (!aligned16(xb) || !aligned16(ob)))) {
+    return cudaErrorMisalignedAddress;
+  }
+  if constexpr (kRing) {
+    TileCounter* counter = nullptr;
+    e = tile_counter(dev, st, &counter);
+    if (e != cudaSuccess) return e;
+    probe_ring_kernel<kOps, kMode><<<g->grid, kRingThreads, g->smem, st>>>(
+        xa, xb, oa, ob, nrows, R, H, S, g->tile_rows, g->stages, ntaps, counter);
+  } else {
+    probe_copy_kernel<kOps><<<g->grid, kThreads, 0, st>>>(xa, xb, oa, ob, nrows * S, g->tile_rows * S);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t probe2_run(const float* xa, const float* xb, float* oa, float* ob, long long nrows, int R,
+                       int H, int S, int mode, int ntaps, bool launch, cudaStream_t st, Geometry* g) {
+  switch (mode) {
+    case kPairCopy: return run<2, kPairCopy>(xa, xb, oa, ob, nrows, R, H, S, ntaps, launch, st, g);
+    case kPairStage: return run<2, kPairStage>(xa, xb, oa, ob, nrows, R, H, S, ntaps, launch, st, g);
+    case kPairTaps: return run<2, kPairTaps>(xa, xb, oa, ob, nrows, R, H, S, ntaps, launch, st, g);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t probe_run(const float* x, float* o, long long nrows, int R, int S, int mode, bool launch,
+                      cudaStream_t st, Geometry* g) {
+  switch (mode) {
+    case kCopy: return run<1, kCopy>(x, nullptr, o, nullptr, nrows, R, 1, S, 0, launch, st, g);
+    case kStage: return run<1, kStage>(x, nullptr, o, nullptr, nrows, R, 1, S, 0, launch, st, g);
+    case kLadder: return run<1, kLadder>(x, nullptr, o, nullptr, nrows, R, 1, S, 0, launch, st, g);
+    case kTiles: return run<1, kTiles>(x, nullptr, o, nullptr, nrows, R, 1, S, 0, launch, st, g);
+    case kSweep12: return run<1, kSweep12>(x, nullptr, o, nullptr, nrows, R, 1, S, 0, launch, st, g);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
+
+#ifdef FSG_RING_PROFILE
+// The ring blocks' records of the last launch: 4 per block, `blocks` <=
+// kRecords. Returns a cudaError code.
+extern "C" int fsg_ring_records(unsigned long long* out, int blocks) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, ring_records, sizeof(unsigned long long) * 4 * blocks));
+}
+#endif
 
 // K5: 4*n4 + tail floats (tail < 4) each of xa, xb into oa, ob; every
 // pointer 16-byte aligned. Launches on `stream` and returns
@@ -240,37 +726,40 @@ extern "C" int fsg_pair_transpose_f32(const float* xa, const float* xb, float* o
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3: xa, xb, oa, ob (B, R, S) with rows r = row_i*H + row_j; mode 0 copy, 1
-// stage, 2 taps (ntaps taps, 1 <= ntaps <= S + 128). Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for another mode.
+// K3: xa, xb, oa, ob (B, R, S), 16-byte aligned, with rows r = row_i*H +
+// row_j; mode 0 copy, 1 stage, 2 taps (ntaps taps, ntaps >= 1). Returns
+// cudaGetLastError(), or an error without launching: cudaErrorInvalidValue
+// for another mode or an S whose two ring stages do not fit, a misaligned
+// pointer, or the failed attribute, occupancy or tile-counter call.
 extern "C" int fsg_probe2_f32(const float* xa, const float* xb, float* oa, float* ob, int B,
                               int R, int H, int S, int mode, int ntaps, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int pad = S > 128 ? S : 128;
-  const int width = S + pad + S + 128;
-  switch (mode) {
-    case kPairCopy: launch_probe2<kPairCopy>(xa, xb, oa, ob, B, R, H, S, pad, width, ntaps, st); break;
-    case kPairStage: launch_probe2<kPairStage>(xa, xb, oa, ob, B, R, H, S, pad, width, ntaps, st); break;
-    case kPairTaps: launch_probe2<kPairTaps>(xa, xb, oa, ob, B, R, H, S, pad, width, ntaps, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  Geometry g;
+  return static_cast<int>(probe2_run(xa, xb, oa, ob, static_cast<long long>(B) * R, R, H, S, mode,
+                                     ntaps, true, static_cast<cudaStream_t>(stream), &g));
 }
 
-// K4: x, o (B, R, S), S a multiple of 128; mode 0 copy, 1 stage, 2 ladder, 3
-// tiles, 4 sweep12. Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// another mode.
+// K4: x, o (B, R, S), 16-byte aligned, S a multiple of 128; mode 0 copy, 1
+// stage, 2 ladder, 3 tiles, 4 sweep12. Returns as fsg_probe2_f32.
 extern "C" int fsg_probe_f32(const float* x, float* o, int B, int R, int S, int mode,
                              void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int width = S + 2 * kSinglePad + 128;
-  switch (mode) {
-    case kCopy: launch_probe<kCopy>(x, o, B, R, S, width, st); break;
-    case kStage: launch_probe<kStage>(x, o, B, R, S, width, st); break;
-    case kLadder: launch_probe<kLadder>(x, o, B, R, S, width, st); break;
-    case kTiles: launch_probe<kTiles>(x, o, B, R, S, width, st); break;
-    case kSweep12: launch_probe<kSweep12>(x, o, B, R, S, width, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  Geometry g;
+  return static_cast<int>(probe_run(x, o, static_cast<long long>(B) * R, R, S, mode, true,
+                                    static_cast<cudaStream_t>(stream), &g));
+}
+
+// The launch fsg_probe2_f32 (kernel 3) or fsg_probe_f32 (kernel 4) makes on
+// the current device for (B, R, S) in `mode`: geometry = {tile rows, ring
+// stages (0 for copy), grid blocks, dynamic shared-memory bytes}. Returns a
+// cudaError code.
+extern "C" int fsg_probe_geometry(int kernel, int B, int R, int S, int mode, int* geometry) {
+  Geometry g{};
+  const long long nrows = static_cast<long long>(B) * R;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (kernel == 3) e = probe2_run(nullptr, nullptr, nullptr, nullptr, nrows, R, 1, S, mode, 1, false, nullptr, &g);
+  if (kernel == 4) e = probe_run(nullptr, nullptr, nrows, R, S, mode, false, nullptr, &g);
+  geometry[0] = g.tile_rows;
+  geometry[1] = g.stages;
+  geometry[2] = g.grid;
+  geometry[3] = g.smem;
+  return static_cast<int>(e);
 }

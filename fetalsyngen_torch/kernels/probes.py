@@ -10,10 +10,15 @@ describe each one and the Hopper construct it measures):
   to (..., W, H) through padded shared-memory tiles.
 - :func:`probe2` (K3, the ``probe2_*`` modes of
   ``scripts/microbench_warp.py``): the paired hat kernel's copy, staging and
-  tap constructs, in K1's launch geometry.
+  tap constructs.
 - :func:`probe` (K4, the ``probe_*`` modes there): the single-operand
-  kernel's copy, staging, window-shift and tap constructs, in K2's launch
-  geometry.
+  kernel's copy, staging, window-shift and tap constructs.
+
+  K3 and K4 work on tiles of consecutive rows: copy one tile per block;
+  the staged modes on a persistent grid whose blocks draw tiles from a
+  counter and fill a ring of shared-memory tiles with TMA bulk copies
+  (:func:`probe_geometry` reports a launch's tile rows, ring stages, grid
+  and shared memory).
 - :func:`hat_variant` (K7, ``scripts/profile_kernel_variants.py::
   make_kernel``): the windowed hat sample with a lane-affine table in five
   variants, four of them deliberately wrong, one per construct left out.
@@ -24,6 +29,9 @@ a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 
@@ -41,6 +49,8 @@ LAUNCHES = {
 }
 
 _SMEM = 48 * 1024  # the default dynamic shared memory of a block
+_SMEM_MAX = 232448  # the dynamic shared memory a block may opt into on sm_90
+_RING_HEADER = 128  # the ring's barriers, ahead of its tiles
 SINGLE_PAD = 128  # K4's edge pad
 VARIANT_ROWS = 32  # K7's rows per block
 VARIANT_CHUNK = 8  # K7's taps per predicated chunk
@@ -65,6 +75,45 @@ def _device(name, x) -> str:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda tensors, got {x.device}")
     return x.device.type
+
+
+def _ring_bytes(n_ops, S):
+    """(shared memory of two ring stages of the fewest rows a K3/K4 tile may
+    hold, those rows): 4 / gcd(S, 4) rows, a whole number of 16-byte units."""
+    rows = 4 // math.gcd(S, 4)
+    return _RING_HEADER + 2 * n_ops * rows * S * 4, rows
+
+
+def _ring_operands(name, xs):
+    """K3's and K4's operands on the card: as :func:`_check` wants them,
+    16-byte aligned (bulk copies and 16-byte accesses; the outputs come from
+    ``torch.empty_like``, whose blocks are aligned), and rows short enough
+    for the ring (:func:`_ring_bytes`)."""
+    _check(name, xs)
+    if any(t.data_ptr() % 16 for t in xs):
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
+    S = xs[0].shape[-1]
+    need, rows = _ring_bytes(len(xs), S)
+    if need > _SMEM_MAX:
+        raise ValueError(f"{name}: S={S} needs {need} bytes of shared memory for two ring stages of "
+                         f"{rows}-row tiles, over {_SMEM_MAX}")
+
+
+def probe_geometry(kernel, shape, mode):
+    """The launch K3 (``kernel`` 3) or K4 (4) makes on the current CUDA
+    device for (B, D, H, S) operands in ``mode``: a dict of tile rows, ring
+    stages (0 for copy), grid blocks and dynamic shared-memory bytes."""
+    from .build import load_library
+
+    fn = load_library("probes").fsg_probe_geometry
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    modes = PAIR_MODES if kernel == 3 else SINGLE_MODES
+    B, D, H, S = shape
+    out = (ctypes.c_int * 4)()
+    rc = fn(kernel, B, D * H, S, modes.index(mode), out)
+    if rc != 0:
+        raise RuntimeError(f"probe_geometry: K{kernel} {mode} at {tuple(shape)}: cudaError {rc}")
+    return dict(zip(("tile_rows", "stages", "grid", "smem_bytes"), out))
 
 
 def _launched(name, key, rc):
@@ -172,20 +221,17 @@ def probe2(xa, xb, mode, ntaps=0):
     f32 operands, one launch."""
     if _device("probe2", xa) == "cpu":
         return probe2_ref(xa, xb, mode, ntaps)
-    _check("probe2", [xa, xb])
     if mode not in PAIR_MODES:
         raise ValueError(f"probe2 mode {mode!r} not in {PAIR_MODES}")
+    _ring_operands("probe2", (xa, xb))
     B, D, H, S = xa.shape
-    width = S + max(128, S) + S + 128  # the staged row: K3's edge pads
-    if 2 * 4 * width > _SMEM:
-        raise ValueError(f"probe2: S={S} stages {2 * 4 * width} bytes, over {_SMEM}")
     if mode == "taps" and not 1 <= ntaps <= S + 128:
         raise ValueError(f"probe2: ntaps={ntaps} outside [1, S + 128]")
     oa, ob = torch.empty_like(xa), torch.empty_like(xb)
     fn = _bind("probes", "fsg_probe2_f32", 4, 6)
     with torch.cuda.device(xa.device):
-        rc = fn(xa.data_ptr(), xb.data_ptr(), oa.data_ptr(), ob.data_ptr(), B, D * H, H, S,
-                PAIR_MODES.index(mode), ntaps, _stream(xa.device))
+        rc = fn(xa.data_ptr(), xb.data_ptr(), oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, PAIR_MODES.index(mode),
+                ntaps, _stream(xa.device))
     _launched("probe2", f"probe2_{mode}", rc)
     return oa, ob
 
@@ -239,12 +285,12 @@ def probe(x, mode):
     f32 operand, S a multiple of 128, one launch."""
     if _device("probe", x) == "cpu":
         return probe_ref(x, mode)
-    _check("probe", [x])
     if mode not in SINGLE_MODES:
         raise ValueError(f"probe mode {mode!r} not in {SINGLE_MODES}")
     B, D, H, S = x.shape
-    if S % 128 or 4 * (S + 2 * SINGLE_PAD + 128) > _SMEM:
-        raise ValueError(f"probe: S={S} must be a multiple of 128 with its staged row in {_SMEM} bytes")
+    if S % 128:
+        raise ValueError(f"probe: S={S} must be a multiple of 128")
+    _ring_operands("probe", (x,))
     out = torch.empty_like(x)
     fn = _bind("probes", "fsg_probe_f32", 2, 4)
     with torch.cuda.device(x.device):

@@ -226,27 +226,83 @@ def test_pair_copy_and_transpose_match_plain(dev, shape):
         assert all(torch.equal(k, r) for k, r in zip(got, want))
 
 
-@pytest.mark.parametrize("S", [16, 256, 300])
-def test_probe2_matches_plain(dev, S):
+# (B, D, H) rows of the probe tests: rows that fill no whole tile, one row per
+# volume, rows that end in a partial tile, and rows enough that each block
+# walks its ring of tiles more than once
+PROBE_ROWS = [(2, 3, 8), (1, 3, 7), (2, 1, 1), (1, 5, 67), (3, 100, 101)]
+
+
+def _with_negative_zeros(x):
+    x.view(-1)[::7] = -0.0
+    return x
+
+
+def _bits_equal(got, want):
+    return all(torch.equal(k.view(torch.int32), r.view(torch.int32)) for k, r in zip(got, want))
+
+
+@pytest.mark.parametrize("S", [5, 16, 256, 300])
+@pytest.mark.parametrize("rows", PROBE_ROWS)
+def test_probe2_matches_plain(dev, rows, S):
+    """K3, every mode bit for bit; S = 5 puts rows and the operand's end off
+    16 bytes."""
     from fetalsyngen_torch.kernels import probes
 
     g = torch.Generator(device=dev).manual_seed(S)
-    xa, xb = (torch.randn((2, 3, 8, S), generator=g, device=dev) for _ in range(2))
-    for mode, ntaps in (("copy", 0), ("stage", 0), ("taps", 1), ("taps", 8), ("taps", S + 128)):
+    xa, xb = (_with_negative_zeros(torch.randn((*rows, S), generator=g, device=dev)) for _ in range(2))
+    for mode, ntaps in (("copy", 0), ("stage", 0), ("taps", 1), ("taps", 8), ("taps", 13), ("taps", S + 128)):
         got, want = probes.probe2(xa, xb, mode, ntaps), probes.probe2_ref(xa, xb, mode, ntaps)
         torch.cuda.synchronize()
-        assert all(torch.equal(k, r) for k, r in zip(got, want)), (mode, ntaps)
+        assert _bits_equal(got, want), (mode, ntaps)
 
 
-@pytest.mark.parametrize("S", [128, 384])
-def test_probe_matches_plain(dev, S):
+@pytest.mark.parametrize("S", [128, 384, 1024])
+@pytest.mark.parametrize("rows", [(2, 3, 24)] + PROBE_ROWS[1:])
+def test_probe_matches_plain(dev, rows, S):
+    """K4, every mode bit for bit (tiles turns -0.0 into +0)."""
     from fetalsyngen_torch.kernels import probes
 
-    x = torch.randn((2, 3, 24, S), generator=torch.Generator(device=dev).manual_seed(S), device=dev)
+    x = torch.randn((*rows, S), generator=torch.Generator(device=dev).manual_seed(S), device=dev)
+    _with_negative_zeros(x)
     for mode in probes.SINGLE_MODES:
         got, want = probes.probe(x, mode), probes.probe_ref(x, mode)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), mode
+        assert _bits_equal((got,), (want,)), mode
+
+
+def test_probe_wrappers_reject_bad_inputs(dev):
+    """K3's and K4's launch limits: 16-byte alignment, and two ring stages of
+    the fewest rows a tile may hold in shared memory."""
+    from fetalsyngen_torch.kernels import probes
+
+    off = torch.zeros(1 + 2 * 128, device=dev)[1:].view(1, 1, 2, 128)  # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probes.probe(off, "stage")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probes.probe2(off, off, "copy")
+    with pytest.raises(ValueError, match="shared memory for two ring stages of 1-row"):
+        probes.probe(torch.zeros((1, 1, 1, 227 * 128), device=dev), "stage")
+    with pytest.raises(ValueError, match="shared memory for two ring stages of 4-row"):
+        probes.probe2(*(torch.zeros((1, 1, 1, 3631), device=dev) for _ in range(2)), "stage")
+    x = torch.randn((1, 1, 2, 226 * 128), device=dev)  # the largest S whose two 1-row stages fit
+    assert torch.equal(probes.probe(x, "stage"), x)
+
+
+def test_probe_geometry(dev):
+    """K3 and K4 at B=4 256^3: 16- and 32-row tiles in three stages and a
+    grid of whole SMs' worth of blocks drawing tiles; copy one tile per block
+    with no shared memory."""
+    from fetalsyngen_torch.kernels import probes
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kernel, mode, rows, stages in ((3, "stage", 16, 3), (3, "taps", 16, 3), (4, "sweep12", 32, 3),
+                                       (3, "copy", 16, 0), (4, "copy", 32, 0)):
+        geo = probes.probe_geometry(kernel, (4, 256, 256, 256), mode)
+        ops = 2 if kernel == 3 else 1
+        smem = 128 + stages * ops * rows * 1024
+        assert geo == {"tile_rows": rows, "stages": stages, "grid": geo["grid"], "smem_bytes": smem if stages else 0}
+        ntiles = 4 * 256 * 256 // rows
+        assert geo["grid"] == ntiles if mode == "copy" else geo["grid"] % sms == 0 and geo["grid"] < ntiles
 
 
 @pytest.mark.parametrize("D, H, S, scale", [(2, 32, 384, 0.02), (1, 64, 384, 0.5), (4, 16, 100, 0.3)])

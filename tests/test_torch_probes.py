@@ -345,6 +345,102 @@ def test_probe_matches_pallas(mode):
         np.testing.assert_array_equal(got, want)
 
 
+# --- K3's and K4's plain versions against numpy, at the GPU tests' odd shapes ---
+
+
+ODD_ROWS = [(1, 3, 7), (2, 1, 1), (1, 5, 67)]  # (B, D, H): no whole tile, one row a volume, a partial tile
+
+
+def _odd_data(shape, seed):
+    """Normal f32 draws with -0.0 at every 7th element."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    x.reshape(-1)[::7] = -0.0
+    return x
+
+
+def _np_taps(xr, idx, d0, ntaps):
+    """sum over m < ntaps of max(0, 1 - |d0 - m|) * xr[..., clamp(idx + m)], in
+    tap order; ``xr`` (B, R, S), ``idx`` and ``d0`` (R, S)."""
+    S = xr.shape[-1]
+    acc = np.zeros(xr.shape, np.float32)
+    for m in range(ntaps):
+        w = np.maximum(np.float32(0), np.float32(1) - np.abs(d0 - np.float32(m)))
+        acc = acc + w * np.take_along_axis(xr, np.broadcast_to(np.clip(idx + m, 0, S - 1), xr.shape), axis=2)
+    return acc
+
+
+def _np_probe2(x, mode, ntaps):
+    """K3 on one (B, D, H, S) operand: 2x, the row, or its taps at pos =
+    (0.07*row_j + l) + 0.3 from n0 = -1 with the edge lanes clamped."""
+    if mode == "copy":
+        return x * np.float32(2)
+    if mode == "stage":
+        return x.copy()
+    B, D, H, S = x.shape
+    R = D * H
+    rj = (np.arange(R) % H).astype(np.float32)[:, None]
+    lanes = np.arange(S, dtype=np.float32)[None, :]
+    pos = (np.float32(0.07) * rj + lanes) + np.float32(0.3)
+    d0 = (pos - lanes) - np.float32(-1)
+    idx = np.broadcast_to(np.arange(S) - 1, (R, S))
+    return _np_taps(x.reshape(B, R, S), idx, d0, ntaps).reshape(x.shape)
+
+
+def _np_probe(x, mode):
+    """K4: 2x, the row, or reads of the TPU's padded row, padded[c] =
+    x[clamp(c - 128)], at the window of pos = 0.11*(r % 8) + l."""
+    if mode == "copy":
+        return x * np.float32(2)
+    if mode == "stage":
+        return x.copy()
+    B, D, H, S = x.shape
+    R = D * H
+    xr = x.reshape(B, R, S)
+    sub = (np.arange(R) % 8).astype(np.float32)[:, None]
+    lanes = np.broadcast_to(np.arange(S), (R, S))
+    pos = np.float32(0.11) * sub + lanes.astype(np.float32)
+    n0 = np.floor(pos - pos).astype(np.int64)
+    lane0 = lanes // 128 * 128
+    base = np.clip(128 + lane0 + n0, 0, S)  # the window's last start, width - 384, is S
+
+    def padded(c):
+        return np.take_along_axis(xr, np.broadcast_to(np.clip(c - 128, 0, S - 1), xr.shape), axis=2)
+
+    if mode == "ladder":
+        out = padded(base + lanes - lane0)
+    elif mode == "tiles":
+        out = padded(base // 128 * 128 + lanes - lane0) + np.float32(0) * pos
+    else:
+        out = _np_taps(xr, base + lanes - lane0 - 128, pos - np.floor(pos), 12)
+    return out.reshape(x.shape)
+
+
+@pytest.mark.parametrize("S", [5, 16, 256, 300])
+@pytest.mark.parametrize("rows", ODD_ROWS)
+def test_probe2_ref_matches_numpy(rows, S):
+    """``probe2_ref`` bit for bit (signs of zero included) against the numpy
+    statement, every mode and tap count of the GPU test."""
+    xa, xb = _odd_data((*rows, S), S), _odd_data((*rows, S), S + 1)
+    for mode, ntaps in (("copy", 0), ("stage", 0), ("taps", 1), ("taps", 8), ("taps", 13), ("taps", S + 128)):
+        got = probes.probe2_ref(torch.from_numpy(xa), torch.from_numpy(xb), mode, ntaps)
+        for g, x in zip(got, (xa, xb)):
+            np.testing.assert_array_equal(g.numpy().view(np.uint32), _np_probe2(x, mode, ntaps).view(np.uint32))
+
+
+@pytest.mark.parametrize("S", [128, 384, 1024])
+@pytest.mark.parametrize("rows", ODD_ROWS)
+def test_probe_ref_matches_numpy(rows, S):
+    """``probe_ref`` bit for bit against the numpy statement, every mode;
+    stage keeps the inputs' -0.0, tiles' 0*pos turns it into +0."""
+    x = _odd_data((*rows, S), S)
+    for mode in probes.SINGLE_MODES:
+        got = probes.probe_ref(torch.from_numpy(x), mode).numpy()
+        want = _np_probe(x, mode)
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+        if mode in ("stage", "tiles"):
+            assert np.signbit(want[want == 0]).any() == (mode == "stage")
+
+
 def test_probe_wrappers_reject_other_devices():
     x = torch.zeros((1, 1, 2, 128), device="meta")
     for call in (lambda: probes.pair_copy(x, x), lambda: probes.pair_transpose(x, x),
@@ -352,6 +448,18 @@ def test_probe_wrappers_reject_other_devices():
                  lambda: probes.hat_variant(x[0], x[0, 0, 0, :4], x[0, 0, :, :], 0)):
         with pytest.raises(ValueError, match="cpu or cuda"):
             call()
+
+
+def test_ring_profile_block_summary():
+    """``ring_profile``'s reading of the ring blocks' records: end times from
+    the first start, mean busy time, and the share of the walk waited."""
+    from fetalsyngen_torch.probes import ring_profile
+
+    rec = np.array([[1000, 6000, 10, 100], [3000, 9000, 30, 100], [2000, 4000, 20, 200]], dtype=np.uint64)
+    s = ring_profile.block_summary(rec)
+    assert s["ends_us"] == pytest.approx([3.0, 3.4, 5.0, 7.4, 8.0])
+    assert s["busy_us"] == pytest.approx(13 / 3)
+    assert s["wait"] == pytest.approx(60 / 400)
 
 
 # --- the entry points, on the CPU at a tiny size --------------------------------
