@@ -13,9 +13,9 @@ result. Phases, each of which raises on failure:
    hat pass (K2) at the pass geometries of the single-volume warps (B=1,
    the affine warp's five passes and the field warp's six, which share the
    three U passes) in both modes, plus crafted coefficients; exact
-   half-integer and out-of-range positions mixed in; labels bit-identical,
-   image within ``1e-5 * max|x|``; times as the median of 20 CUDA-event
-   runs;
+   half-integer and out-of-range positions mixed in; K1's labels and every
+   K2 form bit-identical, K1's image within ``1e-5 * max|x|``; times as the
+   median of 20 CUDA-event runs;
 4. the slice end to end: ``synth_batch`` at 256^3 x 4 with the benchmark's
    generator config, with host syncs made errors; output checks, three
    kernel launches, then one sample replayed through the port on the CPU
@@ -86,7 +86,12 @@ operations over 67 TFLOP/s.
 Phase 3 also holds K1's form without a displacement (the probes'
 ``pair_l_nodisp`` and ``pair_u`` coefficients, and crafted half-integers)
 and K2's lane-affine form (K7's inputs, and a wide table at 256^3) against
-their plain versions.
+their plain versions. Every K2 check (and K5's in phase 10) also prints the
+kernel's time behind an enqueued wait ("fenced": the card's own time, no
+host wait) and the host wait, one launch's time less the fenced one. Then,
+untimed, every K2 form bit for bit (the sign of zero included) at one shape
+whose tiles span two samples and two slices and end partial, with each
+form's launch geometry (tile rows, ring stages, grid, shared memory).
 
 Each phase prints its elapsed time. The line before the last is the
 kernels' JSON record, one entry per kernel form and probe mode; the last
@@ -131,7 +136,8 @@ from fetalsyngen_torch.ops.affine import make_affine_matrix
 from fetalsyngen_torch.ops.morphology import box_sum
 from fetalsyngen_torch.ops.numerics import device_const
 from fetalsyngen_torch.ops.warp import FIELD_LIM, ul_decompose
-from fetalsyngen_torch.probes import microbench_warp, probe_blocktp, profile_kernel_variants
+from fetalsyngen_torch.probes import microbench_warp, probe_blocktp, profile_kernel_variants, ring_profile
+from fetalsyngen_torch.probes.timing import bound, hat_bound
 from fetalsyngen_torch.testing import phantom_seeds_and_seg, run_scanner_ab, scanner_ab_case
 
 REPO = Path(__file__).resolve().parent
@@ -144,8 +150,6 @@ KERNEL_TOL = 1e-5  # image |kernel - plain| <= KERNEL_TOL * max|x|
 IMAGE_TOL = 1e-4  # |GPU - CPU| on the [0, 1] image
 LABEL_TOL = 1e-5  # fraction of labels allowed to differ between GPU and CPU
 SCANNER_TOL = 1e-4  # |GPU - CPU| of the scanner's outputs over their max |x|
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 # the kernels' sources and the TPU kernels they replace, by LAUNCHES key
 KERNELS = {
     "hat_pass_pair": ("fetalsyngen_torch/csrc/hat_pass.cu", "fetalsyngen_tpu/ops/warp.py:1217"),
@@ -192,29 +196,6 @@ def cuda_ms(fn, n: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def bound(nbytes: float, ops: float):
-    """(ms, "bytes" or "operations"): the least time the card could take to
-    move ``nbytes`` and do ``ops`` f32 operations."""
-    b, o = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
-    return (b, "bytes") if b >= o else (o, "operations")
-
-
-def hat_bound(pair: bool, B, D, H, S, OW, disp=None, nearest=False):
-    """:func:`bound` of one hat pass over (B, D, H, S) rows to OW lanes: each
-    input read once (the rows of one or two operands, the displacement volume
-    or lane-affine table, the coefficients), each output written once; per
-    output element the position polynomial (6 operations, +1 with a volume,
-    +5 with a table) and 5 per linear sample (the second operand of a pair
-    is nearest if ``nearest``, the single operand too)."""
-    n_in, out = (2 if pair else 1), B * D * H * OW
-    n_lin = n_in - int(nearest)
-    disp_elems, pos_ops = 0, 6
-    if disp is not None:
-        disp_elems, pos_ops = (disp.numel(), 7) if disp.dim() == 4 else (disp.numel(), 11)
-    nbytes = 4 * (n_in * B * D * H * S + disp_elems + B * D * 4 + n_in * out)
-    return bound(nbytes, out * (pos_ops + 5 * n_lin))
 
 
 def grid_sample_ms(vols, pos, n: int = 20) -> float:
@@ -336,33 +317,18 @@ def check_single_kernel(dev, cfg):
         n_half, n_out = count_positions(hat.positions(coefs, R, H, S, disp), S)
         if disp is not None:
             disp = disp.reshape(1, D, H, S).contiguous()
+        if (with_disp or name == "crafted") and (n_half == 0 or n_out == 0):
+            raise RuntimeError(f"{name}: the crafted half-integer/edge positions did not occur")
         for nearest in (False, True):
             x = volumes[nearest]
-            k = hat.hat_pass(x, coefs, disp, nearest)
-            r = hat.hat_pass_ref(x, coefs, disp, nearest)
-            torch.cuda.synchronize()
-            err = float((k - r).abs().max())
-            differ = int((k != r).sum())
-            bar = KERNEL_TOL * float(x.abs().max())
-            ms = cuda_ms(lambda: hat.hat_pass(x, coefs, disp, nearest))
-            plain_ms = cuda_ms(lambda: hat.hat_pass_ref(x, coefs, disp, nearest))
             pos = hat.positions(coefs, R, H, S, None if disp is None else disp.reshape(1, R, S))
-            lib_ms = grid_sample_ms([x], pos)
+            results.append(compare(
+                "hat_pass", f"{name} {'nearest' if nearest else 'linear'}",
+                lambda: hat.hat_pass(x, coefs, disp, nearest), lambda: hat.hat_pass_ref(x, coefs, disp, nearest),
+                hat_bound(False, 1, D, H, S, S, disp, nearest), lib=lambda: grid_sample_ms([x], pos),
+                note=f" B=1 R={R} S=OW={S} half-integer positions={n_half} saturated={n_out}", fenced=True,
+            ))
             del pos
-            bound_ms, bound_by = hat_bound(False, 1, D, H, S, S, disp, nearest)
-            mode = "nearest" if nearest else "linear"
-            log(
-                f"kernel hat_pass {name} {mode}: B=1 R={R} S=OW={S} half-integer positions={n_half} "
-                f"saturated={n_out} max|kernel-plain|={err:.3e} (bar {0.0 if nearest else bar:.3e}) "
-                f"elements differing={differ} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                f"grid_sample {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})"
-            )
-            if (with_disp or name == "crafted") and (n_half == 0 or n_out == 0):
-                raise RuntimeError(f"{name}: the crafted half-integer/edge positions did not occur")
-            if (nearest and differ) or not err <= bar:
-                raise RuntimeError(f"{name} {mode}: kernel disagrees with plain ({differ} differ, {err})")
-            results.append(dict(key="hat_pass", err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                bound_ms=bound_ms, bound_by=bound_by))
     return results
 
 
@@ -431,17 +397,20 @@ def check_scanner_kernels(dev, cubes=(384, 640)):
             results.append(compare(
                 key, f"{name} cube {cube}", run, plain, hat_bound(pair, 1, D, H, S, S, disp),
                 lib=lambda: grid_sample_ms([xa] + ([xb] if pair else []), pos, n), n=n,
-                note=f" R={D * H} S=OW={S} half-integer positions={n_half} saturated={n_out}",
+                note=f" R={D * H} S=OW={S} half-integer positions={n_half} saturated={n_out}", fenced=not pair,
             ))
             del pos, xa, xb
     return results
 
 
-def compare(key, name, run, plain, bnd, lib=None, n=20, note=""):
+def compare(key, name, run, plain, bnd, lib=None, n=20, note="", fenced=False):
     """One kernel check: ``run()`` (the kernel) against ``plain()``,
     bit-identical or raise; then the median ms of each over ``n`` CUDA-event
     runs, ``lib()`` (the ms of one torch call computing the same function,
-    or None) and the bound ``bnd`` = (ms, "bytes" or "operations")."""
+    or None) and the bound ``bnd`` = (ms, "bytes" or "operations"). With
+    ``fenced``, also the kernel's ms behind an enqueued wait (the card's own
+    time, :func:`ring_profile.one_ms`) and the host wait, one launch's ms
+    less that."""
     got, want = run(), plain()
     got, want = (v if isinstance(v, tuple) else (v,) for v in (got, want))
     torch.cuda.synchronize()
@@ -452,12 +421,14 @@ def compare(key, name, run, plain, bnd, lib=None, n=20, note=""):
     lib_ms = lib() if lib else None
     bound_ms, bound_by = bnd
     lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-    log(f"kernel {key} {name}: max|kernel-plain|={err:.3e} elements differing={differ} kernel {ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms library {lib_txt} bound {bound_ms:.4f} ms ({bound_by}){note}")
+    fenced_ms = ring_profile.one_ms(run, True) if fenced else None
+    fence_txt = "" if fenced_ms is None else f" (fenced {fenced_ms:.4f} ms, host wait {1e3 * (ms - fenced_ms):.1f} us)"
+    log(f"kernel {key} {name}: max|kernel-plain|={err:.3e} elements differing={differ} kernel {ms:.4f} ms"
+        f"{fence_txt} plain {plain_ms:.4f} ms library {lib_txt} bound {bound_ms:.4f} ms ({bound_by}){note}")
     if differ or err != 0.0:
         raise RuntimeError(f"{key} {name}: kernel differs from plain ({differ}, {err})")
     return dict(key=key, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, fenced_ms=fenced_ms)
 
 
 def check_new_hat_forms(dev):
@@ -496,10 +467,54 @@ def check_new_hat_forms(dev):
         results.append(compare(
             "hat_pass_lane", name, lambda: hat.hat_pass(xv, coefs, tab), lambda: hat.hat_pass_ref(xv, coefs, tab),
             hat_bound(False, 1, d, h, s, s, tab), lib=lambda: grid_sample_ms([xv], pos),
-            note=f" half-integer positions={n_half} saturated={n_out}",
+            note=f" half-integer positions={n_half} saturated={n_out}", fenced=True,
         ))
         del pos
     return results
+
+
+def check_hat_tiles(dev):
+    """Phase 3: every K2 form against its plain version, untimed, at B=3
+    (3, 100, 101, 301): rows of 301 lanes start off 16 bytes, 12-row tiles
+    span two samples (10,100 rows each) and, per slice, two slices of 101
+    rows, the last tile is partial and each block walks its ring more than
+    once; -0.0 among the inputs, crafted half-integer and saturated
+    positions. Bit for bit (the sign of zero included), or raise. Prints each
+    form's launch geometry there and at the phase's B=1 256^3."""
+    g = torch.Generator(device=dev).manual_seed(43)
+    B, D, H, S = shape = (3, 100, 101, 301)
+    R = D * H
+    x = 100.0 * torch.randn(shape, generator=g, device=dev)
+    x.view(-1)[::7] = -0.0
+    labels = torch.randint(-1, 50, shape, generator=g, device=dev).to(torch.float32)
+    labels[labels < 0] = -0.0
+    per_sample = torch.tensor([[0.25, -0.5, 1.0, 0.5], [0.05, -0.04, 1.02, -3.1], [0.0, 0.0, -1.0, S - 1.0]],
+                              device=dev)
+    per_slice = (torch.rand((B, D, 4), generator=g, device=dev) - 0.5) * torch.tensor([0.0, 0.2, 0.04, 8.0],
+                                                                                         device=dev)
+    per_slice[..., 2] += 1.0
+    field = (torch.rand((B, R, S), generator=g, device=dev) * 2 - 1) * FIELD_LIM
+    field = craft_disp(field, hat.positions(per_sample, R, H, S, None), S).reshape(shape).contiguous()
+    field.view(-1)[::11] = -0.0
+    table = torch.randn((B, 3, S), generator=g, device=dev) * torch.tensor([[[0.3], [0.3], [4.0]]], device=dev)
+    forms = [("per-sample", False, per_sample, None, "none"), ("per-sample", True, per_sample, None, "none"),
+             ("field", False, per_sample, field, "volume"), ("field", True, per_sample, field, "volume"),
+             ("lane-affine", False, per_sample, table, "lane"), ("per-slice", False, per_slice, None, "none")]
+    for name, nearest, coefs, disp, mode in forms:
+        v = labels if nearest else x
+        got, want = hat.hat_pass(v, coefs, disp, nearest), hat.hat_pass_ref(v, coefs, disp, nearest)
+        torch.cuda.synchronize()
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        pos = hat._positions_of(coefs, B, D, H, S, disp)
+        n_half, n_out = count_positions(pos, S)
+        geo = {f"{sh}": hat.hat_geometry(sh, nearest, coefs.dim() == 3, mode)
+               for sh in (shape, (1, *SHAPE))}
+        label = f"{name} {'nearest' if nearest else 'linear'}"
+        log(f"kernel hat_pass {label} partial tiles {shape}: bits differing={differ} half-integer positions={n_half} "
+            f"saturated={n_out}; launches {json.dumps(geo)}")
+        if differ:
+            raise RuntimeError(f"hat_pass {label} at {shape}: kernel differs from plain in {differ} elements")
+        del got, want, pos
 
 
 def probe_path():
@@ -541,7 +556,7 @@ def check_probes(dev):
     clone_ms = lambda: cuda_ms(both(torch.clone))  # noqa: E731
     results = [
         compare("pair_copy", tag, lambda: probes.pair_copy(xa, xb), lambda: probes.pair_copy_ref(xa, xb),
-                bound(16 * n, 0), lib=clone_ms),
+                bound(16 * n, 0), lib=clone_ms, fenced=True),
         compare("pair_transpose", tag, lambda: probes.pair_transpose(xa, xb),
                 lambda: probes.pair_transpose_ref(xa, xb), bound(16 * n, 0),
                 lib=lambda: cuda_ms(both(lambda v: v.transpose(-1, -2).contiguous()))),
@@ -1249,6 +1264,7 @@ def main() -> int:
     checks = check_kernel(dev, cfg) + check_single_kernel(dev, cfg)
     checks += check_scanner_kernels(dev)
     checks += check_new_hat_forms(dev)
+    check_hat_tiles(dev)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     seeds_np, seg_np = phantom_seeds_and_seg(SHAPE)
     launches, seeds, segs = run_slice(dev, cfg, seeds_np, seg_np)

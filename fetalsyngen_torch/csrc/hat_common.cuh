@@ -49,11 +49,16 @@ __device__ __forceinline__ float hat_position(float base, float ck, float bias, 
   return __fadd_rn(__fadd_rn(base, __fmul_rn(ck, static_cast<float>(l))), bias);
 }
 
-// (A0[l]*row_i + A1[l]*row_j) + A2[l] for a (3, OW) lane-affine table.
-__device__ __forceinline__ float hat_lane_affine(const float* tab, int OW, int l, float row_i,
-                                                 float row_j) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(tab[l], row_i), __fmul_rn(tab[OW + l], row_j)),
-                   tab[2 * OW + l]);
+// A lane's position plus its displacement of kDisp, from the values read for
+// the lane: d[0] of a volume, or (d[0], d[1], d[2]) = (A0[l], A1[l], A2[l])
+// of a lane-affine table, added as (A0[l]*row_i + A1[l]*row_j) + A2[l].
+template <int kDisp>
+__device__ __forceinline__ float hat_displace(float pos, const float* d, float row_i, float row_j) {
+  if (kDisp == kDispVolume) return __fadd_rn(pos, d[0]);
+  if (kDisp == kDispLaneAffine) {
+    return __fadd_rn(pos, __fadd_rn(__fadd_rn(__fmul_rn(d[0], row_i), __fmul_rn(d[1], row_j)), d[2]));
+  }
+  return pos;
 }
 
 // The position of lane l plus the displacement of kDisp: disp_row is the
@@ -61,9 +66,14 @@ __device__ __forceinline__ float hat_lane_affine(const float* tab, int OW, int l
 template <int kDisp>
 __device__ __forceinline__ float hat_displaced(float pos, const float* disp_row, int OW, int l,
                                                float row_i, float row_j) {
-  if (kDisp == kDispVolume) return __fadd_rn(pos, disp_row[l]);
-  if (kDisp == kDispLaneAffine) return __fadd_rn(pos, hat_lane_affine(disp_row, OW, l, row_i, row_j));
-  return pos;
+  float d[3] = {0.0f, 0.0f, 0.0f};
+  if (kDisp == kDispVolume) d[0] = disp_row[l];
+  if (kDisp == kDispLaneAffine) {
+    d[0] = disp_row[l];
+    d[1] = disp_row[OW + l];
+    d[2] = disp_row[2 * OW + l];
+  }
+  return hat_displace<kDisp>(pos, d, row_i, row_j);
 }
 
 // Where the displacement of sample b, row r starts (volume: the row; table:

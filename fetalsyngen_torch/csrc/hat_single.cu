@@ -22,12 +22,32 @@
 // template parameter rather than a zero volume: pos + 0.0f is not the
 // identity for pos = -0.0f.
 //
-// Bound: device memory. Per element it reads (amortised over the row) one
-// source value, one displacement when present, and writes one output: 8 to
-// 12 bytes per element. Design: one block per row; the source row is staged
-// in shared memory with coalesced loads, then one thread per output lane
-// reads its taps from shared memory and writes one coalesced output.
+// Bound: device memory. Per element it reads one source value, one
+// displacement when present, and writes one output: 8 to 12 bytes per
+// element; the table of the lane-affine form (3 x 4 bytes a lane) is read
+// once per sample from the caches.
 //
+// Design: the tile ring of ring.cuh, as K4's staged modes have it. A tile is
+// a run of consecutive rows of the flattened (B*R, S) operand, about
+// kHatTileBytes (16 KB), a multiple of 4 / gcd(S, 4) rows so that it starts
+// on 16 bytes; a persistent grid of 512-thread blocks draws tiles from a
+// per-stream counter and stages them through a three-stage ring of TMA bulk
+// copies (two stages where three do not fit, as at S = 6143). Each row of a
+// tile finds its own sample b = n / R, row r = n % R and coefficient row, so
+// a tile may span two samples or two slices. Each thread computes four
+// consecutive lanes of a row: their positions, then their taps read from
+// the staged row in shared memory (one for nearest, two for linear, at
+// data-dependent columns), then one 16-byte streaming store where the four
+// lanes lie on a 16-byte boundary, lane by lane otherwise. The displacement
+// volume is not staged: each thread reads its four values with one 16-byte
+// __ldg where they lie on 16 bytes (else four), for four groups of lanes
+// before it computes any, so sixteen values per thread are in flight. Staged
+// as the ring's second operand it would double a stage, and at S = 6143
+// (4-row tiles of 96 KB) two stages of two operands (393 KB) do not fit the
+// 227 KB a block may have; read once and coalesced, it gains nothing from
+// shared memory. The lane-affine table is read the same way, from the
+// caches (3 S floats a sample, shared by all its rows).
+
 // The second kernel, hat_variant_kernel, replaces the TPU cost probe
 // scripts/profile_kernel_variants.py::make_kernel (K7): the hat kernel's
 // windowed form (a block-wide window of staged taps, a weight per tap, a
@@ -55,44 +75,154 @@
 // operations per element) rather than its 8 bytes per element.
 
 #include "hat_common.cuh"
+#include "ring.cuh"
 
 namespace {
 
-template <bool kNearest, int kCoef, int kDisp>
-__global__ void __launch_bounds__(fsg::kHatThreads) hat_single_kernel(
-    const float* __restrict__ x, const float* __restrict__ disp,
-    const float* __restrict__ coefs, float* __restrict__ out, int R, int H, int S) {
-  extern __shared__ float srow[];
+using namespace fsg;
 
-  const int r = blockIdx.x;
-  const int b = blockIdx.y;
-  const size_t row = (static_cast<size_t>(b) * R + r) * S;
+// K2's tile, chosen by measurement at B=1 256^3 (8 to 32 KB): the fastest
+// size there; 8 KB tiles balance the blocks better but lose more to the
+// per-tile work than they gain
+constexpr int kHatTileBytes = 16 * 1024;
 
-  for (int s = threadIdx.x; s < S; s += blockDim.x) srow[s] = x[row + s];
-  __syncthreads();
-
-  const float row_i = static_cast<float>(r / H);
-  const float row_j = static_cast<float>(r % H);
-  const float* c = fsg::hat_coefs<kCoef>(coefs, b, r, R, H);
-  const float ck = c[2];
-  const float bias = c[3];
-  const float base = fsg::hat_row_base(c[0], c[1], row_i, row_j);
-  const float* d = fsg::hat_disp_row<kDisp>(disp, b, r, R, S);
-
-  for (int l = threadIdx.x; l < S; l += blockDim.x) {
-    const float pos =
-        fsg::hat_displaced<kDisp>(fsg::hat_position(base, ck, bias, l), d, S, l, row_i, row_j);
-    out[row + l] = fsg::hat_sample<kNearest>(srow, pos, S);
+// v[k] = p[l + k] for the lanes l + k < S (0 past the row): one 16-byte read
+// through the read-only cache where all four lie on a 16-byte boundary,
+// else lane by lane
+__device__ __forceinline__ void load_lanes(const float* __restrict__ p, int l, int S, float* v) {
+  if (l + 3 < S && (reinterpret_cast<uintptr_t>(p + l) & 15) == 0) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p + l));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = l + k < S ? __ldg(p + l + k) : 0.0f;
   }
 }
 
 template <bool kNearest, int kCoef, int kDisp>
-void launch(const float* x, const float* disp, const float* coefs, float* out, int B, int R,
-            int H, int S, cudaStream_t stream) {
-  const dim3 grid(R, B);
-  const size_t smem = static_cast<size_t>(S) * sizeof(float);
-  hat_single_kernel<kNearest, kCoef, kDisp><<<grid, fsg::kHatThreads, smem, stream>>>(
-      x, disp, coefs, out, R, H, S);
+__global__ void __launch_bounds__(kRingThreads, 2) hat_single_kernel(
+    const float* __restrict__ x, const float* __restrict__ disp, const float* __restrict__ coefs,
+    float* __restrict__ out, long long nrows, int R, int H, int S, int tile_rows, int stages,
+    TileCounter* counter) {
+  // groups of four lanes a thread takes at once: the displacement volume's
+  // loads of all of them go out before the first group is computed
+  constexpr int kGroups = kDisp == kDispVolume ? 4 : 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Ring<1> ring;
+  ring.smem = smem;
+  ring.x[0] = x;
+  ring.elems = nrows * S;
+  ring.ntiles = (nrows + tile_rows - 1) / tile_rows;
+  ring.tile_elems = tile_rows * S;
+  ring.stages = stages;
+  const int G = (S + 3) / 4;  // groups of four lanes per row
+  ring_walk(ring, counter, [&](long long t, int s) {
+    const long long n0 = t * tile_rows;
+    const int rows = static_cast<int>(min(static_cast<long long>(tile_rows), nrows - n0));
+    const int b0 = static_cast<int>(n0 / R);
+    const int r0 = static_cast<int>(n0 - static_cast<long long>(b0) * R);
+    const int groups = rows * G;
+    for (int i0 = threadIdx.x; i0 < groups; i0 += kGroups * kRingThreads) {
+      float d[kGroups][4];
+      if constexpr (kDisp == kDispVolume) {
+#pragma unroll
+        for (int u = 0; u < kGroups; ++u) {
+          const int i = i0 + u * kRingThreads;
+          if (i < groups) {
+            const int row = i / G;
+            load_lanes(disp + static_cast<size_t>(n0 + row) * S, 4 * (i - row * G), S, d[u]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kGroups; ++u) {
+        const int i = i0 + u * kRingThreads;
+        if (i >= groups) break;
+        const int row = i / G;
+        const int l = 4 * (i - row * G);
+        int b = b0, r = r0 + row;  // the row's sample and row; a division only where the tile wraps
+        if (r >= R) {
+          b += r / R;
+          r %= R;
+        }
+        const int ri = r / H;
+        const float row_i = static_cast<float>(ri);
+        const float row_j = static_cast<float>(r - ri * H);
+        const float* c = hat_coefs<kCoef>(coefs, b, r, R, H);
+        const float ck = __ldg(c + 2);
+        const float bias = __ldg(c + 3);
+        const float base = hat_row_base(__ldg(c), __ldg(c + 1), row_i, row_j);
+        float pos[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) pos[k] = hat_position(base, ck, bias, l + k);
+        if constexpr (kDisp == kDispVolume) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) pos[k] = hat_displace<kDisp>(pos[k], &d[u][k], row_i, row_j);
+        } else if constexpr (kDisp == kDispLaneAffine) {
+          const float* tab = hat_disp_row<kDisp>(disp, b, r, R, S);
+          float a0[4], a1[4], a2[4];
+          load_lanes(tab, l, S, a0);
+          load_lanes(tab + S, l, S, a1);
+          load_lanes(tab + 2 * S, l, S, a2);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float a[3] = {a0[k], a1[k], a2[k]};
+            pos[k] = hat_displace<kDisp>(pos[k], a, row_i, row_j);
+          }
+        }
+        const float* src = ring.buf(s, 0) + row * S;
+        float v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = hat_sample<kNearest>(src, pos[k], S);
+        store4(out + static_cast<size_t>(n0 + row) * S, l, S, v);
+      }
+    }
+  });
+}
+
+// Plans the launch of K2's form into g, and launches it if `launch`.
+template <bool kNearest, int kCoef, int kDisp>
+cudaError_t run(const float* x, const float* disp, const float* coefs, float* out, long long nrows, int R,
+                int H, int S, bool launch, cudaStream_t st, Geometry* g) {
+  const void* fn = reinterpret_cast<const void*>(&hat_single_kernel<kNearest, kCoef, kDisp>);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = plan(fn, dev, 1, nrows, S, kHatTileBytes, g);
+  if (e != cudaSuccess || !launch) return e;
+  if (!aligned16(x)) return cudaErrorMisalignedAddress;
+  TileCounter* counter = nullptr;
+  e = tile_counter(dev, st, &counter);
+  if (e != cudaSuccess) return e;
+  hat_single_kernel<kNearest, kCoef, kDisp><<<g->grid, kRingThreads, g->smem, st>>>(
+      x, disp, coefs, out, nrows, R, H, S, g->tile_rows, g->stages, counter);
+  return cudaGetLastError();
+}
+
+// K2's instantiated forms: cudaErrorInvalidValue for another one.
+cudaError_t hat_run(const float* x, const float* disp, const float* coefs, float* out, long long nrows,
+                    int R, int H, int S, int nearest, int coef_mode, int disp_mode, bool launch,
+                    cudaStream_t st, Geometry* g) {
+  if (coef_mode == kCoefPerSlice) {
+    if (nearest || disp_mode != kDispNone) return cudaErrorInvalidValue;
+    return run<false, kCoefPerSlice, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+  }
+  if (coef_mode != kCoefPerSample) return cudaErrorInvalidValue;
+  switch (disp_mode) {
+    case kDispLaneAffine:
+      if (nearest) return cudaErrorInvalidValue;
+      return run<false, kCoefPerSample, kDispLaneAffine>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+    case kDispVolume:
+      if (nearest) return run<true, kCoefPerSample, kDispVolume>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+      return run<false, kCoefPerSample, kDispVolume>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+    case kDispNone:
+      if (nearest) return run<true, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+      return run<false, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 constexpr int kVariantRows = 32;   // rows per block, the TPU variants' block
@@ -221,29 +351,33 @@ __global__ void hat_variant_kernel(const float* __restrict__ x, const float* __r
 
 // x, out: (B, R, S); coefs: (B, 4), or per slice (B, R/H, 4) when coef_mode
 // is kCoefPerSlice; disp: (B, R, S), (B, 3, S) or null as disp_mode says
-// (DispMode in hat_common.cuh); all f32, contiguous, on the current device.
-// nearest != 0 selects nearest sampling. Launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a form that is not instantiated.
+// (DispMode in hat_common.cuh); all f32, contiguous, on the current device,
+// x on 16 bytes. nearest != 0 selects nearest sampling. Launches on `stream`
+// without synchronising and returns cudaGetLastError(), or an error without
+// launching: cudaErrorInvalidValue for a form that is not instantiated or an
+// S whose two ring stages do not fit, cudaErrorMisalignedAddress for x off
+// 16 bytes, or the failed attribute, occupancy or tile-counter call.
 extern "C" int fsg_hat_pass_f32(const float* x, const float* disp, const float* coefs,
                                 float* out, int B, int R, int H, int S, int nearest,
                                 int coef_mode, int disp_mode, void* stream) {
-  using namespace fsg;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (coef_mode == kCoefPerSlice) {
-    if (nearest || disp_mode != kDispNone) return static_cast<int>(cudaErrorInvalidValue);
-    launch<false, kCoefPerSlice, kDispNone>(x, disp, coefs, out, B, R, H, S, st);
-  } else if (disp_mode == kDispLaneAffine) {
-    if (nearest) return static_cast<int>(cudaErrorInvalidValue);
-    launch<false, kCoefPerSample, kDispLaneAffine>(x, disp, coefs, out, B, R, H, S, st);
-  } else if (nearest) {
-    if (disp_mode == kDispVolume) launch<true, kCoefPerSample, kDispVolume>(x, disp, coefs, out, B, R, H, S, st);
-    else launch<true, kCoefPerSample, kDispNone>(x, disp, coefs, out, B, R, H, S, st);
-  } else {
-    if (disp_mode == kDispVolume) launch<false, kCoefPerSample, kDispVolume>(x, disp, coefs, out, B, R, H, S, st);
-    else launch<false, kCoefPerSample, kDispNone>(x, disp, coefs, out, B, R, H, S, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  Geometry g;
+  return static_cast<int>(hat_run(x, disp, coefs, out, static_cast<long long>(B) * R, R, H, S, nearest,
+                                  coef_mode, disp_mode, true, static_cast<cudaStream_t>(stream), &g));
+}
+
+// The launch fsg_hat_pass_f32 makes on the current device for (B, R, S) in
+// the form (nearest, coef_mode, disp_mode): geometry = {tile rows, ring
+// stages, grid blocks, dynamic shared-memory bytes}. Returns a cudaError code.
+extern "C" int fsg_hat_geometry(int B, int R, int S, int nearest, int coef_mode, int disp_mode,
+                                int* geometry) {
+  Geometry g{};
+  const cudaError_t e = hat_run(nullptr, nullptr, nullptr, nullptr, static_cast<long long>(B) * R, R, 1, S,
+                                nearest, coef_mode, disp_mode, false, nullptr, &g);
+  geometry[0] = g.tile_rows;
+  geometry[1] = g.stages;
+  geometry[2] = g.grid;
+  geometry[3] = g.smem;
+  return static_cast<int>(e);
 }
 
 // K7: x, out: (R, S) rows of a (R / H, H, S) volume, R a multiple of 32;

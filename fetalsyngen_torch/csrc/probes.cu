@@ -7,9 +7,13 @@
 // explicit _rn intrinsics, so nvcc cannot contract them into FMAs.
 //
 // K5 pair_copy (replaces scripts/probe_blocktp.py::_copy_kernel): two f32
-//   arrays copied as they are. Bound: device memory, 16 bytes per element
-//   pair. Design: 16-byte loads and stores, a grid-stride loop; the measured
-//   rate is the copy floor of the card.
+//   arrays copied as they are, bits and all (NaN payloads, -0.0). Bound:
+//   device memory, 16 bytes per element pair. Design: K3 copy's, one 16 KB
+//   tile per operand and block, the blocks placed by the card's scheduler,
+//   four 16-byte loads per operand in flight a thread, then streaming
+//   stores; the measured rate is the copy floor of the card. A grid-stride
+//   loop over a fixed grid left the slowest blocks running alone at the end
+//   of a launch.
 // K6 pair_transpose (replaces scripts/probe_blocktp.py::_tp_kernel): two
 //   (N, H, W) arrays to (N, W, H), (n, j, k) -> (n, k, j). Bound: device
 //   memory, as K5. Design: 32 x 32 tiles through shared memory padded to 33
@@ -51,59 +55,30 @@
 //   contiguous span per operand (at S = 256, 16 rows of 1 KB per operand for
 //   K3 and 32 for K4). copy takes one tile per block and leaves the placing
 //   of blocks to the card's scheduler: 16-byte loads and stores, four loads
-//   per operand in flight a thread, no shared memory. The staged modes run
-//   a persistent grid, as many blocks as fit the card, each with a ring of
-//   three tile buffers in shared memory (two where three do not fit): thread
-//   0 draws the block's next tile from a counter in device memory and fills
-//   a buffer with TMA bulk copies (cp.async.bulk, one mbarrier per buffer
-//   counts the bytes in) while every thread computes and stores the current
-//   tile; the __syncthreads() that ends a tile frees its buffer for the next
-//   draw. Drawing balances the blocks: with a fixed share each (a grid-stride
-//   loop) the slowest blocks on the H100 ran on alone at the end of a launch.
-//   Only the S lanes of a row are staged, so each input byte is read from
-//   device memory once: a pad lane is the clamp of its index. A thread
-//   computes four consecutive lanes of a row, reads shared memory 16 bytes
-//   at a time where the four lie in the row on a 16-byte boundary (else one
-//   by one, clamped) and stores 16 bytes, streaming past the caches, where
-//   the lanes allow (else lane by lane). A tile holds a multiple of 4 /
-//   gcd(S, 4) rows, so every tile starts on 16 bytes; the operand's last
-//   tile may end inside a 16-byte unit, and thread 0 reads its last len % 4
-//   floats itself before it arrives on the buffer's mbarrier, whose release
-//   orders them before the other threads' wait.
+//   per operand in flight a thread, no shared memory. The staged modes walk
+//   the ring of ring.cuh (a persistent grid drawing tiles from a counter,
+//   three TMA-filled tile buffers per block). Only the S lanes of a row are
+//   staged, so each input byte is read from device memory once: a pad lane
+//   is the clamp of its index. A thread computes four consecutive lanes of a
+//   row, reads shared memory 16 bytes at a time where the four lie in the row
+//   on a 16-byte boundary (else one by one, clamped) and stores 16 bytes,
+//   streaming past the caches, where the lanes allow (else lane by lane).
 
-#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "ring.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRingThreads = 512;  // K3's and K4's staged modes
-constexpr int kCopyBlocks = 132 * 32;  // a grid-stride grid: 32 blocks per SM
 constexpr int kTile = 32;
 constexpr int kTileRows = 8;
 constexpr int kSinglePad = 128;  // K4's edge pad (warp.PAD)
-constexpr int kSmemMax = 232448;  // the dynamic shared memory a block may opt into on sm_90
-constexpr int kRingHeader = 128;  // the ring's mbarriers, ahead of its buffers
-constexpr int kPairTileBytes = 16 * 1024;    // K3's tile per operand
+constexpr int kPairTileBytes = 16 * 1024;    // K3's and K5's tile per operand
 constexpr int kSingleTileBytes = 32 * 1024;  // K4's tile
-
-__global__ void __launch_bounds__(kThreads) pair_copy_kernel(
-    const float4* __restrict__ xa, const float4* __restrict__ xb, float4* __restrict__ oa,
-    float4* __restrict__ ob, size_t n4, const float* __restrict__ ta,
-    const float* __restrict__ tb, float* __restrict__ toa, float* __restrict__ tob, int tail) {
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n4; i += stride) {
-    oa[i] = xa[i];
-    ob[i] = xb[i];
-  }
-  if (blockIdx.x == 0 && static_cast<int>(threadIdx.x) < tail) {
-    toa[threadIdx.x] = ta[threadIdx.x];
-    tob[threadIdx.x] = tb[threadIdx.x];
-  }
-}
 
 __global__ void pair_transpose_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                                       float* __restrict__ oa, float* __restrict__ ob, int H,
@@ -140,170 +115,6 @@ __device__ __forceinline__ float tap_weight(float d0, int m) {
 enum PairMode : int { kPairCopy = 0, kPairStage = 1, kPairTaps = 2 };
 enum SingleMode : int { kCopy = 0, kStage = 1, kLadder = 2, kTiles = 3, kSweep12 = 4 };
 
-// --- K3 and K4: the ring of tiles ---------------------------------------------
-
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_addr(bar)), "r"(1u) : "memory");
-}
-
-// Arrive on `bar` (a release: this thread's earlier shared-memory writes are
-// seen by the threads its phase releases) and expect `bytes` from bulk copies.
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(shared_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(shared_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// TMA: `bytes` (a multiple of 16) from global `src` to shared `dst`, both on
-// 16 bytes; completion counted on `bar`.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          shared_addr(dst)),
-      "l"(src), "r"(bytes), "r"(shared_addr(bar))
-      : "memory");
-}
-
-// The tile counter the blocks of one ring launch draw from; the launch's last
-// block to finish sets it back to zero for the next launch on its stream.
-struct TileCounter {
-  unsigned long long next;
-  unsigned int done;
-};
-
-template <int kOps>
-struct Ring {
-  unsigned char* smem;  // the block's dynamic shared memory
-  const float* x[kOps];
-  long long elems;   // floats per operand
-  long long ntiles;  // tiles per operand
-  int tile_elems;    // floats per operand and tile, a multiple of 4
-  int stages;
-
-  __device__ uint64_t* bar(int s) const { return reinterpret_cast<uint64_t*>(smem) + s; }
-  // the tile in buffer s, ntiles or more once the counter has run out
-  __device__ long long* tile(int s) const { return reinterpret_cast<long long*>(smem + kRingHeader / 2) + s; }
-  __device__ float* buf(int s, int op) const {
-    return reinterpret_cast<float*>(smem + kRingHeader) +
-           (static_cast<size_t>(s) * kOps + op) * tile_elems;
-  }
-  // thread 0: tile t of every operand into buffer s (none past the last tile)
-  __device__ void fill(long long t, int s) const {
-    *tile(s) = t;
-    const long long e0 = t * tile_elems;
-    const int len = t < ntiles ? static_cast<int>(min(static_cast<long long>(tile_elems), elems - e0)) : 0;
-    const int bulk = len & ~3;
-    for (int op = 0; op < kOps; ++op) {
-      for (int i = bulk; i < len; ++i) buf(s, op)[i] = x[op][e0 + i];
-    }
-    mbar_arrive_expect(bar(s), static_cast<uint32_t>(kOps * bulk * sizeof(float)));
-    if (bulk > 0) {
-      for (int op = 0; op < kOps; ++op) {
-        bulk_load(buf(s, op), x[op] + e0, static_cast<uint32_t>(bulk * sizeof(float)), bar(s));
-      }
-    }
-  }
-};
-
-#ifdef FSG_RING_PROFILE
-// The build of fetalsyngen_torch/probes/ring_profile.py: for each of the
-// first kRecords ring blocks, its start and end on the global timer (ns) and,
-// for thread 32, the cycles it waited on the ring's barriers and the cycles of
-// its walk.
-constexpr int kRecords = 65536;
-__device__ unsigned long long ring_records[4 * kRecords];
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-struct RingClock {
-  long long walk0 = 0, waited = 0, wait0 = 0;
-  __device__ void start() {
-    if (threadIdx.x == 0 && blockIdx.x < kRecords) ring_records[4 * blockIdx.x] = global_ns();
-    walk0 = clock64();
-  }
-  __device__ void wait_begin() { wait0 = clock64(); }
-  __device__ void wait_end() { waited += clock64() - wait0; }
-  __device__ void end() {
-    if (threadIdx.x == 32 && blockIdx.x < kRecords) {
-      ring_records[4 * blockIdx.x + 2] = waited;
-      ring_records[4 * blockIdx.x + 3] = clock64() - walk0;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0 && blockIdx.x < kRecords) ring_records[4 * blockIdx.x + 1] = global_ns();
-  }
-};
-#else
-struct RingClock {  // records nothing
-  __device__ void start() {}
-  __device__ void wait_begin() {}
-  __device__ void wait_end() {}
-  __device__ void end() {}
-};
-#endif
-
-// The block draws tiles from `counter` in turn into its buffers, waits for
-// each, runs body(t, s) on it and, once every thread has left the buffer,
-// refills it with the next tile drawn. The draws of one block rise, so the
-// first buffer past the last tile ends the walk with no copy in flight.
-template <int kOps, typename Body>
-__device__ __forceinline__ void ring_walk(const Ring<kOps>& ring, TileCounter* counter, Body&& body) {
-  RingClock clock;
-  clock.start();
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < ring.stages; ++s) mbar_init(ring.bar(s));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < ring.stages; ++s) ring.fill(static_cast<long long>(atomicAdd(&counter->next, 1ull)), s);
-  }
-  int s = 0;
-  uint32_t parity = 0;
-  while (true) {
-    clock.wait_begin();
-    mbar_wait(ring.bar(s), parity);
-    clock.wait_end();
-    const long long t = *ring.tile(s);
-    if (t >= ring.ntiles) break;
-    body(t, s);
-    __syncthreads();
-    if (threadIdx.x == 0) ring.fill(static_cast<long long>(atomicAdd(&counter->next, 1ull)), s);
-    if (++s == ring.stages) {
-      s = 0;
-      parity ^= 1u;
-    }
-  }
-  clock.end();
-  if (threadIdx.x == 0) {
-    __threadfence();  // this block's draws before its count
-    if (atomicAdd(&counter->done, 1u) == gridDim.x - 1) {
-      counter->next = 0;
-      counter->done = 0;
-    }
-  }
-}
-
 // v[i] = row[clamp(c + i, 0, S - 1)], i < 4: one 16-byte read where the four
 // lie in the row on a 16-byte boundary, else four
 __device__ __forceinline__ void load4(const float* row, int c, int S, float* v) {
@@ -316,19 +127,6 @@ __device__ __forceinline__ void load4(const float* row, int c, int S, float* v) 
   } else {
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[i] = row[min(max(c + i, 0), S - 1)];
-  }
-}
-
-// out[l + k] = v[k] for the lanes l + k < S: one 16-byte store where all four
-// lie in the row on a 16-byte boundary, else lane by lane
-__device__ __forceinline__ void store4(float* out, int l, int S, const float* v) {
-  if (l + 3 < S && (reinterpret_cast<uintptr_t>(out + l) & 15) == 0) {
-    __stcs(reinterpret_cast<float4*>(out + l), make_float4(v[0], v[1], v[2], v[3]));
-  } else {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (l + k < S) out[l + k] = v[k];
-    }
   }
 }
 
@@ -493,11 +291,11 @@ __device__ __forceinline__ float4 twice(float4 v) {
                      __fmul_rn(v.w, 2.0f));
 }
 
-// copy (K3 and K4): out = 2*x for kOps operands of `elems` floats, block b
-// on the b-th tile of tile_elems (a multiple of 4) floats, four 16-byte reads
-// per operand in flight per thread; the operand's last elems % 4 floats one
-// by one.
-template <int kOps>
+// copy (K3 and K4: out = 2*x; K5, kTwice false: out = x, bits and all) for
+// kOps operands of `elems` floats, block b on the b-th tile of tile_elems (a
+// multiple of 4) floats, four 16-byte reads per operand in flight per
+// thread; the operand's last elems % 4 floats one by one.
+template <int kOps, bool kTwice>
 __global__ void __launch_bounds__(kThreads) probe_copy_kernel(
     const float* __restrict__ xa, const float* __restrict__ xb, float* __restrict__ oa,
     float* __restrict__ ob, long long elems, int tile_elems) {
@@ -520,127 +318,22 @@ __global__ void __launch_bounds__(kThreads) probe_copy_kernel(
     for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
       for (int op = 0; op < kOps; ++op) {
-        if (i + u * kThreads < n4) __stcs(reinterpret_cast<float4*>(o[op] + e0) + i + u * kThreads, twice(v[op][u]));
+        if (i + u * kThreads < n4) {
+          __stcs(reinterpret_cast<float4*>(o[op] + e0) + i + u * kThreads, kTwice ? twice(v[op][u]) : v[op][u]);
+        }
       }
     }
   }
   const int tail = static_cast<int>(threadIdx.x) + 4 * n4;
   if (tail < len) {
 #pragma unroll
-    for (int op = 0; op < kOps; ++op) o[op][e0 + tail] = __fmul_rn(x[op][e0 + tail], 2.0f);
+    for (int op = 0; op < kOps; ++op) {
+      o[op][e0 + tail] = kTwice ? __fmul_rn(x[op][e0 + tail], 2.0f) : x[op][e0 + tail];
+    }
   }
 }
 
 // --- K3 and K4: the launch ----------------------------------------------------
-
-struct Geometry {
-  int tile_rows, stages, grid, smem;  // stages 0: copy, no ring
-};
-
-// The host's caches below are shared by the threads that launch.
-std::atomic_flag cache_lock = ATOMIC_FLAG_INIT;
-
-struct CacheLock {
-  CacheLock() {
-    while (cache_lock.test_and_set(std::memory_order_acquire)) {
-    }
-  }
-  ~CacheLock() { cache_lock.clear(std::memory_order_release); }
-};
-
-// Blocks of the ring kernel `fn` that fit on device `dev` at `smem` bytes,
-// cached per (kernel, device, size); the first launch also lets the kernel
-// opt into all of kSmemMax and prefer shared memory over L1.
-cudaError_t card_blocks(const void* fn, int dev, int smem, int* blocks) {
-  struct Fit {
-    const void* fn;
-    int dev, smem, blocks;
-  };
-  constexpr int kFits = 64;
-  static Fit fits[kFits];
-  static int nfits = 0;
-  CacheLock lock;
-  for (int i = 0; i < nfits; ++i) {
-    if (fits[i].fn == fn && fits[i].dev == dev && fits[i].smem == smem) {
-      *blocks = fits[i].blocks;
-      return cudaSuccess;
-    }
-  }
-  int sms = 0, per_sm = 0;
-  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-  }
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kRingThreads, smem);
-  if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
-  if (e == cudaSuccess) {
-    *blocks = sms * per_sm;
-    if (nfits < kFits) fits[nfits++] = {fn, dev, smem, *blocks};
-  }
-  return e;
-}
-
-// The ring kernels' tile counter of (device `dev`, stream `st`), allocated and
-// zeroed on the stream at its first launch. Launches on one stream run one
-// after another and each leaves the counter at zero; launches on two streams
-// never share one.
-cudaError_t tile_counter(int dev, cudaStream_t st, TileCounter** counter) {
-  struct Slot {
-    int dev;
-    cudaStream_t st;
-    TileCounter* counter;
-  };
-  constexpr int kSlots = 64;
-  static Slot slots[kSlots];
-  static int nslots = 0;
-  CacheLock lock;
-  for (int i = 0; i < nslots; ++i) {
-    if (slots[i].dev == dev && slots[i].st == st) {
-      *counter = slots[i].counter;
-      return cudaSuccess;
-    }
-  }
-  if (nslots == kSlots) return cudaErrorMemoryAllocation;
-  cudaError_t e = cudaMalloc(reinterpret_cast<void**>(counter), sizeof(TileCounter));
-  if (e == cudaSuccess) e = cudaMemsetAsync(*counter, 0, sizeof(TileCounter), st);
-  if (e == cudaSuccess) slots[nslots++] = {dev, st, *counter};
-  return e;
-}
-
-// The launch of K3's (`ops` 2) or K4's (1) mode on nrows rows of S lanes:
-// tiles of as many rows as fit `target` bytes per operand, in units of 4 /
-// gcd(S, 4) rows (whole 16-byte units). copy: one tile per block, placed by
-// the card's block scheduler. The ring (`fn`): three stages, two where three
-// do not fit kSmemMax, and as many blocks as fit the card (at most one per
-// tile), drawing tiles from a counter: with a fixed share of tiles per
-// block (a grid-stride loop) the card's slowest blocks ran on alone at the
-// end of a launch.
-cudaError_t plan(const void* fn, int dev, int ops, long long nrows, int S, int target, Geometry* g) {
-  if (nrows < 1 || S < 1) return cudaErrorInvalidValue;
-  const int unit = S % 4 == 0 ? 1 : (S % 2 == 0 ? 2 : 4);
-  g->tile_rows = target / (4 * S) / unit * unit;
-  if (g->tile_rows < unit) g->tile_rows = unit;
-  const long long ntiles = (nrows + g->tile_rows - 1) / g->tile_rows;
-  g->stages = 0;
-  g->smem = 0;
-  if (fn == nullptr) {
-    if (ntiles > 0x7fffffff) return cudaErrorInvalidValue;
-    g->grid = static_cast<int>(ntiles);
-    return cudaSuccess;
-  }
-  const long long stage = static_cast<long long>(ops) * g->tile_rows * S * sizeof(float);
-  g->stages = kRingHeader + 3 * stage <= kSmemMax ? 3 : 2;
-  if (kRingHeader + g->stages * stage > kSmemMax) return cudaErrorInvalidValue;
-  g->smem = static_cast<int>(kRingHeader + g->stages * stage);
-  int blocks = 0;
-  const cudaError_t e = card_blocks(fn, dev, g->smem, &blocks);
-  if (e != cudaSuccess) return e;
-  g->grid = static_cast<int>(ntiles < blocks ? ntiles : blocks);
-  return cudaSuccess;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // Plans the launch of K3's (kOps 2) or K4's (kOps 1) mode into g, and
 // launches it if `launch`.
@@ -665,7 +358,7 @@ cudaError_t run(const float* xa, const float* xb, float* oa, float* ob, long lon
     probe_ring_kernel<kOps, kMode><<<g->grid, kRingThreads, g->smem, st>>>(
         xa, xb, oa, ob, nrows, R, H, S, g->tile_rows, g->stages, ntaps, counter);
   } else {
-    probe_copy_kernel<kOps><<<g->grid, kThreads, 0, st>>>(xa, xb, oa, ob, nrows * S, g->tile_rows * S);
+    probe_copy_kernel<kOps, true><<<g->grid, kThreads, 0, st>>>(xa, xb, oa, ob, nrows * S, g->tile_rows * S);
   }
   return cudaGetLastError();
 }
@@ -694,25 +387,20 @@ cudaError_t probe_run(const float* x, float* o, long long nrows, int R, int S, i
 
 }  // namespace
 
-#ifdef FSG_RING_PROFILE
-// The ring blocks' records of the last launch: 4 per block, `blocks` <=
-// kRecords. Returns a cudaError code.
-extern "C" int fsg_ring_records(unsigned long long* out, int blocks) {
-  return static_cast<int>(cudaMemcpyFromSymbol(out, ring_records, sizeof(unsigned long long) * 4 * blocks));
-}
-#endif
-
-// K5: 4*n4 + tail floats (tail < 4) each of xa, xb into oa, ob; every
-// pointer 16-byte aligned. Launches on `stream` and returns
-// cudaGetLastError().
+// K5: 4*n4 + tail floats (tail < 4) each of xa, xb into oa, ob, one tile of
+// kPairTileBytes per operand and block. Returns cudaGetLastError(), or
+// cudaErrorMisalignedAddress without launching unless every pointer is on 16
+// bytes.
 extern "C" int fsg_pair_copy_f32(const float* xa, const float* xb, float* oa, float* ob, int n4,
                                  int tail, void* stream) {
-  const size_t want = (static_cast<size_t>(n4) + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < kCopyBlocks ? (want > 0 ? want : 1) : kCopyBlocks);
-  pair_copy_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(xa), reinterpret_cast<const float4*>(xb),
-      reinterpret_cast<float4*>(oa), reinterpret_cast<float4*>(ob), n4, xa + 4 * static_cast<size_t>(n4),
-      xb + 4 * static_cast<size_t>(n4), oa + 4 * static_cast<size_t>(n4), ob + 4 * static_cast<size_t>(n4), tail);
+  if (!aligned16(xa) || !aligned16(xb) || !aligned16(oa) || !aligned16(ob)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  constexpr int kTileElems = kPairTileBytes / static_cast<int>(sizeof(float));
+  const long long elems = 4 * static_cast<long long>(n4) + tail;
+  const long long tiles = (elems + kTileElems - 1) / kTileElems;
+  probe_copy_kernel<2, false><<<static_cast<int>(tiles > 0 ? tiles : 1), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(xa, xb, oa, ob, elems, kTileElems);
   return static_cast<int>(cudaGetLastError());
 }
 

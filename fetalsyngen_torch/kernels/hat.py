@@ -169,28 +169,30 @@ def _check(x, others, coefs, disp, ow_free):
     """Validate a CUDA launch: ``x`` (B, D, H, S) and ``others`` of its shape,
     (B, 4) or (B, D, 4) ``coefs``, a (B, D, H, OW) or (B, 3, OW) ``disp``
     (OW == S unless ``ow_free``) or None; all f32, contiguous, on ``x``'s
-    device."""
-    if x.dim() != 4 or any(o.shape != x.shape for o in others):
+    device. Reads only shapes, dtypes, devices and strides, so it runs on
+    tensors of any device."""
+    shape = x.shape
+    if len(shape) != 4 or any(o.shape != shape for o in others):
         raise ValueError(
             f"volumes must be equal (B, D, H, S), got {[tuple(t.shape) for t in (x, *others)]}"
         )
-    B, D, H, S = x.shape
+    B, D, H, S = shape
     if disp is not None:
-        lead = (B, 3) if disp.dim() == 3 else (B, D, H)
-        if tuple(disp.shape[:-1]) != lead or not (ow_free or disp.shape[-1] == S):
+        ds = disp.shape
+        lead = (B, 3) if len(ds) == 3 else (B, D, H)
+        if ds[:-1] != lead or not (ow_free or ds[-1] == S):
             want = "OW" if ow_free else str(S)
             raise ValueError(
                 f"disp must be (B, D, H, {want}) = ({B}, {D}, {H}, {want}) or (B, 3, {want}), "
-                f"got {tuple(disp.shape)}"
+                f"got {tuple(ds)}"
             )
-    if tuple(coefs.shape) not in ((B, 4), (B, D, 4)):
-        raise ValueError(f"coefs must be ({B}, 4) or ({B}, {D}, 4), got {tuple(coefs.shape)}")
+    cs = coefs.shape
+    if cs != (B, 4) and cs != (B, D, 4):
+        raise ValueError(f"coefs must be ({B}, 4) or ({B}, {D}, 4), got {tuple(cs)}")
     if not 2 <= S <= _MAX_S:
         raise ValueError(f"row length S={S} outside [2, {_MAX_S}]")
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the grid's 65535 samples")
     if D * H > 2**31 - 1:
-        raise ValueError(f"{D * H} rows exceed the grid")
+        raise ValueError(f"{D * H} rows exceed the kernels' int rows")
     named = [("x", x), *((f"operand {i + 2}", o) for i, o in enumerate(others)), ("coefs", coefs)]
     if disp is not None:
         named.append(("disp", disp))
@@ -203,8 +205,11 @@ def _check(x, others, coefs, disp, ow_free):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _call(fn, dev, *args) -> int:
+    """``fn(*args, stream)`` on device ``dev`` and its current stream; returns
+    the cudaError code."""
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def _form(nearest, coefs, disp, forms, name):
@@ -229,20 +234,20 @@ def hat_pass_pair(va, vb, coefs, disp, nearest_b=True):
         return hat_pass_pair_ref(va, vb, coefs, disp, nearest_b)
     if va.device.type != "cuda":
         raise ValueError(f"hat_pass_pair runs on cpu or cuda tensors, got {va.device}")
-    _check(va, [vb], coefs, disp, ow_free=True)
+    _check(va, (vb,), coefs, disp, ow_free=True)
     form = _form(nearest_b, coefs, disp, _PAIR_FORMS, "hat_pass_pair")
     _, coef_mode, disp_mode = form
     B, D, H, S = va.shape
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the grid's 65535 samples")
     OW = S if disp is None else disp.shape[-1]
-    fn = _bind("hat_pass", "fsg_hat_pass_pair_f32", 6, 8)
     oa = torch.empty((B, D, H, OW), dtype=torch.float32, device=va.device)
     ob = torch.empty_like(oa)
-    with torch.cuda.device(va.device):
-        rc = fn(
-            va.data_ptr(), vb.data_ptr(), None if disp is None else disp.data_ptr(),
-            coefs.data_ptr(), oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, OW,
-            int(nearest_b), coef_mode, disp_mode, _stream(va.device),
-        )
+    rc = _call(
+        _bind("hat_pass", "fsg_hat_pass_pair_f32", 6, 8), va.device,
+        va.data_ptr(), vb.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(),
+        oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, OW, int(nearest_b), coef_mode, disp_mode,
+    )
     if rc != 0:
         raise RuntimeError(f"hat_pass_pair kernel launch failed: cudaError {rc}")
     LAUNCHES[_PAIR_FORMS[form]] += 1
@@ -255,24 +260,44 @@ def hat_pass(x, coefs, disp=None, nearest=False):
     CPU tensors take :func:`hat_pass_ref`. CUDA tensors must be f32 and
     contiguous and form one of the instantiated combinations; the kernel
     launches once for the whole batch on the current stream, without
-    synchronising.
+    synchronising. TMA bulk copies stage the rows of ``x`` from 16-byte
+    boundaries, so an ``x`` off 16 bytes (a view into a larger tensor) is
+    first copied on the card.
     """
     if x.device.type == "cpu":
         return hat_pass_ref(x, coefs, disp, nearest)
     if x.device.type != "cuda":
         raise ValueError(f"hat_pass runs on cpu or cuda tensors, got {x.device}")
-    _check(x, [], coefs, disp, ow_free=False)
+    _check(x, (), coefs, disp, ow_free=False)
     form = _form(nearest, coefs, disp, _SINGLE_FORMS, "hat_pass")
-    _, coef_mode, disp_mode = form
+    if x.data_ptr() % 16:
+        x = x.clone()
     B, D, H, S = x.shape
-    fn = _bind("hat_single", "fsg_hat_pass_f32", 4, 7)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = fn(
-            x.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(),
-            out.data_ptr(), B, D * H, H, S, int(nearest), coef_mode, disp_mode, _stream(x.device),
-        )
+    rc = _call(
+        _bind("hat_single", "fsg_hat_pass_f32", 4, 7), x.device,
+        x.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(), out.data_ptr(),
+        B, D * H, H, S, *form,
+    )
     if rc != 0:
         raise RuntimeError(f"hat_pass kernel launch failed: cudaError {rc}")
     LAUNCHES[_SINGLE_FORMS[form]] += 1
     return out
+
+
+def hat_geometry(shape, nearest=False, coefs_per_slice=False, disp="none"):
+    """The launch :func:`hat_pass` makes on the current CUDA device for a
+    (B, D, H, S) ``x`` in the form (``nearest``, ``coefs_per_slice``,
+    ``disp`` "none", "volume" or "lane"): a dict of tile rows, ring stages,
+    grid blocks and dynamic shared-memory bytes."""
+    from .build import load_library
+
+    fn = load_library("hat_single").fsg_hat_geometry
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    B, D, H, S = shape
+    mode = {"none": _DISP_NONE, "volume": _DISP_VOLUME, "lane": _DISP_LANE_AFFINE}[disp]
+    out = (ctypes.c_int * 4)()
+    rc = fn(B, D * H, S, int(nearest), int(coefs_per_slice), mode, out)
+    if rc != 0:
+        raise RuntimeError(f"hat_geometry: {tuple(shape)} {disp}: cudaError {rc}")
+    return dict(zip(("tile_rows", "stages", "grid", "smem_bytes"), out))

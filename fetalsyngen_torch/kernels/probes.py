@@ -35,7 +35,7 @@ import math
 
 import torch
 
-from .hat import _bind, _stream
+from .hat import _bind, _call
 
 # Kernel launches of each probe kernel and mode (one per wrapper call)
 PAIR_MODES = ("copy", "stage", "taps")
@@ -130,20 +130,27 @@ def pair_copy_ref(xa, xb):
     return xa.clone(), xb.clone()
 
 
-def pair_copy(xa, xb):
-    """K5: ``xa`` and ``xb`` (equal shapes, f32) copied by one launch."""
-    if _device("pair_copy", xa) == "cpu":
-        return pair_copy_ref(xa, xb)
+def _copy_operands(xa, xb):
+    """K5's operands on the card: as :func:`_check` wants them and 16-byte
+    aligned; returns (numel // 4, numel % 4)."""
     _check("pair_copy", [xa, xb])
     if xa.data_ptr() % 16 or xb.data_ptr() % 16:
         raise ValueError("pair_copy: operands must be 16-byte aligned")
     n4, tail = divmod(xa.numel(), 4)
     if n4 > 2**31 - 1:
         raise ValueError(f"pair_copy: {xa.numel()} elements, over the kernel's 4 * (2^31 - 1)")
+    return n4, tail
+
+
+def pair_copy(xa, xb):
+    """K5: ``xa`` and ``xb`` (equal shapes, f32) copied by one launch."""
+    if xa.device.type == "cpu":
+        return pair_copy_ref(xa, xb)
+    _device("pair_copy", xa)
+    n4, tail = _copy_operands(xa, xb)
     oa, ob = torch.empty_like(xa), torch.empty_like(xb)
-    fn = _bind("probes", "fsg_pair_copy_f32", 4, 2)
-    with torch.cuda.device(xa.device):
-        rc = fn(xa.data_ptr(), xb.data_ptr(), oa.data_ptr(), ob.data_ptr(), n4, tail, _stream(xa.device))
+    rc = _call(_bind("probes", "fsg_pair_copy_f32", 4, 2), xa.device,
+               xa.data_ptr(), xb.data_ptr(), oa.data_ptr(), ob.data_ptr(), n4, tail)
     _launched("pair_copy", "pair_copy", rc)
     return oa, ob
 
@@ -170,9 +177,8 @@ def pair_transpose(xa, xb):
         raise ValueError(f"pair_transpose: {N} slices outside the grid's [1, 65535]")
     oa = torch.empty((*lead, W, H), dtype=torch.float32, device=xa.device)
     ob = torch.empty_like(oa)
-    fn = _bind("probes", "fsg_pair_transpose_f32", 4, 3)
-    with torch.cuda.device(xa.device):
-        rc = fn(xa.data_ptr(), xb.data_ptr(), oa.data_ptr(), ob.data_ptr(), N, H, W, _stream(xa.device))
+    rc = _call(_bind("probes", "fsg_pair_transpose_f32", 4, 3), xa.device,
+               xa.data_ptr(), xb.data_ptr(), oa.data_ptr(), ob.data_ptr(), N, H, W)
     _launched("pair_transpose", "pair_transpose", rc)
     return oa, ob
 
@@ -228,10 +234,8 @@ def probe2(xa, xb, mode, ntaps=0):
     if mode == "taps" and not 1 <= ntaps <= S + 128:
         raise ValueError(f"probe2: ntaps={ntaps} outside [1, S + 128]")
     oa, ob = torch.empty_like(xa), torch.empty_like(xb)
-    fn = _bind("probes", "fsg_probe2_f32", 4, 6)
-    with torch.cuda.device(xa.device):
-        rc = fn(xa.data_ptr(), xb.data_ptr(), oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, PAIR_MODES.index(mode),
-                ntaps, _stream(xa.device))
+    rc = _call(_bind("probes", "fsg_probe2_f32", 4, 6), xa.device, xa.data_ptr(), xb.data_ptr(), oa.data_ptr(),
+               ob.data_ptr(), B, D * H, H, S, PAIR_MODES.index(mode), ntaps)
     _launched("probe2", f"probe2_{mode}", rc)
     return oa, ob
 
@@ -292,9 +296,8 @@ def probe(x, mode):
         raise ValueError(f"probe: S={S} must be a multiple of 128")
     _ring_operands("probe", (x,))
     out = torch.empty_like(x)
-    fn = _bind("probes", "fsg_probe_f32", 2, 4)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), B, D * H, S, SINGLE_MODES.index(mode), _stream(x.device))
+    rc = _call(_bind("probes", "fsg_probe_f32", 2, 4), x.device,
+               x.data_ptr(), out.data_ptr(), B, D * H, S, SINGLE_MODES.index(mode))
     _launched("probe", f"probe_{mode}", rc)
     return out
 
@@ -386,9 +389,7 @@ def hat_variant(x, coefs, table, variant):
                          f"{_SMEM} bytes")
     threads = min(1024, -(-S // 32) * 32)
     out = torch.empty_like(x)
-    fn = _bind("hat_single", "fsg_hat_variant_f32", 4, 5)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), table.data_ptr(), coefs.data_ptr(), out.data_ptr(), D * H, H, S, variant,
-                threads, _stream(x.device))
+    rc = _call(_bind("hat_single", "fsg_hat_variant_f32", 4, 5), x.device, x.data_ptr(), table.data_ptr(),
+               coefs.data_ptr(), out.data_ptr(), D * H, H, S, variant, threads)
     _launched("hat_variant", f"hat_variant_v{variant}", rc)
     return out

@@ -214,6 +214,108 @@ def test_new_hat_forms_match_plain(dev, D, H, S):
         hat.hat_pass(xb, coefs, table, nearest=True)
 
 
+# (D, H) per row length S at B=3: with K2's tiles of about 16 KB (S=5: 816
+# rows; 300: 13; 513: 4; 6144: 1) every shape has several tiles, the last
+# partial, and (but at 6144, one row a tile) tiles that span two samples and
+# two slices
+K2_ROWS = {5: (40, 30), 300: (5, 7), 513: (3, 5), 6144: (2, 3)}
+K2_FORMS = [("sample", False, None), ("sample", True, None), ("sample", False, "volume"), ("sample", True, "volume"),
+            ("sample", False, "lane"), ("slice", False, None)]
+
+
+@pytest.mark.parametrize("form", K2_FORMS, ids=lambda f: "-".join(str(v) for v in f))
+@pytest.mark.parametrize("S", sorted(K2_ROWS))
+def test_single_kernel_bits(dev, S, form):
+    """K2 in each instantiated form bit for bit (as int32), -0.0 among the
+    volume's, the displacement's and the labels' values, positions at exact
+    half-integers and past both edges."""
+    coef, nearest, disp_kind = form
+    B, (D, H) = 3, K2_ROWS[S]
+    g = torch.Generator(device=dev).manual_seed(S * 10 + len(str(form)))
+    if nearest:
+        x = torch.randint(-1, 8, (B, D, H, S), generator=g, device=dev).float()
+        x[x < 0] = -0.0
+    else:
+        x = _with_negative_zeros(torch.randn((B, D, H, S), generator=g, device=dev))
+    if coef == "slice":
+        coefs = (torch.rand((B, D, 4), generator=g, device=dev) - 0.5) * torch.tensor([0.0, 0.5, 0.2, S / 2],
+                                                                                       device=dev)
+        coefs[..., 2] += 1.0
+    else:  # quarter-voxel rows (exact halves), general slopes, reversed lanes
+        coefs = torch.tensor([[0.25, -0.5, 1.0, 0.5], [0.05, -0.04, 1.02, -0.3 * S], [0.0, 0.0, -1.0, S - 1.0]],
+                             device=dev)
+    disp = None
+    if disp_kind == "volume":
+        disp = (torch.rand((B, D, H, S), generator=g, device=dev) - 0.5) * (S / 2)
+        disp[..., ::5] = torch.round(disp[..., ::5]) + 0.5
+        disp[..., 1::7] = -0.0
+    elif disp_kind == "lane":
+        disp = torch.randn((B, 3, S), generator=g, device=dev) * torch.tensor([[[0.3], [0.3], [S / 8]]], device=dev)
+    got, want = hat.hat_pass(x, coefs, disp, nearest), hat.hat_pass_ref(x, coefs, disp, nearest)
+    torch.cuda.synchronize()
+    assert _bits_equal((got,), (want,))
+
+
+def test_hat_geometry(dev):
+    """K2's launches: 16 KB tiles in three stages on a grid of whole SMs'
+    worth of blocks at B=1 256^3 in every form; tile rows in whole 16-byte
+    units and two stages where three do not fit."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for nearest, per_slice, disp in ((False, False, "none"), (True, False, "none"), (False, False, "volume"),
+                                     (True, False, "volume"), (False, False, "lane"), (False, True, "none")):
+        geo = hat.hat_geometry((1, 256, 256, 256), nearest, per_slice, disp)
+        assert geo == {"tile_rows": 16, "stages": 3, "grid": geo["grid"], "smem_bytes": 128 + 3 * 16384}
+        assert geo["grid"] % sms == 0 and geo["grid"] < 4096
+    assert hat.hat_geometry((3, 40, 30, 5)) == {"tile_rows": 816, "stages": 3, "grid": 5, "smem_bytes": 128 + 3 * 16320}
+    geo = hat.hat_geometry((1, 1, 8, 6143))
+    assert geo == {"tile_rows": 4, "stages": 2, "grid": 2, "smem_bytes": 128 + 2 * 4 * 6143 * 4}
+
+
+@pytest.mark.parametrize("form", K2_FORMS, ids=lambda f: "-".join(str(v) for v in f))
+def test_hat_pass_offset_views(dev, form):
+    """K2 on contiguous views 4, 8 and 12 bytes into larger tensors (a
+    batch's later samples, as ``vol[1:]`` gives them): ``x`` off 16 bytes,
+    and a displacement or table off 16 bytes, bit for bit (as int32) with
+    the plain version, in every form."""
+    coef, nearest, disp_kind = form
+    B, D, H, S = 2, 3, 5, 7
+    n = B * D * H * S
+    g = torch.Generator(device=dev).manual_seed(7)
+    coefs = torch.tensor([[0.25, -0.5, 1.0, 0.5], [0.05, -0.04, 1.02, -2.1]], device=dev)
+    if coef == "slice":
+        coefs = (torch.rand((B, D, 4), generator=g, device=dev) - 0.5) * torch.tensor([0.0, 0.5, 0.2, 3.0], device=dev)
+        coefs[..., 2] += 1.0
+    for off in (1, 2, 3):
+        base = torch.randint(0, 8, (off + n,), generator=g, device=dev).float() if nearest else \
+            _with_negative_zeros(torch.randn(off + n, generator=g, device=dev))
+        x = base[off:].view(B, D, H, S)
+        assert x.is_contiguous() and x.data_ptr() % 16
+        disp = None
+        if disp_kind == "volume":
+            disp = ((torch.rand(off + n, generator=g, device=dev) - 0.5) * S)[off:].view(B, D, H, S)
+        elif disp_kind == "lane":
+            disp = torch.randn(off + B * 3 * S, generator=g, device=dev)[off:].view(B, 3, S)
+        got, want = hat.hat_pass(x, coefs, disp, nearest), hat.hat_pass_ref(x, coefs, disp, nearest)
+        torch.cuda.synchronize()
+        assert _bits_equal((got,), (want,)), off
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 4099, 4096 * 3 + 2, 1 << 20])
+def test_pair_copy_bits(dev, n):
+    """K5 copies every bit pattern (NaN payloads, -0.0, denormals) at sizes
+    that end inside a 16-byte unit and a tile; operands off 16 bytes are
+    refused."""
+    from fetalsyngen_torch.kernels import probes
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    xa, xb = (torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=dev, dtype=torch.int32).view(torch.float32)
+              for _ in range(2))
+    assert _bits_equal(probes.pair_copy(xa, xb), (xa, xb))
+    off = torch.zeros(n + 1, device=dev)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probes.pair_copy(off, off)
+
+
 @pytest.mark.parametrize("shape", [(3, 5, 7), (2, 64, 96), (1, 33, 65, 40)])
 def test_pair_copy_and_transpose_match_plain(dev, shape):
     from fetalsyngen_torch.kernels import probes

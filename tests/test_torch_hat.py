@@ -129,6 +129,69 @@ def test_wrapper_rejects_other_devices():
         hat.hat_pass(x, torch.zeros((1, 4), device="meta"))
 
 
+def _bad_inputs(case):
+    """(x, others, coefs, disp, ow_free) of a launch the wrappers' check
+    refuses, one fault per ``case``."""
+    x = torch.zeros((2, 3, 4, 8))
+    coefs = torch.zeros((2, 4))
+    return {
+        "operand shape": (x, (torch.zeros((2, 3, 4, 9)),), coefs, None, True),
+        "three-axis x": (x[0], (), coefs, None, False),
+        "disp lanes": (x, (), coefs, torch.zeros((2, 3, 4, 9)), False),
+        "disp rows": (x, (), coefs, torch.zeros((2, 3, 5, 8)), True),
+        "table lead": (x, (), coefs, torch.zeros((2, 4, 8)), False),
+        "coefs": (x, (), torch.zeros((3, 4)), None, False),
+        "slice coefs": (x, (), torch.zeros((2, 4, 4)), None, False),
+        "short rows": (torch.zeros((2, 3, 4, 1)), (), coefs, None, False),
+        "long rows": (torch.zeros((1, 1, 1, 6145)), (), coefs[:1], None, False),
+        "dtype": (x.double(), (), coefs, None, False),
+        "coefs dtype": (x, (), coefs.double(), None, False),
+        "disp device": (x, (), coefs, torch.zeros((2, 3, 4, 8), device="meta"), False),
+        "strides": (x.transpose(1, 2).contiguous().transpose(1, 2), (), coefs, None, False),
+        "operand strides": (x, (x.transpose(2, 3).contiguous().transpose(2, 3),), coefs, None, True),
+    }[case]
+
+
+_BAD = {
+    "operand shape": (ValueError, "volumes must be equal"), "three-axis x": (ValueError, "volumes must be equal"),
+    "disp lanes": (ValueError, r"disp must be \(B, D, H, 8\)"), "disp rows": (ValueError, r"disp must be \(B, D, H, OW\)"),
+    "table lead": (ValueError, "disp must be"), "coefs": (ValueError, r"coefs must be \(2, 4\) or \(2, 3, 4\)"),
+    "slice coefs": (ValueError, "coefs must be"), "short rows": (ValueError, "S=1 outside"),
+    "long rows": (ValueError, "S=6145 outside"), "dtype": (TypeError, "x must be float32"),
+    "coefs dtype": (TypeError, "coefs must be float32"), "disp device": (ValueError, "disp is on meta"),
+    "strides": (ValueError, "x must be contiguous"), "operand strides": (ValueError, "operand 2 must be contiguous"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BAD))
+def test_wrapper_check_refuses(case):
+    """The CUDA wrappers' check (``kernels.hat._check``) reads only shapes,
+    dtypes, devices and strides, so it runs on CPU tensors: each fault is
+    refused with its own message."""
+    err, msg = _BAD[case]
+    with pytest.raises(err, match=msg):
+        hat._check(*_bad_inputs(case))
+
+
+def test_wrapper_check_accepts_every_form():
+    """The check passes each form a kernel has, and ``_form`` names the
+    instantiated forms for one that has none."""
+    x = torch.zeros((2, 3, 4, 8))
+    per_sample, per_slice = torch.zeros((2, 4)), torch.zeros((2, 3, 4))
+    volume, table = torch.zeros((2, 3, 4, 8)), torch.zeros((2, 3, 8))
+    for others, coefs, disp, ow_free in (((), per_sample, None, False), ((), per_sample, volume, False),
+                                         ((), per_sample, table, False), ((), per_slice, None, False),
+                                         ((x,), per_sample, torch.zeros((2, 3, 4, 5)), True),
+                                         ((x,), per_sample, torch.zeros((2, 3, 12)), True)):
+        assert hat._check(x, others, coefs, disp, ow_free) is None
+    assert hat._form(True, per_sample, volume, hat._SINGLE_FORMS, "hat_pass") == (True, 0, 1)
+    assert hat._form(False, per_slice, None, hat._SINGLE_FORMS, "hat_pass") == (False, 1, 0)
+    with pytest.raises(ValueError, match="hat_pass: no kernel for .* = \\(True, 0, 2\\)"):
+        hat._form(True, per_sample, table, hat._SINGLE_FORMS, "hat_pass")
+    with pytest.raises(ValueError, match="no kernel"):
+        hat._form(False, per_slice, volume, hat._SINGLE_FORMS, "hat_pass")
+
+
 def _single_case(kind, rng):
     """(shape (D, H, S), coefs (2, 4), disp (2, D, H, S) or None) for K2."""
     D, H, S = 6, 10, 16

@@ -450,6 +450,28 @@ def test_probe_wrappers_reject_other_devices():
             call()
 
 
+@pytest.mark.parametrize("case", ["shapes", "dtype", "strides", "devices", "aligned"])
+def test_pair_copy_operands_refused(case):
+    """K5's launch check runs on CPU tensors: equal shapes, f32, contiguous,
+    one device, 16-byte aligned (a float's offset is 4 bytes off)."""
+    x = torch.zeros((3, 5, 7))
+    other, err, msg = {
+        "shapes": (torch.zeros((3, 5, 8)), ValueError, "shapes .* differ"),
+        "dtype": (x.double(), TypeError, "float32"),
+        "strides": (x.transpose(0, 2).contiguous().transpose(0, 2), ValueError, "contiguous"),
+        "devices": (torch.zeros((3, 5, 7), device="meta"), ValueError, "operands on meta and cpu"),
+        "aligned": (torch.zeros(1 + 105)[1:].view(3, 5, 7), ValueError, "16-byte aligned"),
+    }[case]
+    with pytest.raises(err, match=msg):
+        probes._copy_operands(x, other)
+
+
+def test_pair_copy_operands_accepted():
+    """Odd sizes pass K5's check as whole 16-byte units and a tail."""
+    for n in (1, 3, 4, 105, 4099):
+        assert probes._copy_operands(torch.zeros(n), torch.ones(n)) == divmod(n, 4)
+
+
 def test_ring_profile_block_summary():
     """``ring_profile``'s reading of the ring blocks' records: end times from
     the first start, mean busy time, and the share of the walk waited."""
@@ -458,8 +480,25 @@ def test_ring_profile_block_summary():
     rec = np.array([[1000, 6000, 10, 100], [3000, 9000, 30, 100], [2000, 4000, 20, 200]], dtype=np.uint64)
     s = ring_profile.block_summary(rec)
     assert s["ends_us"] == pytest.approx([3.0, 3.4, 5.0, 7.4, 8.0])
+    assert s["spread"] == pytest.approx(5.0 / 8.0)
     assert s["busy_us"] == pytest.approx(13 / 3)
     assert s["wait"] == pytest.approx(60 / 400)
+
+
+def test_bounds():
+    """The least times the kernels are read against: bytes over 3.35 TB/s or
+    f32 operations over 67 TFLOP/s, whichever is longer; a hat pass counts
+    its operands, displacement, coefficients and outputs once each."""
+    from fetalsyngen_torch.probes.timing import bound, hat_bound
+
+    assert bound(3.35e9, 0) == (pytest.approx(1.0), "bytes")
+    assert bound(0, 67e9) == (pytest.approx(1.0), "operations")
+    B, D, H, S = 1, 256, 256, 256
+    n = B * D * H * S
+    assert hat_bound(False, B, D, H, S, S) == (pytest.approx(1e3 * 4 * (2 * n + 4 * D) / 3.35e12), "bytes")
+    vol, tab = torch.zeros((B, D, H, S)), torch.zeros((B, 3, S))
+    assert hat_bound(False, B, D, H, S, S, vol, nearest=True)[0] == pytest.approx(1e3 * 4 * (3 * n + 4 * D) / 3.35e12)
+    assert hat_bound(True, B, D, H, S, S, tab)[0] == pytest.approx(1e3 * 4 * (4 * n + 3 * S + 4 * D) / 3.35e12)
 
 
 # --- the entry points, on the CPU at a tiny size --------------------------------
