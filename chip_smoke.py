@@ -13,9 +13,8 @@ result. Phases, each of which raises on failure:
    hat pass (K2) at the pass geometries of the single-volume warps (B=1,
    the affine warp's five passes and the field warp's six, which share the
    three U passes) in both modes, plus crafted coefficients; exact
-   half-integer and out-of-range positions mixed in; K1's labels and every
-   K2 form bit-identical, K1's image within ``1e-5 * max|x|``; times as the
-   median of 20 CUDA-event runs;
+   half-integer and out-of-range positions mixed in; every K1 and K2 form
+   bit-identical; times as the median of 20 CUDA-event runs;
 4. the slice end to end: ``synth_batch`` at 256^3 x 4 with the benchmark's
    generator config, with host syncs made errors; output checks, three
    kernel launches, then one sample replayed through the port on the CPU
@@ -86,12 +85,14 @@ operations over 67 TFLOP/s.
 Phase 3 also holds K1's form without a displacement (the probes'
 ``pair_l_nodisp`` and ``pair_u`` coefficients, and crafted half-integers)
 and K2's lane-affine form (K7's inputs, and a wide table at 256^3) against
-their plain versions. Every K2 check (and K5's in phase 10) also prints the
+their plain versions. Every kernel check (phases 3 and 10) also prints the
 kernel's time behind an enqueued wait ("fenced": the card's own time, no
-host wait) and the host wait, one launch's time less the fenced one. Then,
-untimed, every K2 form bit for bit (the sign of zero included) at one shape
-whose tiles span two samples and two slices and end partial, with each
-form's launch geometry (tile rows, ring stages, grid, shared memory).
+host wait), its share of the bound, and the host wait, one launch's time
+less the fenced one. Then, untimed, every K2 form bit for bit (the sign of
+zero included) at one shape whose tiles span two samples and two slices and
+end partial, and every K1 form there, at an odd S above 3630, at OW != S,
+on operands 4 and 12 bytes off 16 and (its main form) at B=1 256^3, with
+each form's launch geometry (tile rows, ring stages, grid, shared memory).
 
 Each phase prints its elapsed time. The line before the last is the
 kernels' JSON record, one entry per kernel form and probe mode; the last
@@ -146,7 +147,6 @@ SHAPE = (256, 256, 256)
 BATCH = 4
 LABELS = tuple([0] + list(range(10, 50)))
 GEN_CLASSES = tuple([0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50)))
-KERNEL_TOL = 1e-5  # image |kernel - plain| <= KERNEL_TOL * max|x|
 IMAGE_TOL = 1e-4  # |GPU - CPU| on the [0, 1] image
 LABEL_TOL = 1e-5  # fraction of labels allowed to differ between GPU and CPU
 SCANNER_TOL = 1e-4  # |GPU - CPU| of the scanner's outputs over their max |x|
@@ -250,29 +250,17 @@ def check_kernel(dev, cfg):
         disp = (torch.rand((BATCH, R, S), generator=g, device=dev) * 2 - 1) * FIELD_LIM
         disp = craft_disp(disp, hat.positions(coefs, R, H, S, None), S)
         disp = disp.reshape(BATCH, D, H, S).contiguous()
-        n_half, n_out = count_positions(hat.positions(coefs, R, H, S, disp.reshape(BATCH, R, S)), S)
-        ka, kb = hat.hat_pass_pair(xa, xb, coefs, disp)
-        ra, rb = hat.hat_pass_pair_ref(xa, xb, coefs, disp)
-        torch.cuda.synchronize()
-        err = float((ka - ra).abs().max())
-        label_diff = int((kb != rb).sum())
-        bar = KERNEL_TOL * float(xa.abs().max())
-        ms = cuda_ms(lambda: hat.hat_pass_pair(xa, xb, coefs, disp))
-        plain_ms = cuda_ms(lambda: hat.hat_pass_pair_ref(xa, xb, coefs, disp))
-        lib_ms = grid_sample_ms([xa, xb], hat.positions(coefs, R, H, S, disp.reshape(BATCH, R, S)))
-        bound_ms, bound_by = hat_bound(True, BATCH, D, H, S, S, disp, nearest=True)
-        log(
-            f"kernel hat_pass_pair {name}: B={BATCH} R={R} S=OW={S} half-integer positions={n_half} "
-            f"saturated={n_out} image max|kernel-plain|={err:.3e} (bar {bar:.3e}) "
-            f"labels differing={label_diff} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"grid_sample {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})"
-        )
+        pos = hat.positions(coefs, R, H, S, disp.reshape(BATCH, R, S))
+        n_half, n_out = count_positions(pos, S)
         if n_half == 0 or n_out == 0:
             raise RuntimeError(f"{name}: the crafted half-integer/edge positions did not occur")
-        if label_diff or not err <= bar:
-            raise RuntimeError(f"{name}: kernel disagrees with plain (labels {label_diff}, image {err})")
-        results.append(dict(key="hat_pass_pair", err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=bound_ms, bound_by=bound_by))
+        results.append(compare(
+            "hat_pass_pair", name, lambda: hat.hat_pass_pair(xa, xb, coefs, disp),
+            lambda: hat.hat_pass_pair_ref(xa, xb, coefs, disp), hat_bound(True, BATCH, D, H, S, S, disp, nearest=True),
+            lib=lambda: grid_sample_ms([xa, xb], pos),
+            note=f" B={BATCH} R={R} S=OW={S} half-integer positions={n_half} saturated={n_out}",
+        ))
+        del pos
     return results
 
 
@@ -326,7 +314,7 @@ def check_single_kernel(dev, cfg):
                 "hat_pass", f"{name} {'nearest' if nearest else 'linear'}",
                 lambda: hat.hat_pass(x, coefs, disp, nearest), lambda: hat.hat_pass_ref(x, coefs, disp, nearest),
                 hat_bound(False, 1, D, H, S, S, disp, nearest), lib=lambda: grid_sample_ms([x], pos),
-                note=f" B=1 R={R} S=OW={S} half-integer positions={n_half} saturated={n_out}", fenced=True,
+                note=f" B=1 R={R} S=OW={S} half-integer positions={n_half} saturated={n_out}",
             ))
             del pos
     return results
@@ -397,20 +385,20 @@ def check_scanner_kernels(dev, cubes=(384, 640)):
             results.append(compare(
                 key, f"{name} cube {cube}", run, plain, hat_bound(pair, 1, D, H, S, S, disp),
                 lib=lambda: grid_sample_ms([xa] + ([xb] if pair else []), pos, n), n=n,
-                note=f" R={D * H} S=OW={S} half-integer positions={n_half} saturated={n_out}", fenced=not pair,
+                note=f" R={D * H} S=OW={S} half-integer positions={n_half} saturated={n_out}",
             ))
             del pos, xa, xb
     return results
 
 
-def compare(key, name, run, plain, bnd, lib=None, n=20, note="", fenced=False):
+def compare(key, name, run, plain, bnd, lib=None, n=20, note=""):
     """One kernel check: ``run()`` (the kernel) against ``plain()``,
     bit-identical or raise; then the median ms of each over ``n`` CUDA-event
     runs, ``lib()`` (the ms of one torch call computing the same function,
-    or None) and the bound ``bnd`` = (ms, "bytes" or "operations"). With
-    ``fenced``, also the kernel's ms behind an enqueued wait (the card's own
-    time, :func:`ring_profile.one_ms`) and the host wait, one launch's ms
-    less that."""
+    or None) and the bound ``bnd`` = (ms, "bytes" or "operations"); also the
+    kernel's ms behind an enqueued wait (fenced: the card's own time,
+    :func:`ring_profile.one_ms`), its share of the bound, and the host wait,
+    one launch's ms less the fenced."""
     got, want = run(), plain()
     got, want = (v if isinstance(v, tuple) else (v,) for v in (got, want))
     torch.cuda.synchronize()
@@ -421,8 +409,9 @@ def compare(key, name, run, plain, bnd, lib=None, n=20, note="", fenced=False):
     lib_ms = lib() if lib else None
     bound_ms, bound_by = bnd
     lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-    fenced_ms = ring_profile.one_ms(run, True) if fenced else None
-    fence_txt = "" if fenced_ms is None else f" (fenced {fenced_ms:.4f} ms, host wait {1e3 * (ms - fenced_ms):.1f} us)"
+    fenced_ms = ring_profile.one_ms(run, True)
+    fence_txt = (f" (fenced {fenced_ms:.4f} ms, {100 * bnd[0] / fenced_ms:.1f}% of bound, host wait "
+                 f"{1e3 * (ms - fenced_ms):.1f} us)")
     log(f"kernel {key} {name}: max|kernel-plain|={err:.3e} elements differing={differ} kernel {ms:.4f} ms"
         f"{fence_txt} plain {plain_ms:.4f} ms library {lib_txt} bound {bound_ms:.4f} ms ({bound_by}){note}")
     if differ or err != 0.0:
@@ -467,7 +456,7 @@ def check_new_hat_forms(dev):
         results.append(compare(
             "hat_pass_lane", name, lambda: hat.hat_pass(xv, coefs, tab), lambda: hat.hat_pass_ref(xv, coefs, tab),
             hat_bound(False, 1, d, h, s, s, tab), lib=lambda: grid_sample_ms([xv], pos),
-            note=f" half-integer positions={n_half} saturated={n_out}", fenced=True,
+            note=f" half-integer positions={n_half} saturated={n_out}",
         ))
         del pos
     return results
@@ -517,6 +506,73 @@ def check_hat_tiles(dev):
         del got, want, pos
 
 
+def pair_inputs(dev, g, disp_kind, nearest_b, shape, OW, offsets):
+    """K1's operands for :func:`check_pair_tiles`: -0.0 among them (labels in
+    0..49 when nearest), each a view ``offsets`` floats into a larger tensor;
+    per-sample coefficients with quarter-voxel rows, general slopes and a
+    reversed row, or per-slice ones; a displacement volume with exact
+    half-integer positions and -0.0, or a lane-affine table."""
+    B, D, H, S = shape
+    n = B * D * H * S
+
+    def operand(off, nearest):
+        if nearest:
+            base = torch.randint(-1, 50, (off + n,), generator=g, device=dev).to(torch.float32)
+            base[base < 0] = -0.0
+        else:
+            base = 100.0 * torch.randn(off + n, generator=g, device=dev)
+            base[::7] = -0.0
+        return base[off:].view(shape)
+
+    xa, xb = operand(offsets[0], False), operand(offsets[1], nearest_b)
+    if disp_kind == "slice":
+        coefs = (torch.rand((B, D, 4), generator=g, device=dev) - 0.5) * torch.tensor([0.0, 0.2, 0.04, 8.0], device=dev)
+        coefs[..., 2] += 1.0
+        return xa, xb, coefs, None
+    r = S / OW
+    coefs = torch.tensor([[0.25, -0.5, r, 0.5], [0.05, -0.04, 1.02 * r, -0.3 * S], [0.0, 0.0, -r, S - 1.0]],
+                         device=dev)[:B].contiguous()
+    disp = None
+    if disp_kind == "volume":
+        disp = (torch.rand((B, D, H, OW), generator=g, device=dev) - 0.5) * (S / 2)
+        disp[..., ::5] = torch.round(disp[..., ::5]) + 0.5
+        disp[..., 1::7] = -0.0
+    elif disp_kind == "lane":
+        disp = torch.randn((B, 3, OW), generator=g, device=dev) * torch.tensor([[[0.3], [0.3], [S / 8]]], device=dev)
+    return xa, xb, coefs, disp
+
+
+def check_pair_tiles(dev):
+    """Phase 3: every K1 form against its plain version, untimed, bit for bit
+    (the sign of zero included): at B=3 (3, 100, 101, 301), whose 13-row
+    tiles span two samples (10,100 rows each) and slices and end partial;
+    at S = 4095 (odd, above 3630: one-row tiles); at OW = 64 from S = 513
+    (the forms with a displacement); on xa and xb 4 and 12 bytes into larger
+    tensors; and at B=1 256^3 (the API's draws). Prints each form's launch
+    geometry there and at B=4 256^3."""
+    g = torch.Generator(device=dev).manual_seed(47)
+    forms = (("main", True, "volume"), ("no displacement", True, None), ("lane-affine", False, "lane"),
+             ("per-slice", False, "slice"))
+    cases = (("partial tiles", (3, 100, 101, 301), 301, (0, 0)), ("odd S", (2, 2, 3, 4095), 4095, (0, 0)),
+             ("OW != S", (2, 4, 4, 513), 64, (0, 0)), ("off 16 bytes", (2, 7, 9, 301), 301, (1, 3)),
+             ("B=1", (1, *SHAPE), SHAPE[0], (0, 0)))
+    for name, nearest_b, disp_kind in forms:
+        for case, shape, OW, offsets in cases:
+            xa, xb, coefs, disp = pair_inputs(dev, g, disp_kind, nearest_b, shape, OW, offsets)
+            got = hat.hat_pass_pair(xa, xb, coefs, disp, nearest_b)
+            want = hat.hat_pass_pair_ref(xa, xb, coefs, disp, nearest_b)
+            torch.cuda.synchronize()
+            differ = sum(int((k.view(torch.int32) != r.view(torch.int32)).sum()) for k, r in zip(got, want))
+            mode = {"volume": "volume", "lane": "lane"}.get(disp_kind, "none")
+            geo = {f"{sh}": hat.hat_pair_geometry(sh, nearest_b, disp_kind == "slice", mode)
+                   for sh in (shape, (BATCH, *SHAPE))}
+            log(f"kernel hat_pass_pair {name} {case} {shape} OW={got[0].shape[-1]} offsets {offsets}: "
+                f"bits differing={differ}; launches {json.dumps(geo)}")
+            if differ:
+                raise RuntimeError(f"hat_pass_pair {name} {case}: kernel differs from plain in {differ} elements")
+            del xa, xb, coefs, disp, got, want
+
+
 def probe_path():
     """Phase 10's path: the three probe entry points as a user runs them
     (every microbench variant), at their own sizes. Returns the launch
@@ -556,7 +612,7 @@ def check_probes(dev):
     clone_ms = lambda: cuda_ms(both(torch.clone))  # noqa: E731
     results = [
         compare("pair_copy", tag, lambda: probes.pair_copy(xa, xb), lambda: probes.pair_copy_ref(xa, xb),
-                bound(16 * n, 0), lib=clone_ms, fenced=True),
+                bound(16 * n, 0), lib=clone_ms),
         compare("pair_transpose", tag, lambda: probes.pair_transpose(xa, xb),
                 lambda: probes.pair_transpose_ref(xa, xb), bound(16 * n, 0),
                 lib=lambda: cuda_ms(both(lambda v: v.transpose(-1, -2).contiguous()))),
@@ -618,7 +674,8 @@ def check_probes(dev):
         results.append(compare(
             f"hat_variant_v{v}", f"R={R} S={S7}", lambda: probes.hat_variant(x, c7, table, v),
             lambda: probes.hat_variant_ref(x, c7, table, v), bound(8 * R * S7 + 4 * (3 * S7 + 4), ops),
-            lib=lib, note=f" taps run per element {run_taps / (R * S7):.3f} span-clipped elements {clipped}"
+            lib=lib, note=f" taps of the span budget per element {run_taps / (R * S7):.3f} (the kernel reads two)"
+            f" span-clipped elements {clipped}"
             + (f"; K2 lane-affine hat_pass {lane_ms:.4f} ms" if v == 0 else ""),
         ))
         del pos
@@ -816,7 +873,10 @@ def where_time_goes(dev, cfg, seeds, segs):
     # operators by the device time of the kernels they launch themselves,
     # then the kernels
     ops = [e for e in stats if e.device_type != DeviceType.CUDA and e.self_device_time_total > 0]
-    for title, rows in (("operator", ops), ("kernel", kernels)):
+    hats = [e for e in kernels if "hat_ring_kernel" in e.key]  # K1 on the main path, below the top eight
+    if not hats:
+        raise RuntimeError("the profiler saw no hat kernel in synth_batch")
+    for title, rows in (("operator", ops), ("kernel", kernels), ("hat kernel", hats)):
         for e in sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
             ms = e.self_device_time_total / 1e3
             log(f"  {title} {100 * ms / total_ms:5.1f}% {ms / 3:8.3f} ms/batch "
@@ -1265,6 +1325,7 @@ def main() -> int:
     checks += check_scanner_kernels(dev)
     checks += check_new_hat_forms(dev)
     check_hat_tiles(dev)
+    check_pair_tiles(dev)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     seeds_np, seg_np = phantom_seeds_and_seg(SHAPE)
     launches, seeds, segs = run_slice(dev, cfg, seeds_np, seg_np)

@@ -1,6 +1,6 @@
-// Device code shared by the hat-pass kernels (hat_pass.cu, hat_single.cu): the
-// position polynomial, its displacement forms, and the edge-clamped samples of
-// one staged row.
+// Code shared by the hat-pass kernels (hat_pass.cu, K1; hat_single.cu, K2):
+// the position polynomial, its displacement forms, the edge-clamped samples
+// of one staged row, and the ring kernel both run with its launch.
 //
 // Spec: _hat_pass_jnp and the fallback positions of _hat_pass_impl in
 // fetalsyngen_tpu/ops/warp.py; plain PyTorch versions: positions() and
@@ -16,12 +16,13 @@
 #pragma once
 
 #include <cstddef>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
-namespace fsg {
+#include "ring.cuh"
 
-constexpr int kHatThreads = 256;
+namespace fsg {
 
 // Where a pass's per-row coefficients (ci, cj, ck, bias) come from: one row
 // per sample, (B, 4), or one per slice row_i, (B, D, 4).
@@ -61,21 +62,6 @@ __device__ __forceinline__ float hat_displace(float pos, const float* d, float r
   return pos;
 }
 
-// The position of lane l plus the displacement of kDisp: disp_row is the
-// row's (OW,) slice of the volume, or the sample's (3, OW) table.
-template <int kDisp>
-__device__ __forceinline__ float hat_displaced(float pos, const float* disp_row, int OW, int l,
-                                               float row_i, float row_j) {
-  float d[3] = {0.0f, 0.0f, 0.0f};
-  if (kDisp == kDispVolume) d[0] = disp_row[l];
-  if (kDisp == kDispLaneAffine) {
-    d[0] = disp_row[l];
-    d[1] = disp_row[OW + l];
-    d[2] = disp_row[2 * OW + l];
-  }
-  return hat_displace<kDisp>(pos, d, row_i, row_j);
-}
-
 // Where the displacement of sample b, row r starts (volume: the row; table:
 // the sample's (3, OW) block).
 template <int kDisp>
@@ -102,3 +88,179 @@ __device__ __forceinline__ float hat_sample(const float* row, float pos, int S) 
 }
 
 }  // namespace fsg
+
+// The hat ring kernel: K1 (two operands, kOps 2) and K2 (one) on the tile
+// ring of ring.cuh. A tile is a run of consecutive rows of the flattened
+// (B*R, S) operands, about kTileBytes (16 KB) per operand; a persistent grid
+// of 512-thread blocks draws tiles from a per-stream counter and stages them
+// through a three-stage ring of TMA bulk copies (two stages where three do
+// not fit). Each row of a tile finds its own sample b = n / R, row r = n % R
+// and coefficient row, so a tile may span two samples or two slices. Each
+// thread computes four consecutive output lanes of a row: their positions,
+// then their taps read from the staged rows in shared memory (one for
+// nearest, two for linear, at data-dependent columns), then one 16-byte
+// streaming store per output where the four lanes lie on a 16-byte boundary,
+// lane by lane otherwise. The displacement volume is not staged: each thread
+// reads its four values with one 16-byte __ldg where they lie on 16 bytes
+// (else four), for four groups of lanes (two for a pair) before it computes
+// any, so sixteen (eight) values per thread are in flight. Staged as another ring operand it would
+// add a tile to every stage; read once and coalesced, it gains nothing from
+// shared memory. The lane-affine table is read the same way, from the caches
+// (3 OW floats a sample, shared by all its rows). Outputs, the displacement
+// volume and the table have rows of OW lanes, the staged rows S.
+namespace {
+
+using namespace fsg;
+
+// K1's and K2's tile per operand, chosen by measurement (8 to 32 KB): for
+// K2 at B=1 256^3 16 KB was the fastest, 8 KB 9-12% slower; for K1 8 KB ran
+// 0.4-0.8% faster at B=4 256^3 but 0.6-3.7% slower on the scanner's
+// lane-affine passes, which launch more often, and 32 KB 6% slower
+constexpr int kTileBytes = 16 * 1024;
+
+// v[k] = p[l + k] for the lanes l + k < n (0 past the row): one 16-byte read
+// through the read-only cache where all four lie on a 16-byte boundary,
+// else lane by lane
+__device__ __forceinline__ void load_lanes(const float* __restrict__ p, int l, int n, float* v) {
+  if (l + 3 < n && (reinterpret_cast<uintptr_t>(p + l) & 15) == 0) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p + l));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = l + k < n ? __ldg(p + l + k) : 0.0f;
+  }
+}
+
+// kOps operands xa (linear) and xb, the last sampled nearest if kNearestLast;
+// nrows rows of S lanes in, of OW lanes out
+template <int kOps, bool kNearestLast, int kCoef, int kDisp>
+__global__ void __launch_bounds__(kRingThreads, 2) hat_ring_kernel(
+    const float* __restrict__ xa, const float* __restrict__ xb, const float* __restrict__ disp,
+    const float* __restrict__ coefs, float* __restrict__ oa, float* __restrict__ ob, long long nrows, int R,
+    int H, int S, int OW, int tile_rows, int pitch, int stages, TileCounter* counter) {
+  // groups of four lanes a thread takes at once: the displacement volume's
+  // loads of all of them go out before the first group is computed (four
+  // groups of one operand, two of a pair: a pair's registers for four spill)
+  constexpr int kGroups = kDisp == kDispVolume ? 4 / kOps : 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Ring<kOps> ring;
+  ring.smem = smem;
+  ring.x[0] = xa;
+  if constexpr (kOps == 2) ring.x[1] = xb;
+  ring.elems = nrows * S;
+  ring.ntiles = (nrows + tile_rows - 1) / tile_rows;
+  ring.tile_elems = tile_rows * S;
+  ring.pitch = pitch;
+  ring.stages = stages;
+  const int G = (OW + 3) / 4;  // groups of four lanes per output row
+  ring_walk(ring, counter, [&](long long t, int s) {
+    const long long n0 = t * tile_rows;
+    const int rows = static_cast<int>(min(static_cast<long long>(tile_rows), nrows - n0));
+    const int b0 = static_cast<int>(n0 / R);
+    const int r0 = static_cast<int>(n0 - static_cast<long long>(b0) * R);
+    const float* src[kOps];
+#pragma unroll
+    for (int op = 0; op < kOps; ++op) src[op] = ring.data(s, op, t);
+    const int groups = rows * G;
+    for (int i0 = threadIdx.x; i0 < groups; i0 += kGroups * kRingThreads) {
+      float d[kGroups][4];
+      if constexpr (kDisp == kDispVolume) {
+#pragma unroll
+        for (int u = 0; u < kGroups; ++u) {
+          const int i = i0 + u * kRingThreads;
+          if (i < groups) {
+            const int row = i / G;
+            load_lanes(disp + static_cast<size_t>(n0 + row) * OW, 4 * (i - row * G), OW, d[u]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kGroups; ++u) {
+        const int i = i0 + u * kRingThreads;
+        if (i >= groups) break;
+        const int row = i / G;
+        const int l = 4 * (i - row * G);
+        int b = b0, r = r0 + row;  // the row's sample and row; a division only where the tile wraps
+        if (r >= R) {
+          b += r / R;
+          r %= R;
+        }
+        const int ri = r / H;
+        const float row_i = static_cast<float>(ri);
+        const float row_j = static_cast<float>(r - ri * H);
+        const float* c = hat_coefs<kCoef>(coefs, b, r, R, H);
+        const float ck = __ldg(c + 2);
+        const float bias = __ldg(c + 3);
+        const float base = hat_row_base(__ldg(c), __ldg(c + 1), row_i, row_j);
+        float pos[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) pos[k] = hat_position(base, ck, bias, l + k);
+        if constexpr (kDisp == kDispVolume) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) pos[k] = hat_displace<kDisp>(pos[k], &d[u][k], row_i, row_j);
+        } else if constexpr (kDisp == kDispLaneAffine) {
+          const float* tab = hat_disp_row<kDisp>(disp, b, r, R, OW);
+          float a0[4], a1[4], a2[4];
+          load_lanes(tab, l, OW, a0);
+          load_lanes(tab + OW, l, OW, a1);
+          load_lanes(tab + 2 * OW, l, OW, a2);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float a[3] = {a0[k], a1[k], a2[k]};
+            pos[k] = hat_displace<kDisp>(pos[k], a, row_i, row_j);
+          }
+        }
+        const size_t out = static_cast<size_t>(n0 + row) * OW;
+        float v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = hat_sample<kOps == 1 && kNearestLast>(src[0] + row * S, pos[k], S);
+        store4(oa + out, l, OW, v);
+        if constexpr (kOps == 2) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) v[k] = hat_sample<kNearestLast>(src[1] + row * S, pos[k], S);
+          store4(ob + out, l, OW, v);
+        }
+      }
+    }
+  });
+}
+
+// Plans the launch of a hat form on nrows rows into g (tiles of
+// kTileBytes per operand), and launches it if `launch`. K1's ring is loose
+// (tiles of any row count, operands at any float offset: with two operands,
+// 4-row tiles of odd S would not fit two stages above S = 3630); K2's tiles
+// are whole 16-byte units of an x on 16 bytes, cudaErrorMisalignedAddress
+// for an x that is not.
+template <int kOps, bool kNearestLast, int kCoef, int kDisp>
+cudaError_t hat_ring_run(const float* xa, const float* xb, const float* disp, const float* coefs, float* oa,
+                         float* ob, long long nrows, int R, int H, int S, int OW, bool launch, cudaStream_t st,
+                         Geometry* g) {
+  constexpr bool kLoose = kOps == 2;
+  const void* fn = reinterpret_cast<const void*>(&hat_ring_kernel<kOps, kNearestLast, kCoef, kDisp>);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = plan(fn, dev, kOps, nrows, S, kTileBytes, g, kLoose);
+  if (e != cudaSuccess || !launch) return e;
+  if (!kLoose && !aligned16(xa)) return cudaErrorMisalignedAddress;
+  TileCounter* counter = nullptr;
+  e = tile_counter(dev, st, &counter);
+  if (e != cudaSuccess) return e;
+  hat_ring_kernel<kOps, kNearestLast, kCoef, kDisp><<<g->grid, kRingThreads, g->smem, st>>>(
+      xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW, g->tile_rows, ring_pitch(g->tile_rows * S, kLoose),
+      g->stages, counter);
+  return cudaGetLastError();
+}
+
+// geometry = {tile rows, ring stages, grid blocks, dynamic shared-memory
+// bytes} of g
+void write_geometry(const Geometry& g, int* geometry) {
+  geometry[0] = g.tile_rows;
+  geometry[1] = g.stages;
+  geometry[2] = g.grid;
+  geometry[3] = g.smem;
+}
+
+}  // namespace

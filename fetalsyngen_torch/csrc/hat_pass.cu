@@ -28,83 +28,78 @@
 // Bound: device memory. Per output element it reads (amortised over the row)
 // one source value per operand, a displacement when the form has a volume,
 // and writes two outputs: 16 to 20 bytes per element, two taps of
-// arithmetic. Design: one block per row; the two source rows are staged in
-// shared memory with coalesced loads, then one thread per output lane reads
-// its taps from shared memory and writes two coalesced outputs.
+// arithmetic.
+//
+// Design: K2's ring kernel (hat_ring_kernel in hat_common.cuh) with two
+// operands: a persistent grid draws tiles of consecutive rows, about 16 KB
+// per operand, through a three-stage TMA ring, each thread computing four
+// output lanes from both staged rows. Where it differs from K2:
+// - outputs, the displacement volume and the lane-affine table have rows of
+//   OW lanes, which need not equal the staged rows' S;
+// - the ring is loose: a tile holds any number of rows and an operand may
+//   start at any float (a view into a larger tensor; xa and xb each at its
+//   own offset). The bulk copy takes the tile's whole 16-byte units and
+//   thread 0 copies the 0-3 floats before the first and after the last
+//   (ring.cuh). With tiles in units of four rows for odd S, as K2 has them,
+//   two stages of the two operands' 4-row tiles would not fit 227 KB above
+//   S = 3630; one-row tiles fit up to S of about 14,500.
+// Per tile, each operand's lead (its first float's offset from a 16-byte
+// boundary) places it in its buffer; the ring's buffers have room for it.
 
 #include "hat_common.cuh"
 
 namespace {
 
-template <bool kNearestB, int kCoef, int kDisp>
-__global__ void __launch_bounds__(fsg::kHatThreads) hat_pair_kernel(
-    const float* __restrict__ xa, const float* __restrict__ xb,
-    const float* __restrict__ disp, const float* __restrict__ coefs,
-    float* __restrict__ oa, float* __restrict__ ob, int R, int H, int S, int OW) {
-  extern __shared__ float smem[];
-  float* sa = smem;
-  float* sb = smem + S;
-
-  const int r = blockIdx.x;
-  const int b = blockIdx.y;
-  const size_t in_row = (static_cast<size_t>(b) * R + r) * S;
-  const size_t out_row = (static_cast<size_t>(b) * R + r) * OW;
-
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    sa[s] = xa[in_row + s];
-    sb[s] = xb[in_row + s];
+cudaError_t pair_run(const float* xa, const float* xb, const float* disp, const float* coefs, float* oa,
+                     float* ob, long long nrows, int R, int H, int S, int OW, int nearest_b, int coef_mode,
+                     int disp_mode, bool launch, cudaStream_t st, Geometry* g) {
+  if (nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispVolume) {
+    return hat_ring_run<2, true, kCoefPerSample, kDispVolume>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW,
+                                                              launch, st, g);
   }
-  __syncthreads();
-
-  const float row_i = static_cast<float>(r / H);
-  const float row_j = static_cast<float>(r % H);
-  const float* c = fsg::hat_coefs<kCoef>(coefs, b, r, R, H);
-  const float ck = c[2];
-  const float bias = c[3];
-  const float base = fsg::hat_row_base(c[0], c[1], row_i, row_j);
-  const float* d = fsg::hat_disp_row<kDisp>(disp, b, r, R, OW);
-
-  for (int l = threadIdx.x; l < OW; l += blockDim.x) {
-    const float pos =
-        fsg::hat_displaced<kDisp>(fsg::hat_position(base, ck, bias, l), d, OW, l, row_i, row_j);
-    oa[out_row + l] = fsg::hat_sample<false>(sa, pos, S);
-    ob[out_row + l] = fsg::hat_sample<kNearestB>(sb, pos, S);
+  if (!nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispLaneAffine) {
+    return hat_ring_run<2, false, kCoefPerSample, kDispLaneAffine>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S,
+                                                                   OW, launch, st, g);
   }
-}
-
-template <bool kNearestB, int kCoef, int kDisp>
-void launch(const float* xa, const float* xb, const float* disp, const float* coefs, float* oa,
-            float* ob, int B, int R, int H, int S, int OW, cudaStream_t stream) {
-  const dim3 grid(R, B);
-  const size_t smem = 2 * static_cast<size_t>(S) * sizeof(float);
-  hat_pair_kernel<kNearestB, kCoef, kDisp><<<grid, fsg::kHatThreads, smem, stream>>>(
-      xa, xb, disp, coefs, oa, ob, R, H, S, OW);
+  if (nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispNone) {
+    return hat_ring_run<2, true, kCoefPerSample, kDispNone>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW, launch,
+                                                            st, g);
+  }
+  if (!nearest_b && coef_mode == kCoefPerSlice && disp_mode == kDispNone) {
+    return hat_ring_run<2, false, kCoefPerSlice, kDispNone>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW, launch,
+                                                            st, g);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// xa, xb: (B, R, S); oa, ob: (B, R, OW); coefs: (B, 4) or, per slice, (B, R/H,
-// 4); disp: (B, R, OW), (B, 3, OW) or null as disp_mode says (DispMode in
-// hat_common.cuh); all f32, contiguous, on the current device. nearest_b != 0
-// samples the second operand nearest. Launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a form that is not instantiated.
+// xa, xb: (B, R, S), each at any float offset; oa, ob: (B, R, OW); coefs:
+// (B, 4) or, per slice, (B, R/H, 4); disp: (B, R, OW), (B, 3, OW) or null as
+// disp_mode says (DispMode in hat_common.cuh); all f32, contiguous, on the
+// current device. nearest_b != 0 samples the second operand nearest.
+// Launches on `stream` without synchronising and returns cudaGetLastError()
+// (0 = launched), or an error without launching: cudaErrorInvalidValue for a
+// form that is not instantiated or an S whose two ring stages do not fit, or
+// the failed attribute, occupancy or tile-counter call.
 extern "C" int fsg_hat_pass_pair_f32(const float* xa, const float* xb, const float* disp,
                                      const float* coefs, float* oa, float* ob, int B, int R,
                                      int H, int S, int OW, int nearest_b, int coef_mode,
                                      int disp_mode, void* stream) {
-  using namespace fsg;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispVolume) {
-    launch<true, kCoefPerSample, kDispVolume>(xa, xb, disp, coefs, oa, ob, B, R, H, S, OW, st);
-  } else if (!nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispLaneAffine) {
-    launch<false, kCoefPerSample, kDispLaneAffine>(xa, xb, disp, coefs, oa, ob, B, R, H, S, OW, st);
-  } else if (nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispNone) {
-    launch<true, kCoefPerSample, kDispNone>(xa, xb, disp, coefs, oa, ob, B, R, H, S, OW, st);
-  } else if (!nearest_b && coef_mode == kCoefPerSlice && disp_mode == kDispNone) {
-    launch<false, kCoefPerSlice, kDispNone>(xa, xb, disp, coefs, oa, ob, B, R, H, S, OW, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  Geometry g;
+  return static_cast<int>(pair_run(xa, xb, disp, coefs, oa, ob, static_cast<long long>(B) * R, R, H, S, OW,
+                                   nearest_b, coef_mode, disp_mode, true, static_cast<cudaStream_t>(stream), &g));
+}
+
+// The launch fsg_hat_pass_pair_f32 makes on the current device for (B, R, S)
+// operands in the form (nearest_b, coef_mode, disp_mode): geometry = {tile
+// rows, ring stages, grid blocks, dynamic shared-memory bytes}. Returns a
+// cudaError code.
+extern "C" int fsg_hat_pair_geometry(int B, int R, int S, int nearest_b, int coef_mode, int disp_mode,
+                                     int* geometry) {
+  Geometry g{};
+  const cudaError_t e = pair_run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, static_cast<long long>(B) * R,
+                                 R, 1, S, S, nearest_b, coef_mode, disp_mode, false, nullptr, &g);
+  write_geometry(g, geometry);
+  return static_cast<int>(e);
 }

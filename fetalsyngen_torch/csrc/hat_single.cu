@@ -27,184 +27,78 @@
 // element; the table of the lane-affine form (3 x 4 bytes a lane) is read
 // once per sample from the caches.
 //
-// Design: the tile ring of ring.cuh, as K4's staged modes have it. A tile is
-// a run of consecutive rows of the flattened (B*R, S) operand, about
-// kHatTileBytes (16 KB), a multiple of 4 / gcd(S, 4) rows so that it starts
-// on 16 bytes; a persistent grid of 512-thread blocks draws tiles from a
-// per-stream counter and stages them through a three-stage ring of TMA bulk
-// copies (two stages where three do not fit, as at S = 6143). Each row of a
-// tile finds its own sample b = n / R, row r = n % R and coefficient row, so
-// a tile may span two samples or two slices. Each thread computes four
-// consecutive lanes of a row: their positions, then their taps read from
-// the staged row in shared memory (one for nearest, two for linear, at
-// data-dependent columns), then one 16-byte streaming store where the four
-// lanes lie on a 16-byte boundary, lane by lane otherwise. The displacement
-// volume is not staged: each thread reads its four values with one 16-byte
-// __ldg where they lie on 16 bytes (else four), for four groups of lanes
-// before it computes any, so sixteen values per thread are in flight. Staged
-// as the ring's second operand it would double a stage, and at S = 6143
-// (4-row tiles of 96 KB) two stages of two operands (393 KB) do not fit the
-// 227 KB a block may have; read once and coalesced, it gains nothing from
-// shared memory. The lane-affine table is read the same way, from the
-// caches (3 S floats a sample, shared by all its rows).
+// Design: the ring kernel of hat_common.cuh (hat_ring_kernel), which K1
+// runs with two operands: a persistent grid of 512-thread blocks draws tiles
+// of consecutive rows, about 16 KB, from a per-stream counter through a
+// three-stage ring of TMA bulk copies; each thread computes four lanes and
+// stores them with one 16-byte streaming store; the displacement volume and
+// the lane-affine table are read with 16-byte __ldg, not staged. K2's tiles
+// are whole 16-byte units (4 / gcd(S, 4) rows, x on 16 bytes: the wrapper
+// copies an x that is not), so at S = 6143 two stages of its 4-row tiles
+// (197 KB) fit where three do not.
 
 // The second kernel, hat_variant_kernel, replaces the TPU cost probe
 // scripts/profile_kernel_variants.py::make_kernel (K7): the hat kernel's
 // windowed form (a block-wide window of staged taps, a weight per tap, a
 // tap-span budget) in five variants, each a template instantiation. Variants
 // 1-4 compute deliberately wrong functions; each is still a well-defined one
-// that hat_variant_ref in fetalsyngen_torch/kernels/probes.py writes out and
-// this kernel matches bit for bit. For a block of kVariantRows rows, with the
-// padded row s[c] = x[r, clamp(c - pad, 0, S - 1)], pad = max(128, S):
+// that hat_variant_ref in fetalsyngen_torch/kernels/probes.py writes out. For
+// a block of kVariantRows rows, with pad = max(128, S):
 //   pos   = ((((ci*row_i + cj*row_j) + ck*l) + bias) + A0[l]*row_i) + A1[l]*row_j) + A2[l]
 //           (the TPU probe's own association order)
 //   rel   = pos - l over the block's valid (unsaturated) elements
 //   n0    = clamp(floor(min rel), -pad, S - 1)   (V0, V1, V3), else -8
 //   span  = floor(max rel) - n0 + 2              (V0, V1, V2), else 8
-//   base  = pad + n0 (V0, V3), its 128-aligned floor (V1), pad - 64 (V2, V4)
+//   win   = n0 (V0, V3), the 128-aligned floor of pad + n0, less pad (V1),
+//           -64 (V2, V4): the window's first column in the row
 //   d0    = clamp(rel - n0, 0, maxspan - 1), maxspan 48 (4 for V4)
-//   out   = sum over taps m < maxspan in chunks of 8 that start below span
-//           of max(0, 1 - |d0 - m|) * s[base + m + l], in tap order;
-//           x[r, 0] where pos <= 0 and x[r, S - 1] where pos >= S - 1.
+//   out   = sum over taps m < maxspan whose chunk of 8 starts below span of
+//           max(0, 1 - |d0 - m|) * x[r, clamp(win + l + m, 0, S - 1)], in
+//           tap order; x[r, 0] where pos <= 0 and x[r, S - 1] where
+//           pos >= S - 1.
+// A weight is nonzero only at m0 = floor(d0) and m0 + 1, so the kernel reads
+// those two taps and sums (0 + p(m0)) + p(m0 + 1), each where it runs. Every
+// other tap of the sum adds w * x = +-0 to a sum that is never -0 (it starts
+// at +0, and +0 + -0 = +0), so on finite rows the two forms agree bit for
+// bit; a non-finite value under a zero-weight tap other than these two
+// makes the full sum NaN and not the two-tap sum. The probe's rows are
+// finite.
 // On the TPU, V0 realigns its window with a seven-step lane-roll ladder and
-// V1 skips it; on Hopper the shift is a plain unaligned shared-memory read,
-// so V1 differs from V0 only in the address. The per-block min and max of
-// rel are block reductions (a pass over the block's positions, warp
-// shuffles, one shared-memory round), kept where the TPU variant has them.
-// Bound: for V0 at its probe shapes, the tap arithmetic (up to 48 taps of 6
-// operations per element) rather than its 8 bytes per element.
+// V1 skips it; on Hopper the shift is a read at a runtime offset, so V1
+// differs from V0 only in the address. The per-block min and max of rel are
+// block reductions (warp shuffles, one shared-memory round), kept where the
+// TPU variant has them.
+// Bound: device memory, 8 bytes per element (one read, one write); two taps
+// of arithmetic after the position.
+// Design: one 512-thread block per 32 rows (the unit of the reduction). At
+// the start thread 0 stages the block's 32 rows (contiguous) with one TMA
+// bulk copy while every thread stages the (3, S) table in shared memory and
+// computes the block's positions once, keeping them in shared memory, and
+// reduces them; the sampling pass then reads each element's position and
+// two taps from shared memory and stores the sample, streaming. Rows and
+// positions of 32 rows fit the 227 KB a block may have up to S = 864 (at
+// S = 384, 104 KB: two blocks per SM); above that (the wrapper takes S up
+// to 19,306) the block stages only the table, reads its taps from device
+// memory and computes each position again in the sampling pass.
 
 #include "hat_common.cuh"
-#include "ring.cuh"
 
 namespace {
 
-using namespace fsg;
-
-// K2's tile, chosen by measurement at B=1 256^3 (8 to 32 KB): the fastest
-// size there; 8 KB tiles balance the blocks better but lose more to the
-// per-tile work than they gain
-constexpr int kHatTileBytes = 16 * 1024;
-
-// v[k] = p[l + k] for the lanes l + k < S (0 past the row): one 16-byte read
-// through the read-only cache where all four lie on a 16-byte boundary,
-// else lane by lane
-__device__ __forceinline__ void load_lanes(const float* __restrict__ p, int l, int S, float* v) {
-  if (l + 3 < S && (reinterpret_cast<uintptr_t>(p + l) & 15) == 0) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p + l));
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  } else {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = l + k < S ? __ldg(p + l + k) : 0.0f;
-  }
-}
-
+// K2's form (kNearest, kCoef, kDisp), planned into g and launched if
+// `launch`: the ring kernel with one operand, OW = S, tiles in whole
+// 16-byte units
 template <bool kNearest, int kCoef, int kDisp>
-__global__ void __launch_bounds__(kRingThreads, 2) hat_single_kernel(
-    const float* __restrict__ x, const float* __restrict__ disp, const float* __restrict__ coefs,
-    float* __restrict__ out, long long nrows, int R, int H, int S, int tile_rows, int stages,
-    TileCounter* counter) {
-  // groups of four lanes a thread takes at once: the displacement volume's
-  // loads of all of them go out before the first group is computed
-  constexpr int kGroups = kDisp == kDispVolume ? 4 : 1;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Ring<1> ring;
-  ring.smem = smem;
-  ring.x[0] = x;
-  ring.elems = nrows * S;
-  ring.ntiles = (nrows + tile_rows - 1) / tile_rows;
-  ring.tile_elems = tile_rows * S;
-  ring.stages = stages;
-  const int G = (S + 3) / 4;  // groups of four lanes per row
-  ring_walk(ring, counter, [&](long long t, int s) {
-    const long long n0 = t * tile_rows;
-    const int rows = static_cast<int>(min(static_cast<long long>(tile_rows), nrows - n0));
-    const int b0 = static_cast<int>(n0 / R);
-    const int r0 = static_cast<int>(n0 - static_cast<long long>(b0) * R);
-    const int groups = rows * G;
-    for (int i0 = threadIdx.x; i0 < groups; i0 += kGroups * kRingThreads) {
-      float d[kGroups][4];
-      if constexpr (kDisp == kDispVolume) {
-#pragma unroll
-        for (int u = 0; u < kGroups; ++u) {
-          const int i = i0 + u * kRingThreads;
-          if (i < groups) {
-            const int row = i / G;
-            load_lanes(disp + static_cast<size_t>(n0 + row) * S, 4 * (i - row * G), S, d[u]);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kGroups; ++u) {
-        const int i = i0 + u * kRingThreads;
-        if (i >= groups) break;
-        const int row = i / G;
-        const int l = 4 * (i - row * G);
-        int b = b0, r = r0 + row;  // the row's sample and row; a division only where the tile wraps
-        if (r >= R) {
-          b += r / R;
-          r %= R;
-        }
-        const int ri = r / H;
-        const float row_i = static_cast<float>(ri);
-        const float row_j = static_cast<float>(r - ri * H);
-        const float* c = hat_coefs<kCoef>(coefs, b, r, R, H);
-        const float ck = __ldg(c + 2);
-        const float bias = __ldg(c + 3);
-        const float base = hat_row_base(__ldg(c), __ldg(c + 1), row_i, row_j);
-        float pos[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) pos[k] = hat_position(base, ck, bias, l + k);
-        if constexpr (kDisp == kDispVolume) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) pos[k] = hat_displace<kDisp>(pos[k], &d[u][k], row_i, row_j);
-        } else if constexpr (kDisp == kDispLaneAffine) {
-          const float* tab = hat_disp_row<kDisp>(disp, b, r, R, S);
-          float a0[4], a1[4], a2[4];
-          load_lanes(tab, l, S, a0);
-          load_lanes(tab + S, l, S, a1);
-          load_lanes(tab + 2 * S, l, S, a2);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float a[3] = {a0[k], a1[k], a2[k]};
-            pos[k] = hat_displace<kDisp>(pos[k], a, row_i, row_j);
-          }
-        }
-        const float* src = ring.buf(s, 0) + row * S;
-        float v[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) v[k] = hat_sample<kNearest>(src, pos[k], S);
-        store4(out + static_cast<size_t>(n0 + row) * S, l, S, v);
-      }
-    }
-  });
-}
-
-// Plans the launch of K2's form into g, and launches it if `launch`.
-template <bool kNearest, int kCoef, int kDisp>
-cudaError_t run(const float* x, const float* disp, const float* coefs, float* out, long long nrows, int R,
-                int H, int S, bool launch, cudaStream_t st, Geometry* g) {
-  const void* fn = reinterpret_cast<const void*>(&hat_single_kernel<kNearest, kCoef, kDisp>);
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = plan(fn, dev, 1, nrows, S, kHatTileBytes, g);
-  if (e != cudaSuccess || !launch) return e;
-  if (!aligned16(x)) return cudaErrorMisalignedAddress;
-  TileCounter* counter = nullptr;
-  e = tile_counter(dev, st, &counter);
-  if (e != cudaSuccess) return e;
-  hat_single_kernel<kNearest, kCoef, kDisp><<<g->grid, kRingThreads, g->smem, st>>>(
-      x, disp, coefs, out, nrows, R, H, S, g->tile_rows, g->stages, counter);
-  return cudaGetLastError();
+cudaError_t run(const float* x, const float* disp, const float* coefs, float* out, long long nrows, int R, int H,
+                int S, bool launch, cudaStream_t st, Geometry* g) {
+  return hat_ring_run<1, kNearest, kCoef, kDisp>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S, S, launch,
+                                                 st, g);
 }
 
 // K2's instantiated forms: cudaErrorInvalidValue for another one.
-cudaError_t hat_run(const float* x, const float* disp, const float* coefs, float* out, long long nrows,
-                    int R, int H, int S, int nearest, int coef_mode, int disp_mode, bool launch,
-                    cudaStream_t st, Geometry* g) {
+cudaError_t hat_run(const float* x, const float* disp, const float* coefs, float* out, long long nrows, int R,
+                    int H, int S, int nearest, int coef_mode, int disp_mode, bool launch, cudaStream_t st,
+                    Geometry* g) {
   if (coef_mode == kCoefPerSlice) {
     if (nearest || disp_mode != kDispNone) return cudaErrorInvalidValue;
     return run<false, kCoefPerSlice, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
@@ -226,8 +120,18 @@ cudaError_t hat_run(const float* x, const float* disp, const float* coefs, float
 }
 
 constexpr int kVariantRows = 32;   // rows per block, the TPU variants' block
-constexpr int kVariantChunk = 8;   // taps per predicated chunk (TAP_CHUNK)
+constexpr int kVariantChunk = 8;   // taps per chunk (TAP_CHUNK): a tap runs where its chunk starts below span
 constexpr float kVariantBig = 1e9f;
+
+// K7's block-wide values, at the head of its dynamic shared memory (a kernel
+// with static shared memory could not opt into all of kSmemMax)
+struct VariantHead {
+  uint64_t bar;                    // completes on the rows' bulk copy
+  int geo[2];                      // n0, span
+  float red_min[32], red_max[32];  // the warps' partial reductions
+  float row_base[kVariantRows], row_fi[kVariantRows], row_fj[kVariantRows];
+};
+constexpr int kVariantHeader = (sizeof(VariantHead) + 127) / 128 * 128;
 
 __device__ __forceinline__ float warp_min(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -241,47 +145,94 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // The probe's position: K2's polynomial, then the (3, S) table added term by
 // term, ((pos + A0*row_i) + A1*row_j) + A2.
-__device__ __forceinline__ float variant_position(float base, float ck, float bias,
-                                                  const float* tab, int S, int l, float row_i,
-                                                  float row_j) {
-  const float pos = fsg::hat_position(base, ck, bias, l);
+__device__ __forceinline__ float variant_position(float base, float ck, float bias, const float* tab, int S,
+                                                  int l, float row_i, float row_j) {
+  const float pos = hat_position(base, ck, bias, l);
   return __fadd_rn(__fadd_rn(__fadd_rn(pos, __fmul_rn(tab[l], row_i)), __fmul_rn(tab[S + l], row_j)),
                    tab[2 * S + l]);
 }
 
-template <int kVariant>
-__global__ void hat_variant_kernel(const float* __restrict__ x, const float* __restrict__ tab,
-                                   const float* __restrict__ coefs, float* __restrict__ out, int H,
-                                   int S, int pad, int width) {
+// f(i, rr, l) for the elements i = rr*S + l of the block's 32 rows that
+// this thread takes, i a multiple of kRingThreads apart
+template <typename F>
+__device__ __forceinline__ void block_elements(int S, F&& f) {
+  int rr = static_cast<int>(threadIdx.x) / S;
+  int l = static_cast<int>(threadIdx.x) - rr * S;
+  for (int i = threadIdx.x; i < kVariantRows * S; i += kRingThreads) {
+    f(i, rr, l);
+    for (l += kRingThreads; l >= S; l -= S) ++rr;
+  }
+}
+
+// kKept: the block's rows and positions in shared memory (see the header)
+template <int kVariant, bool kKept>
+__global__ void __launch_bounds__(kRingThreads, 2) hat_variant_kernel(
+    const float* __restrict__ x, const float* __restrict__ tab, const float* __restrict__ coefs,
+    float* __restrict__ out, int H, int S) {
   constexpr bool kMin = kVariant == 0 || kVariant == 1 || kVariant == 3;
   constexpr bool kMax = kVariant <= 2;
+  constexpr bool kPre = kMin || kMax;  // a pass over the positions before the samples
   constexpr int kMaxspan = kVariant == 4 ? 4 : 48;
-  extern __shared__ float srow[];  // one edge-padded row, width floats
-  __shared__ float red_min[32], red_max[32];
-  __shared__ int geo[2];
+  // the dynamic shared memory: the block's values in a kVariantHeader-byte
+  // head, then (kKept) the block's rows and, with a pre-pass, their
+  // positions, then the (3, S) table
+  extern __shared__ __align__(128) unsigned char smem[];
+  VariantHead& head = *reinterpret_cast<VariantHead*>(smem);
+  uint64_t* bar = &head.bar;
+  float* red_min = head.red_min;
+  float* red_max = head.red_max;
+  float* row_base = head.row_base;
+  float* row_fi = head.row_fi;
+  float* row_fj = head.row_fj;
+  int* geo = head.geo;
+  float* srows = reinterpret_cast<float*>(smem + kVariantHeader);
+  float* spos = srows + kVariantRows * S;
+  float* stab = srows + (kKept ? (kPre ? 2 : 1) * kVariantRows * S : 0);
 
   const int r0 = blockIdx.x * kVariantRows;
-  const float ci = coefs[0], cj = coefs[1], ck = coefs[2], bias = coefs[3];
+  const float* xr = x + static_cast<size_t>(r0) * S;  // the block's rows
+  if constexpr (kKept) {
+    if (threadIdx.x == 0) {
+      mbar_init(bar);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const uint32_t bytes = static_cast<uint32_t>(kVariantRows * S * sizeof(float));
+      mbar_arrive_expect(bar, bytes);
+      bulk_load(srows, xr, bytes, bar);
+    }
+  }
+  for (int c = threadIdx.x; c < 3 * S; c += kRingThreads) stab[c] = __ldg(tab + c);
+  const float ci = __ldg(coefs), cj = __ldg(coefs + 1), ck = __ldg(coefs + 2), bias = __ldg(coefs + 3);
+  if (threadIdx.x < kVariantRows) {
+    const int r = r0 + threadIdx.x;
+    const int ri = r / H;
+    row_fi[threadIdx.x] = static_cast<float>(ri);
+    row_fj[threadIdx.x] = static_cast<float>(r - ri * H);
+    row_base[threadIdx.x] = hat_row_base(ci, cj, row_fi[threadIdx.x], row_fj[threadIdx.x]);
+  }
+  __syncthreads();
   const float last = static_cast<float>(S - 1);
+  const int pad = S > 128 ? S : 128;
+  const auto position = [&](int rr, int l) {
+    return variant_position(row_base[rr], ck, bias, stab, S, l, row_fi[rr], row_fj[rr]);
+  };
 
   int n0 = -8, span = 8;
-  if (kMin || kMax) {
+  if constexpr (kPre) {
     float mn = kVariantBig, mx = -kVariantBig;
-    for (int rr = 0; rr < kVariantRows; ++rr) {
-      const int r = r0 + rr;
-      const float row_i = static_cast<float>(r / H);
-      const float row_j = static_cast<float>(r % H);
-      const float base = fsg::hat_row_base(ci, cj, row_i, row_j);
-      for (int l = threadIdx.x; l < S; l += blockDim.x) {
-        const float pos = variant_position(base, ck, bias, tab, S, l, row_i, row_j);
-        if (!(pos <= 0.0f) && !(pos >= last)) {
-          const float rel = __fsub_rn(pos, static_cast<float>(l));
-          if (kMin) mn = fminf(mn, rel);
-          if (kMax) mx = fmaxf(mx, rel);
-        }
+    block_elements(S, [&](int i, int rr, int l) {
+      const float pos = position(rr, l);
+      if constexpr (kKept) spos[i] = pos;
+      if (!(pos <= 0.0f) && !(pos >= last)) {
+        const float rel = __fsub_rn(pos, static_cast<float>(l));
+        if (kMin) mn = fminf(mn, rel);
+        if (kMax) mx = fmaxf(mx, rel);
       }
-    }
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+    });
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    constexpr int kWarps = kRingThreads / 32;
     if (kMin) mn = warp_min(mn);
     if (kMax) mx = warp_max(mx);
     if (lane == 0) {
@@ -290,8 +241,8 @@ __global__ void hat_variant_kernel(const float* __restrict__ x, const float* __r
     }
     __syncthreads();
     if (warp == 0) {
-      mn = lane < nwarps ? red_min[lane] : kVariantBig;
-      mx = lane < nwarps ? red_max[lane] : -kVariantBig;
+      mn = lane < kWarps ? red_min[lane] : kVariantBig;
+      mx = lane < kWarps ? red_max[lane] : -kVariantBig;
       if (kMin) mn = warp_min(mn);
       if (kMax) mx = warp_max(mx);
       if (lane == 0) {
@@ -304,47 +255,62 @@ __global__ void hat_variant_kernel(const float* __restrict__ x, const float* __r
     n0 = geo[0];
     span = geo[1];
   }
-  const int win = (kVariant == 0 || kVariant == 3) ? pad + n0
-                  : kVariant == 1                 ? ((pad + n0) / 128) * 128
-                                                  : pad - 64;
+  const int win = (kVariant == 0 || kVariant == 3) ? n0 : kVariant == 1 ? ((pad + n0) / 128) * 128 - pad : -64;
 
-  for (int rr = 0; rr < kVariantRows; ++rr) {
-    const int r = r0 + rr;
-    const float* xr = x + static_cast<size_t>(r) * S;
-    __syncthreads();  // the previous row's taps are read
-    for (int c = threadIdx.x; c < width; c += blockDim.x) srow[c] = xr[min(max(c - pad, 0), S - 1)];
-    __syncthreads();
-    const float row_i = static_cast<float>(r / H);
-    const float row_j = static_cast<float>(r % H);
-    const float base = fsg::hat_row_base(ci, cj, row_i, row_j);
-    for (int l = threadIdx.x; l < S; l += blockDim.x) {
-      const float pos = variant_position(base, ck, bias, tab, S, l, row_i, row_j);
-      float v;
-      if (pos <= 0.0f) {
-        v = srow[pad];
-      } else if (pos >= last) {
-        v = srow[pad + S - 1];
-      } else {
-        const float rel = __fsub_rn(pos, static_cast<float>(l));
-        const float d0 =
-            fminf(fmaxf(__fsub_rn(rel, static_cast<float>(n0)), 0.0f), static_cast<float>(kMaxspan - 1));
-        const float* w = srow + win + l;
-        float acc = 0.0f;
+  if constexpr (kKept) mbar_wait(bar, 0);
+  float* o = out + static_cast<size_t>(r0) * S;
+  block_elements(S, [&](int i, int rr, int l) {
+    const float pos = kKept && kPre ? spos[i] : position(rr, l);
+    const float* row = (kKept ? srows : xr) + rr * S;
+    float v;
+    if (pos <= 0.0f) {
+      v = row[0];
+    } else if (pos >= last) {
+      v = row[S - 1];
+    } else {
+      const float rel = __fsub_rn(pos, static_cast<float>(l));
+      const float d0 =
+          fminf(fmaxf(__fsub_rn(rel, static_cast<float>(n0)), 0.0f), static_cast<float>(kMaxspan - 1));
+      const int m0 = static_cast<int>(d0);  // floor: d0 >= 0
+      float acc = 0.0f;
 #pragma unroll
-        for (int c0 = 0; c0 < kMaxspan; c0 += kVariantChunk) {
-          if (c0 < span) {
-#pragma unroll
-            for (int m = c0; m < (c0 + kVariantChunk < kMaxspan ? c0 + kVariantChunk : kMaxspan); ++m) {
-              const float wgt = fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(d0, static_cast<float>(m)))));
-              acc = __fadd_rn(acc, __fmul_rn(wgt, w[m]));
-            }
-          }
+      for (int k = 0; k < 2; ++k) {  // the two taps whose weights may be nonzero
+        const int m = m0 + k;
+        if (m < kMaxspan && m / kVariantChunk * kVariantChunk < span) {
+          const float wgt = fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(d0, static_cast<float>(m)))));
+          acc = __fadd_rn(acc, __fmul_rn(wgt, row[min(max(win + l + m, 0), S - 1)]));
         }
-        v = acc;
       }
-      out[static_cast<size_t>(r) * S + l] = v;
+      v = acc;
     }
+    __stcs(o + i, v);
+  });
+}
+
+// Bytes of shared memory in which a block keeps its 32 rows and positions
+constexpr int variant_kept_bytes(int S) { return kVariantHeader + 4 * (2 * kVariantRows + 3) * S; }
+
+template <int kVariant>
+cudaError_t variant_run(const float* x, const float* tab, const float* coefs, float* out, int R, int H, int S,
+                        cudaStream_t st) {
+  const bool kept = variant_kept_bytes(S) <= kSmemMax;
+  const int floats = (kept ? (kVariant == 4 ? 1 : 2) * kVariantRows : 0) * S + 3 * S;
+  const int smem = kVariantHeader + 4 * floats;
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  if (kept && !aligned16(x)) return cudaErrorMisalignedAddress;
+  const void* fn = kept ? reinterpret_cast<const void*>(&hat_variant_kernel<kVariant, true>)
+                        : reinterpret_cast<const void*>(&hat_variant_kernel<kVariant, false>);
+  int dev = 0, blocks = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = card_blocks(fn, dev, smem, &blocks);  // lets the kernel opt into smem
+  if (e != cudaSuccess) return e;
+  const dim3 grid(R / kVariantRows);
+  if (kept) {
+    hat_variant_kernel<kVariant, true><<<grid, kRingThreads, smem, st>>>(x, tab, coefs, out, H, S);
+  } else {
+    hat_variant_kernel<kVariant, false><<<grid, kRingThreads, smem, st>>>(x, tab, coefs, out, H, S);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -373,34 +339,30 @@ extern "C" int fsg_hat_geometry(int B, int R, int S, int nearest, int coef_mode,
   Geometry g{};
   const cudaError_t e = hat_run(nullptr, nullptr, nullptr, nullptr, static_cast<long long>(B) * R, R, 1, S,
                                 nearest, coef_mode, disp_mode, false, nullptr, &g);
-  geometry[0] = g.tile_rows;
-  geometry[1] = g.stages;
-  geometry[2] = g.grid;
-  geometry[3] = g.smem;
+  write_geometry(g, geometry);
   return static_cast<int>(e);
 }
 
+// The longest row fsg_hat_variant_f32 takes: K7's block values and (3, S)
+// table must fit the shared memory a block may opt into.
+extern "C" int fsg_hat_variant_max_s() { return (kSmemMax - kVariantHeader) / static_cast<int>(3 * sizeof(float)); }
+
 // K7: x, out: (R, S) rows of a (R / H, H, S) volume, R a multiple of 32;
-// tab: (3, S); coefs: (4,); all f32, contiguous, on the current device.
-// variant in 0..4. One block of `threads` (a multiple of 32, at most 1024)
-// per 32 rows, with (3*S + 128) (S >= 128) or (2*S + 256) floats of shared
-// memory. Launches on `stream` and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for another variant.
-extern "C" int fsg_hat_variant_f32(const float* x, const float* tab, const float* coefs,
-                                   float* out, int R, int H, int S, int variant, int threads,
-                                   void* stream) {
+// tab: (3, S); coefs: (4,); all f32, contiguous, on the current device, x on
+// 16 bytes where S <= 864. variant in 0..4. One 512-thread block per 32
+// rows. Launches on `stream` and returns cudaGetLastError(), or an error
+// without launching: cudaErrorInvalidValue for another variant or an S
+// over fsg_hat_variant_max_s(), cudaErrorMisalignedAddress for
+// x off 16 bytes, or the failed attribute or occupancy call.
+extern "C" int fsg_hat_variant_f32(const float* x, const float* tab, const float* coefs, float* out, int R, int H,
+                                   int S, int variant, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int pad = S > 128 ? S : 128;
-  const int width = S + pad + S + 128;
-  const size_t smem = static_cast<size_t>(width) * sizeof(float);
-  const dim3 grid(R / kVariantRows);
   switch (variant) {
-    case 0: hat_variant_kernel<0><<<grid, threads, smem, st>>>(x, tab, coefs, out, H, S, pad, width); break;
-    case 1: hat_variant_kernel<1><<<grid, threads, smem, st>>>(x, tab, coefs, out, H, S, pad, width); break;
-    case 2: hat_variant_kernel<2><<<grid, threads, smem, st>>>(x, tab, coefs, out, H, S, pad, width); break;
-    case 3: hat_variant_kernel<3><<<grid, threads, smem, st>>>(x, tab, coefs, out, H, S, pad, width); break;
-    case 4: hat_variant_kernel<4><<<grid, threads, smem, st>>>(x, tab, coefs, out, H, S, pad, width); break;
+    case 0: return static_cast<int>(variant_run<0>(x, tab, coefs, out, R, H, S, st));
+    case 1: return static_cast<int>(variant_run<1>(x, tab, coefs, out, R, H, S, st));
+    case 2: return static_cast<int>(variant_run<2>(x, tab, coefs, out, R, H, S, st));
+    case 3: return static_cast<int>(variant_run<3>(x, tab, coefs, out, R, H, S, st));
+    case 4: return static_cast<int>(variant_run<4>(x, tab, coefs, out, R, H, S, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -249,6 +249,7 @@ __global__ void __launch_bounds__(kRingThreads) probe_ring_kernel(
   ring.elems = nrows * S;
   ring.ntiles = (nrows + tile_rows - 1) / tile_rows;
   ring.tile_elems = tile_rows * S;
+  ring.pitch = ring.tile_elems;
   ring.stages = stages;
   const int G = (S + 3) / 4;  // groups of four lanes per row
   ring_walk(ring, counter, [&](long long t, int s) {

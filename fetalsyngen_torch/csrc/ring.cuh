@@ -1,21 +1,27 @@
 // The ring of tiles shared by the staged kernels of probes.cu (K3, K4) and
-// hat_single.cu (K2): device code that walks a persistent block over tiles of
-// consecutive rows, and the host code that plans and launches such a walk.
+// the hat ring kernel of hat_common.cuh (K1, K2): device code that walks a
+// persistent block over tiles of consecutive rows, and the host code that
+// plans and launches such a walk.
 //
 // A tile is a run of consecutive rows of a flattened (rows, S) operand, a
-// multiple of 4 / gcd(S, 4) rows so that every tile starts on 16 bytes; the
-// operand's last tile may be partial. A persistent grid (as many blocks as
-// fit the card, at most one per tile) draws tiles from a counter in device
-// memory: thread 0 fills a ring of three tile buffers (two where three do not
-// fit) in shared memory with TMA bulk copies (cp.async.bulk, one mbarrier
-// per buffer counts the bytes in) while every thread computes on the current
-// buffer; the __syncthreads() that ends a tile frees its buffer for the next
-// draw.
+// multiple of 4 / gcd(S, 4) rows so that every tile starts on 16 bytes, or,
+// for a "loose" ring (K1), any number of rows of an operand at any float
+// offset; the operand's last tile may be partial. A persistent grid (as
+// many blocks as fit the card, at most one per tile) draws tiles from a
+// counter in device memory: thread 0 fills a ring of three tile buffers (two
+// where three do not fit) in shared memory with TMA bulk copies
+// (cp.async.bulk, one mbarrier per buffer counts the bytes in) while every
+// thread computes on the current buffer; the __syncthreads() that ends a
+// tile frees its buffer for the next draw.
 // Drawing balances the blocks: with a fixed grid-stride share each, the
 // card's slowest blocks ran on alone at the end of a launch. A bulk copy
-// moves whole 16-byte units, so thread 0 reads the last len % 4 floats of
-// the operand's last tile itself, before it arrives on the buffer's
-// mbarrier, whose release orders them before the other threads' wait.
+// moves whole 16-byte units between 16-byte boundaries, so a tile lies in
+// its buffer at the float whose address agrees with the tile's first float
+// modulo 16 bytes (Ring::lead, 0 where tiles start on 16 bytes), the copy
+// takes the tile's whole 16-byte units, and thread 0 reads the 0-3 floats
+// before the first unit and after the last itself, before it arrives on the
+// buffer's mbarrier, whose release orders them before the other threads'
+// wait. A loose ring's buffers have room for the 3 floats of lead.
 //
 // Everything here is in the anonymous namespace (a nested one trips nvcc's
 // registration stubs): each library that includes the header keeps its own
@@ -85,35 +91,56 @@ struct TileCounter {
   unsigned int done;
 };
 
+// Floats of one operand's tile buffer for tiles of tile_elems floats: as
+// many, or for a loose ring a whole number of 16-byte units with room for
+// the up to 3 floats of lead ahead of the tile.
+__host__ __device__ constexpr int ring_pitch(int tile_elems, bool loose) {
+  return loose ? (tile_elems + 6) & ~3 : tile_elems;
+}
+
 template <int kOps>
 struct Ring {
   unsigned char* smem;  // the block's dynamic shared memory
   const float* x[kOps];
   long long elems;   // floats per operand
   long long ntiles;  // tiles per operand
-  int tile_elems;    // floats per operand and tile, a multiple of 4
+  int tile_elems;    // floats per operand and tile
+  int pitch;         // floats per operand buffer, ring_pitch(tile_elems, loose)
   int stages;
 
   __device__ uint64_t* bar(int s) const { return reinterpret_cast<uint64_t*>(smem) + s; }
   // the tile in buffer s, ntiles or more once the counter has run out
   __device__ long long* tile(int s) const { return reinterpret_cast<long long*>(smem + kRingHeader / 2) + s; }
   __device__ float* buf(int s, int op) const {
-    return reinterpret_cast<float*>(smem + kRingHeader) +
-           (static_cast<size_t>(s) * kOps + op) * tile_elems;
+    return reinterpret_cast<float*>(smem + kRingHeader) + (static_cast<size_t>(s) * kOps + op) * pitch;
   }
+  // floats of tile t of operand op ahead of its first 16-byte boundary, mod 4
+  __device__ int lead(int op, long long t) const {
+    return static_cast<int>((reinterpret_cast<uintptr_t>(x[op] + t * tile_elems) >> 2) & 3);
+  }
+  // where tile t of operand op lies in buffer s
+  __device__ const float* data(int s, int op, long long t) const { return buf(s, op) + lead(op, t); }
   // thread 0: tile t of every operand into buffer s (none past the last tile)
   __device__ void fill(long long t, int s) const {
     *tile(s) = t;
     const long long e0 = t * tile_elems;
     const int len = t < ntiles ? static_cast<int>(min(static_cast<long long>(tile_elems), elems - e0)) : 0;
-    const int bulk = len & ~3;
+    int head[kOps], bulk[kOps];
+    uint32_t bytes = 0;
     for (int op = 0; op < kOps; ++op) {
-      for (int i = bulk; i < len; ++i) buf(s, op)[i] = x[op][e0 + i];
+      const float* src = x[op] + e0;
+      float* dst = buf(s, op) + lead(op, t);
+      head[op] = min(len, (4 - lead(op, t)) & 3);
+      bulk[op] = (len - head[op]) & ~3;
+      for (int i = 0; i < head[op]; ++i) dst[i] = src[i];
+      for (int i = head[op] + bulk[op]; i < len; ++i) dst[i] = src[i];
+      bytes += static_cast<uint32_t>(bulk[op] * sizeof(float));
     }
-    mbar_arrive_expect(bar(s), static_cast<uint32_t>(kOps * bulk * sizeof(float)));
-    if (bulk > 0) {
-      for (int op = 0; op < kOps; ++op) {
-        bulk_load(buf(s, op), x[op] + e0, static_cast<uint32_t>(bulk * sizeof(float)), bar(s));
+    mbar_arrive_expect(bar(s), bytes);
+    for (int op = 0; op < kOps; ++op) {
+      if (bulk[op] > 0) {
+        bulk_load(buf(s, op) + lead(op, t) + head[op], x[op] + e0 + head[op],
+                  static_cast<uint32_t>(bulk[op] * sizeof(float)), bar(s));
       }
     }
   }
@@ -295,13 +322,14 @@ cudaError_t tile_counter(int dev, cudaStream_t st, TileCounter** counter) {
 
 // The launch of a kernel on nrows rows of S lanes of `ops` operands: tiles of
 // as many rows as fit `target` bytes per operand, in units of 4 / gcd(S, 4)
-// rows (whole 16-byte units). No ring (`fn` null): one tile per block, placed
-// by the card's block scheduler. The ring kernel `fn`: three stages, two
-// where three do not fit kSmemMax, and as many blocks as fit the card (at
-// most one per tile).
-cudaError_t plan(const void* fn, int dev, int ops, long long nrows, int S, int target, Geometry* g) {
+// rows (whole 16-byte units), or of one row for a `loose` ring. No ring
+// (`fn` null): one tile per block, placed by the card's block scheduler.
+// The ring kernel `fn`: three stages, two where three do not fit kSmemMax,
+// and as many blocks as fit the card (at most one per tile).
+cudaError_t plan(const void* fn, int dev, int ops, long long nrows, int S, int target, Geometry* g,
+                 bool loose = false) {
   if (nrows < 1 || S < 1) return cudaErrorInvalidValue;
-  const int unit = S % 4 == 0 ? 1 : (S % 2 == 0 ? 2 : 4);
+  const int unit = loose || S % 4 == 0 ? 1 : (S % 2 == 0 ? 2 : 4);
   g->tile_rows = target / (4 * S) / unit * unit;
   if (g->tile_rows < unit) g->tile_rows = unit;
   const long long ntiles = (nrows + g->tile_rows - 1) / g->tile_rows;
@@ -312,7 +340,7 @@ cudaError_t plan(const void* fn, int dev, int ops, long long nrows, int S, int t
     g->grid = static_cast<int>(ntiles);
     return cudaSuccess;
   }
-  const long long stage = static_cast<long long>(ops) * g->tile_rows * S * sizeof(float);
+  const long long stage = static_cast<long long>(ops) * ring_pitch(g->tile_rows * S, loose) * sizeof(float);
   g->stages = kRingHeader + 3 * stage <= kSmemMax ? 3 : 2;
   if (kRingHeader + g->stages * stage > kSmemMax) return cudaErrorInvalidValue;
   g->smem = static_cast<int>(kRingHeader + g->stages * stage);

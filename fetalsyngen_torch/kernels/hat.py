@@ -48,7 +48,12 @@ LAUNCHES = {
     "hat_pass_pair_nodisp": 0, "hat_pass": 0, "hat_pass_lane": 0, "hat_pass_slice": 0,
 }
 
-_MAX_S = 6144  # two staged f32 rows must fit the 48 KB default shared memory
+# The longest row the wrappers take. On the card, the ring's plan()
+# (csrc/ring.cuh) refuses a launch whose two stages of its fewest rows (K2:
+# 4 for odd S; K1: one row of each operand) do not fit a block's shared
+# memory; both kernels plan S = 6143 (test_hat_geometry,
+# test_hat_pair_geometry).
+_MAX_S = 6144
 
 # csrc/hat_common.cuh's CoefMode and DispMode
 _COEF_PER_SAMPLE, _COEF_PER_SLICE = 0, 1
@@ -228,7 +233,8 @@ def hat_pass_pair(va, vb, coefs, disp, nearest_b=True):
     CPU tensors take :func:`hat_pass_pair_ref`. CUDA tensors must be f32 and
     contiguous and form one of the instantiated combinations; the kernel
     launches once for the whole batch on the current stream, without
-    synchronising.
+    synchronising. ``va`` and ``vb`` may each start at any float (views into
+    larger tensors): the kernel stages them from there.
     """
     if va.device.type == "cpu":
         return hat_pass_pair_ref(va, vb, coefs, disp, nearest_b)
@@ -238,8 +244,6 @@ def hat_pass_pair(va, vb, coefs, disp, nearest_b=True):
     form = _form(nearest_b, coefs, disp, _PAIR_FORMS, "hat_pass_pair")
     _, coef_mode, disp_mode = form
     B, D, H, S = va.shape
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the grid's 65535 samples")
     OW = S if disp is None else disp.shape[-1]
     oa = torch.empty((B, D, H, OW), dtype=torch.float32, device=va.device)
     ob = torch.empty_like(oa)
@@ -285,19 +289,30 @@ def hat_pass(x, coefs, disp=None, nearest=False):
     return out
 
 
-def hat_geometry(shape, nearest=False, coefs_per_slice=False, disp="none"):
-    """The launch :func:`hat_pass` makes on the current CUDA device for a
-    (B, D, H, S) ``x`` in the form (``nearest``, ``coefs_per_slice``,
-    ``disp`` "none", "volume" or "lane"): a dict of tile rows, ring stages,
-    grid blocks and dynamic shared-memory bytes."""
+def _geometry(stem, symbol, shape, nearest, coefs_per_slice, disp):
     from .build import load_library
 
-    fn = load_library("hat_single").fsg_hat_geometry
+    fn = getattr(load_library(stem), symbol)
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     B, D, H, S = shape
     mode = {"none": _DISP_NONE, "volume": _DISP_VOLUME, "lane": _DISP_LANE_AFFINE}[disp]
     out = (ctypes.c_int * 4)()
     rc = fn(B, D * H, S, int(nearest), int(coefs_per_slice), mode, out)
     if rc != 0:
-        raise RuntimeError(f"hat_geometry: {tuple(shape)} {disp}: cudaError {rc}")
+        raise RuntimeError(f"{symbol}: {tuple(shape)} {disp}: cudaError {rc}")
     return dict(zip(("tile_rows", "stages", "grid", "smem_bytes"), out))
+
+
+def hat_geometry(shape, nearest=False, coefs_per_slice=False, disp="none"):
+    """The launch :func:`hat_pass` makes on the current CUDA device for a
+    (B, D, H, S) ``x`` in the form (``nearest``, ``coefs_per_slice``,
+    ``disp`` "none", "volume" or "lane"): a dict of tile rows, ring stages,
+    grid blocks and dynamic shared-memory bytes."""
+    return _geometry("hat_single", "fsg_hat_geometry", shape, nearest, coefs_per_slice, disp)
+
+
+def hat_pair_geometry(shape, nearest_b=True, coefs_per_slice=False, disp="volume"):
+    """The launch :func:`hat_pass_pair` makes on the current CUDA device for
+    (B, D, H, S) operands in the form (``nearest_b``, ``coefs_per_slice``,
+    ``disp`` "none", "volume" or "lane"), as :func:`hat_geometry` gives it."""
+    return _geometry("hat_pass", "fsg_hat_pair_geometry", shape, nearest_b, coefs_per_slice, disp)

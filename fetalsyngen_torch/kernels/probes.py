@@ -31,6 +31,7 @@ a CUDA tensor they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -48,7 +49,6 @@ LAUNCHES = {
     **{f"hat_variant_v{v}": 0 for v in VARIANTS},
 }
 
-_SMEM = 48 * 1024  # the default dynamic shared memory of a block
 _SMEM_MAX = 232448  # the dynamic shared memory a block may opt into on sm_90
 _RING_HEADER = 128  # the ring's barriers, ahead of its tiles
 SINGLE_PAD = 128  # K4's edge pad
@@ -371,10 +371,25 @@ def hat_variant_ref(x, coefs, table, variant):
     return out.reshape(D, H, S)
 
 
+@functools.cache
+def variant_max_s() -> int:
+    """The longest row :func:`hat_variant` takes on the card, as the kernel
+    library reports it (``fsg_hat_variant_max_s``: its block values and
+    (3, S) table must fit a block's shared memory)."""
+    from .build import load_library
+
+    fn = load_library("hat_single").fsg_hat_variant_max_s
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()
+
+
 def hat_variant(x, coefs, table, variant):
     """K7 variant ``variant`` (0-4) of the hat kernel on ``x`` (D, H, S),
     D*H a multiple of 32, with ``coefs`` (4,) and a lane-affine ``table``
-    (3, S), all f32; one launch."""
+    (3, S), all f32; one launch. The kernel stages ``x``'s rows with bulk
+    copies from 16-byte boundaries, so an ``x`` off 16 bytes is first copied
+    on the card."""
     if _device("hat_variant", x) == "cpu":
         return hat_variant_ref(x, coefs, table, variant)
     _check("hat_variant", [x, coefs, table], same_shape=False)
@@ -384,12 +399,13 @@ def hat_variant(x, coefs, table, variant):
     if tuple(coefs.shape) != (4,) or tuple(table.shape) != (3, S):
         raise ValueError(f"hat_variant: coefs (4,) and table (3, {S}), got "
                          f"{tuple(coefs.shape)} and {tuple(table.shape)}")
-    if (D * H) % VARIANT_ROWS or 4 * (S + max(128, S) + S + 128) > _SMEM:
-        raise ValueError(f"hat_variant: rows {D * H} must be a multiple of {VARIANT_ROWS}, S={S} must stage in "
-                         f"{_SMEM} bytes")
-    threads = min(1024, -(-S // 32) * 32)
+    if (D * H) % VARIANT_ROWS or S > variant_max_s():
+        raise ValueError(f"hat_variant: rows {D * H} must be a multiple of {VARIANT_ROWS} and S={S} at most "
+                         f"{variant_max_s()}, whose table stages in shared memory")
+    if x.data_ptr() % 16:
+        x = x.clone()
     out = torch.empty_like(x)
-    rc = _call(_bind("hat_single", "fsg_hat_variant_f32", 4, 5), x.device, x.data_ptr(), table.data_ptr(),
-               coefs.data_ptr(), out.data_ptr(), D * H, H, S, variant, threads)
+    rc = _call(_bind("hat_single", "fsg_hat_variant_f32", 4, 4), x.device, x.data_ptr(), table.data_ptr(),
+               coefs.data_ptr(), out.data_ptr(), D * H, H, S, variant)
     _launched("hat_variant", f"hat_variant_v{variant}", rc)
     return out

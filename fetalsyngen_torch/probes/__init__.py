@@ -13,4 +13,9 @@ and, on a CUDA device only, where K3's and K4's launches spend their time
 wait, the card's time around the kernels and the kernels themselves)::
 
     python -m fetalsyngen_torch.probes.ring_profile
+
+and, where ``nvcc`` is (no card needed), each kernel's registers, spill
+stores and SASS instructions, of this checkout's or other ``csrc`` dirs::
+
+    python -m fetalsyngen_torch.probes.kernel_stats [CSRC_DIR ...]
 """

@@ -1,25 +1,27 @@
-"""Probe: where the launches of the ring kernels (K2, K3, K4) and of K5 spend
-their time on the card.
+"""Probe: where the launches of the ring kernels (K1, K2, K3, K4), of K5 and
+of K7 spend their time on the card.
 
     python -m fetalsyngen_torch.probes.ring_profile [--wrappers]
 
-1. Builds ``csrc/probes.cu`` and ``csrc/hat_single.cu`` once more with
-   ``-DFSG_RING_PROFILE`` (under ``build/ring_profile/``): the kernels as
-   they are, with a record per ring block of its start and end on the card's
-   global timer and, for one thread of its second warp, the cycles it waited
-   on the ring's barriers and the cycles of its walk. For each staged K3/K4
-   mode on B=4 256^3 operands (``chip_smoke.py``'s phase 10), and for each
-   K2 form at phase 3's shapes (:data:`K2_FORMS`), it checks that build
-   against the plain version, then prints its ms per launch queued back to
-   back (:func:`timing.chain_ms`), the blocks' end times from the first
-   block's start (percentiles 0/10/50/90/100, and their spread: p100 - p0
-   over p100, with its median over five launches), their mean busy time and
-   the share of the walk spent waiting on the barriers
-   (:func:`block_summary`). K2 runs at the tile size ``csrc/hat_single.cu``
-   builds with.
+1. Builds ``csrc/probes.cu``, ``csrc/hat_single.cu`` and ``csrc/hat_pass.cu``
+   once more with ``-DFSG_RING_PROFILE`` (under ``build/ring_profile/``):
+   the kernels as they are, with a record per ring block of its start and
+   end on the card's global timer and, for one thread of its second warp,
+   the cycles it waited on the ring's barriers and the cycles of its walk.
+   For each staged K3/K4 mode on B=4 256^3 operands (``chip_smoke.py``'s
+   phase 10), for each K2 form at phase 3's shapes (:data:`K2_FORMS`) and
+   for K1's main form at B=4 256^3 and its scanner forms at cube 384
+   (:data:`K1_RING_FORMS`), it checks that build against the plain version,
+   then prints its ms per launch queued back to back
+   (:func:`timing.chain_ms`), the blocks' end times from the first block's
+   start (percentiles 0/10/50/90/100, and their spread: p100 - p0 over
+   p100, with its median over five launches), their mean busy time and the
+   share of the walk spent waiting on the barriers (:func:`block_summary`).
 2. Through the public wrappers, for every K3 and K4 mode and its torch
    yardstick (``mul`` for copy, else ``clone``, once per operand), every K2
-   form (yardstick: one ``clone`` of its volume) and K5 (two ``clone``\\ s),
+   form (yardstick: one ``clone`` of its volume), every K1 form
+   (:data:`K1_FORMS`; two ``clone``\\ s), K5 (two ``clone``\\ s) and K7's
+   five variants at the probe's 147,456 x 384,
    the ms of one call four ways: ``one``, as ``chip_smoke.py`` times it (an
    event, the call, an event; median of 20, :func:`one_ms`); ``fenced``, the
    same behind a wait enqueued first (``torch.cuda._sleep``), so the card
@@ -28,12 +30,13 @@ their time on the card.
    back to back. Then the host time of one call with the card idle (median
    of 20, :func:`host_us`). ``one - fenced`` is the time the card waited for
    the host; ``fenced - kernels`` the card's own time around the kernels.
-   K2's and K5's lines add the bound (:func:`timing.hat_bound`,
-   :func:`timing.bound`) and the fenced time's share of it.
+   The hat kernels', K5's and K7's lines add the bound
+   (:func:`timing.hat_bound`, :func:`timing.bound`) and the fenced time's
+   share of it.
 
-``--wrappers`` runs part 2 for K2 and K5 alone. It uses only the wrappers'
-public names, so it times another checkout's kernels when run as a file
-with that checkout first on the path:
+``--wrappers`` runs part 2 for K1, K2, K5 and K7 alone. It uses only the
+wrappers' public names, so it times another checkout's kernels when run as
+a file with that checkout first on the path:
 ``PYTHONPATH=<checkout> python <this file> --wrappers``.
 
 Needs a CUDA device and ``nvcc``.
@@ -72,6 +75,21 @@ K2_FORMS = (
     ("lane-affine K7 inputs 384^3", False, "sample", "k7", (1, 384, 384, 384)),
     ("lane-affine wide table 256^3", False, "sample", "lane", (1, 256, 256, 256)),
 )
+# K1's forms at the shapes of phase 3 (B=4 256^3) and of the scanner's passes
+# (cubes 384 and 640; the recon pass has 128 lanes): (name, nearest second
+# operand, coefficient kind, disp kind, operand shape); inputs from
+# :func:`k1_inputs`
+K1_FORMS = (
+    ("main B=4 256^3", True, "sample", "volume", (4, 256, 256, 256)),
+    ("no displacement B=4 256^3", True, "sample", None, (4, 256, 256, 256)),
+    ("lane-affine cube 384", False, "sample", "lane", (1, 384, 384, 384)),
+    ("lane-affine cube 640", False, "sample", "lane", (1, 640, 640, 640)),
+    ("recon pass cube 384", False, "sample", "lane", (1, 384, 384, 128)),
+    ("recon pass cube 640", False, "sample", "lane", (1, 640, 640, 128)),
+    ("per-slice cube 384", False, "slice", None, (1, 128, 384, 384)),
+    ("per-slice cube 640", False, "slice", None, (1, 128, 640, 640)),
+)
+K1_RING_FORMS = tuple(f for f in K1_FORMS if f[0] == "main B=4 256^3" or f[0].endswith("cube 384"))
 
 
 def _profile_build(stem: str) -> ctypes.CDLL:
@@ -128,6 +146,25 @@ def _hat_launcher(lib, x, coefs, disp, nearest, out):
     if geo(B, D * H, S, int(nearest), coef_mode, disp_mode, g):
         raise RuntimeError("fsg_hat_geometry failed")
     return _checked(fn, args, "K2"), g[2]
+
+
+def _pair_launcher(lib, xa, xb, coefs, disp, nearest_b, oa, ob):
+    """A call of the profiling build's K1 entry point on the current stream,
+    raising on a launch error; and the launch's grid."""
+    B, D, H, S = xa.shape
+    coef_mode = int(coefs.dim() == 3)
+    disp_mode = 0 if disp is None else (2 if disp.dim() == 3 else 1)
+    fn = lib.fsg_hat_pass_pair_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    args = (xa.data_ptr(), xb.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(),
+            oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, oa.shape[-1], int(nearest_b), coef_mode, disp_mode,
+            torch.cuda.current_stream(xa.device).cuda_stream)
+    geo = lib.fsg_hat_pair_geometry
+    geo.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    g = (ctypes.c_int * 4)()
+    if geo(B, D * H, S, int(nearest_b), coef_mode, disp_mode, g):
+        raise RuntimeError("fsg_hat_pair_geometry failed")
+    return _checked(fn, args, "K1"), g[2]
 
 
 def block_summary(rec: np.ndarray) -> dict:
@@ -246,9 +283,47 @@ def k2_inputs(form, dev, g):
     return x, coefs, disp, nearest, timing.hat_bound(False, 1, d, h, s, s, disp, nearest)[0]
 
 
+def k1_inputs(form, dev, g):
+    """(xa, xb, coefs, disp, nearest_b, bound ms) of a :data:`K1_FORMS`
+    entry: the image in [0, 100), labels (nearest) or a second image; a
+    shear row (0.05, 0, 1, 0) with or without a field displacement, the
+    scanner's unit coefficients with a lane-affine table of small row slopes
+    and a few lanes' shift, or per-slice coefficients."""
+    _, nearest_b, coef, disp_kind, (b, d, h, s) = form
+    xa = torch.rand((b, d, h, s), generator=g, device=dev) * 100.0
+    xb = torch.rand((b, d, h, s), generator=g, device=dev) * 100.0
+    if nearest_b:
+        xb = torch.floor(xb * 0.5)
+    if coef == "slice":
+        u = torch.rand((b, d, 4), generator=g, device=dev) - 0.5
+        coefs = torch.stack([u[..., 0] * 0, u[..., 1] * 0.1, 1.0 + u[..., 2] * 0.04, u[..., 3] * 6.0], -1)
+    elif disp_kind == "lane":
+        coefs = torch.tensor([[0.0, 0.0, 1.0, 0.0]], device=dev).expand(b, 4)
+    else:
+        coefs = torch.tensor([[0.05, 0.0, 1.0, 0.0]], device=dev).expand(b, 4)
+    coefs = coefs.contiguous()
+    disp = None
+    if disp_kind == "volume":
+        disp = (torch.rand((b, d, h, s), generator=g, device=dev) * 2 - 1) * FIELD_LIM
+    elif disp_kind == "lane":
+        disp = torch.randn((b, 3, s), generator=g, device=dev) * torch.tensor([[[0.3], [0.3], [4.0]]], device=dev)
+    return xa, xb, coefs, disp, nearest_b, timing.hat_bound(True, b, d, h, s, s, disp, nearest_b)[0]
+
+
 def wrappers(dev):
-    """Part 2 for K2's forms and K5, through the public wrappers alone."""
+    """Part 2 for K1's and K2's forms, K5 and K7, through the public
+    wrappers alone."""
     g = torch.Generator(device=dev).manual_seed(41)
+    for form in K1_FORMS:
+        xa, xb, coefs, disp, nearest_b, bnd = k1_inputs(form, dev, g)
+        got = hat.hat_pass_pair(xa, xb, coefs, disp, nearest_b)
+        want = hat.hat_pass_pair_ref(xa, xb, coefs, disp, nearest_b)
+        if not all(torch.equal(k, r) for k, r in zip(got, want)):
+            raise RuntimeError(f"K1 {form[0]}: kernel differs from plain")
+        del got, want
+        _wrapper_line(f"K1 {form[0]}", lambda: hat.hat_pass_pair(xa, xb, coefs, disp, nearest_b), dev, bnd)
+        _wrapper_line("  clone x2", lambda: (torch.clone(xa), torch.clone(xb)), dev)
+        del xa, xb, coefs, disp
     for form in K2_FORMS:
         x, coefs, disp, nearest, bnd = k2_inputs(form, dev, g)
         if not torch.equal(hat.hat_pass(x, coefs, disp, nearest), hat.hat_pass_ref(x, coefs, disp, nearest)):
@@ -261,10 +336,19 @@ def wrappers(dev):
         raise RuntimeError("K5: kernel differs from plain")
     _wrapper_line("K5 pair_copy", lambda: probes.pair_copy(xa, xb), dev, timing.bound(16 * xa.numel(), 0)[0])
     _wrapper_line("  clone x2", lambda: (torch.clone(xa), torch.clone(xb)), dev)
+    del xa, xb
+    x, c7, table = profile_kernel_variants.inputs(384, dev)
+    bnd = timing.bound(8 * x.numel() + 4 * (table.numel() + 4), 0)[0]
+    for v in probes.VARIANTS:
+        if not torch.equal(probes.hat_variant(x, c7, table, v), probes.hat_variant_ref(x, c7, table, v)):
+            raise RuntimeError(f"K7 v{v}: kernel differs from plain")
+        _wrapper_line(f"K7 v{v} {tuple(x.shape)}", lambda v=v: probes.hat_variant(x, c7, table, v), dev, bnd)
+    _wrapper_line("  clone x1", lambda: torch.clone(x), dev)
 
 
 def rings(dev):
-    """Part 1: the block records of the staged K3/K4 modes and K2's forms."""
+    """Part 1: the block records of the staged K3/K4 modes, K2's forms and
+    K1's :data:`K1_RING_FORMS`."""
     lib = _profile_build("probes")
     g = torch.Generator(device=dev).manual_seed(31)
     xa, xb = (torch.randn((B, S, S, S), generator=g, device=dev) for _ in range(2))
@@ -291,11 +375,23 @@ def rings(dev):
             raise RuntimeError(f"K2 {form[0]}: the profiling build differs from plain")
         _ring_line(lib, f"K2 {form[0]}", call, grid, dev)
         del x, coefs, disp, out
+    lib = _profile_build("hat_pass")
+    for form in K1_RING_FORMS:
+        xa, xb, coefs, disp, nearest_b, _ = k1_inputs(form, dev, g)
+        oa, ob = torch.empty_like(xa), torch.empty_like(xb)
+        call, grid = _pair_launcher(lib, xa, xb, coefs, disp, nearest_b, oa, ob)
+        call()
+        torch.cuda.synchronize()
+        want = hat.hat_pass_pair_ref(xa, xb, coefs, disp, nearest_b)
+        if not (torch.equal(oa, want[0]) and torch.equal(ob, want[1])):
+            raise RuntimeError(f"K1 {form[0]}: the profiling build differs from plain")
+        _ring_line(lib, f"K1 {form[0]}", call, grid, dev)
+        del xa, xb, coefs, disp, oa, ob, want
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--wrappers", action="store_true", help="only K2's and K5's wrappers, part 2")
+    ap.add_argument("--wrappers", action="store_true", help="only K1's, K2's, K5's and K7's wrappers, part 2")
     args = ap.parse_args(argv)
     dev = timing.start("cuda")
     if args.wrappers:

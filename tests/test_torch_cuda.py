@@ -300,6 +300,86 @@ def test_hat_pass_offset_views(dev, form):
         assert _bits_equal((got,), (want,)), off
 
 
+# K1's forms: (displacement kind, nearest second operand), and its bit tests'
+# shapes, (B, D, H, S), OW, operand offsets in floats: tiles of 13 rows that
+# span samples and slices and end partial; an odd S above 3630 (one-row
+# tiles: 4-row ones would not fit two stages); OW != S; xa and xb as views
+# 4 and 12 bytes into larger tensors
+K1_FORMS = [("volume", True), (None, True), ("lane", False), ("slice", False)]
+K1_SHAPES = {"partial": ((3, 100, 101, 301), 301, (0, 0)), "odd_s": ((2, 2, 3, 4095), 4095, (0, 0)),
+             "ow": ((2, 4, 4, 513), 64, (0, 0)), "offsets": ((2, 7, 9, 301), 301, (1, 3))}
+
+
+def _pair_inputs(dev, disp_kind, nearest_b, shape, OW, offsets, seed):
+    """K1's operands, -0.0 among them (labels in 0..49 if nearest), at the
+    given float offsets into larger tensors; coefficients with quarter-voxel
+    rows, general slopes and a reversed row; the displacement with exact
+    half-integer positions and -0.0. OW is S without a displacement."""
+    B, D, H, S = shape
+    n = B * D * H * S
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def operand(off, nearest):
+        if nearest:
+            base = torch.randint(-1, 50, (off + n,), generator=g, device=dev).float()
+            base[base < 0] = -0.0
+        else:
+            base = _with_negative_zeros(100.0 * torch.randn(off + n, generator=g, device=dev))
+        return base[off:].view(B, D, H, S)
+
+    xa, xb = operand(offsets[0], False), operand(offsets[1], nearest_b)
+    if disp_kind == "slice":
+        coefs = (torch.rand((B, D, 4), generator=g, device=dev) - 0.5) * torch.tensor([0.0, 0.2, 0.04, 8.0], device=dev)
+        coefs[..., 2] += 1.0
+    else:
+        r = S / OW
+        coefs = torch.tensor([[0.25, -0.5, r, 0.5], [0.05, -0.04, 1.02 * r, -0.3 * S], [0.0, 0.0, -r, S - 1.0]],
+                             device=dev)[:B].contiguous()
+    disp = None
+    if disp_kind == "volume":
+        disp = (torch.rand((B, D, H, OW), generator=g, device=dev) - 0.5) * (S / 2)
+        disp[..., ::5] = torch.round(disp[..., ::5]) + 0.5
+        disp[..., 1::7] = -0.0
+    elif disp_kind == "lane":
+        disp = torch.randn((B, 3, OW), generator=g, device=dev) * torch.tensor([[[0.3], [0.3], [S / 8]]], device=dev)
+    return xa, xb, coefs, disp
+
+
+@pytest.mark.parametrize("case", sorted(K1_SHAPES))
+@pytest.mark.parametrize("form", K1_FORMS, ids=lambda f: f"{f[0]}-{f[1]}")
+def test_pair_kernel_bits(dev, form, case):
+    """K1 on the ring in every instantiated form bit for bit (as int32) with
+    its plain version at partial tiles across samples and slices, an odd S
+    above 3630, OW != S and operands off 16 bytes."""
+    disp_kind, nearest_b = form
+    shape, OW, offsets = K1_SHAPES[case]
+    if disp_kind in (None, "slice"):
+        OW = shape[-1]
+    xa, xb, coefs, disp = _pair_inputs(dev, disp_kind, nearest_b, shape, OW, offsets, shape[-1] + len(case))
+    assert (xa.data_ptr() % 16 != 0) == (case == "offsets") and (xb.data_ptr() % 16 != 0) == (case == "offsets")
+    got = hat.hat_pass_pair(xa, xb, coefs, disp, nearest_b)
+    want = hat.hat_pass_pair_ref(xa, xb, coefs, disp, nearest_b)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+
+
+def test_hat_pair_geometry(dev):
+    """K1's launches: 16 KB tiles per operand in three stages on a grid of
+    whole SMs' worth of blocks at B=4 256^3 in every form, each operand's
+    buffer four floats longer than its tile (room for a tile's lead); tiles
+    of any row count (one row at S = 6143, three stages)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for nearest_b, per_slice, disp in ((True, False, "volume"), (True, False, "none"), (False, False, "lane"),
+                                       (False, True, "none")):
+        geo = hat.hat_pair_geometry((4, 256, 256, 256), nearest_b, per_slice, disp)
+        assert geo == {"tile_rows": 16, "stages": 3, "grid": geo["grid"], "smem_bytes": 128 + 3 * 2 * 4100 * 4}
+        assert geo["grid"] % sms == 0 and geo["grid"] < 4 * 256 * 256 // 16
+    assert hat.hat_pair_geometry((3, 40, 30, 5)) == {"tile_rows": 819, "stages": 3, "grid": 5,
+                                                     "smem_bytes": 128 + 3 * 2 * 4100 * 4}
+    geo = hat.hat_pair_geometry((1, 1, 8, 6143))
+    assert geo == {"tile_rows": 1, "stages": 3, "grid": 8, "smem_bytes": 128 + 3 * 2 * 6148 * 4}
+
+
 @pytest.mark.parametrize("n", [1, 3, 5, 4099, 4096 * 3 + 2, 1 << 20])
 def test_pair_copy_bits(dev, n):
     """K5 copies every bit pattern (NaN payloads, -0.0, denormals) at sizes
@@ -407,10 +487,12 @@ def test_probe_geometry(dev):
         assert geo["grid"] == ntiles if mode == "copy" else geo["grid"] % sms == 0 and geo["grid"] < ntiles
 
 
-@pytest.mark.parametrize("D, H, S, scale", [(2, 32, 384, 0.02), (1, 64, 384, 0.5), (4, 16, 100, 0.3)])
+@pytest.mark.parametrize("D, H, S, scale", [(2, 32, 384, 0.02), (1, 64, 384, 0.5), (4, 16, 100, 0.3),
+                                           (1, 64, 1000, 0.3)])
 def test_hat_variant_matches_plain(dev, D, H, S, scale):
     """K7's five variants, with saturated rows and spans past the budget in
-    the wider tables."""
+    the wider tables; at S = 1000 the rows and positions of a block do not
+    fit shared memory, so taps come from device memory."""
     from fetalsyngen_torch.kernels import probes
 
     g = torch.Generator(device=dev).manual_seed(S + D)
@@ -421,3 +503,38 @@ def test_hat_variant_matches_plain(dev, D, H, S, scale):
         got, want = probes.hat_variant(x, coefs, table, v), probes.hat_variant_ref(x, coefs, table, v)
         torch.cuda.synchronize()
         assert torch.equal(got, want), v
+
+
+def test_hat_variant_offset_view(dev):
+    """K7 on a contiguous view 4 bytes into a larger tensor (copied on the
+    card before the bulk copies), bit for bit in every variant."""
+    from fetalsyngen_torch.kernels import probes
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand(1 + 64 * 96, generator=g, device=dev)[1:].view(2, 32, 96)
+    coefs = torch.tensor([0.25, -0.125, 1.0, 0.3], device=dev)
+    table = torch.randn((3, 96), generator=g, device=dev) * 0.3
+    for v in probes.VARIANTS:
+        got, want = probes.hat_variant(x, coefs, table, v), probes.hat_variant_ref(x, coefs, table, v)
+        torch.cuda.synchronize()
+        assert _bits_equal((got,), (want,)), v
+
+
+def test_hat_variant_longest_row(dev):
+    """K7 at the longest row its library reports, in every variant, bit for
+    bit; one float more is refused before a launch."""
+    from fetalsyngen_torch.kernels import probes
+
+    S = probes.variant_max_s()
+    assert S > 864  # past the rows and positions a block keeps
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand((1, 32, S), generator=g, device=dev)
+    coefs = torch.tensor([0.25, -0.125, 1.0, 0.3], device=dev)
+    table = torch.randn((3, S), generator=g, device=dev) * 0.3
+    for v in probes.VARIANTS:
+        got, want = probes.hat_variant(x, coefs, table, v), probes.hat_variant_ref(x, coefs, table, v)
+        torch.cuda.synchronize()
+        assert _bits_equal((got,), (want,)), v
+    wide = torch.zeros((1, 32, S + 1), device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        probes.hat_variant(wide, coefs, torch.zeros((3, S + 1), device=dev), 0)

@@ -166,6 +166,105 @@ def test_hat_variant_matches_pallas(scripts, monkeypatch, case, variant):
             assert int(span.max()) > 48
 
 
+# --- K7's two-tap read against the plain version -------------------------------
+
+
+def _two_tap_model(x, coefs, table, variant):
+    """The read of ``hat_variant_kernel`` (csrc/hat_single.cu): per valid
+    element the taps m0 = floor(d0) and m0 + 1 alone, each where m < maxspan
+    and its chunk of 8 starts below the block's span, summed as (0 + p(m0))
+    + p(m0 + 1), from the row itself with the index clamped; no padded row."""
+    D, H, S = x.shape
+    R = D * H
+    _, rel, sat_lo, sat_hi, n0, span = probes.variant_geometry(coefs, table, variant, D, H, S)
+    pad, maxspan = max(128, S), 4 if variant == 4 else 48
+    win = {0: n0, 3: n0, 1: (pad + n0) // 128 * 128 - pad}.get(variant, torch.full_like(n0, -64))
+    rows = lambda v: v.repeat_interleave(probes.VARIANT_ROWS)[:, None]  # noqa: E731
+    d0 = torch.clamp(rel - rows(n0).to(torch.float32), 0.0, maxspan - 1.0)
+    m0 = d0.to(torch.int64)
+    xr = x.reshape(R, S)
+    first = rows(win) + torch.arange(S)[None, :]
+    acc = torch.zeros_like(xr)
+    for m in (m0, m0 + 1):
+        run = (m < maxspan) & (m // 8 * 8 < rows(span))
+        w = torch.clamp_min(1.0 - torch.abs(d0 - m.to(torch.float32)), 0.0)
+        tap = torch.take_along_dim(xr, torch.clamp(first + m, 0, S - 1), dim=1)
+        acc = torch.where(run, acc + w * tap, acc)
+    out = torch.where(sat_lo, xr[:, :1], torch.where(sat_hi, xr[:, S - 1 :], acc))
+    return out.reshape(D, H, S)
+
+
+def _k7_case(case, rng):
+    """(x (4, 32, 96), coefs, table, what the case must contain) of a
+    crafted K7 input: four blocks of 32 rows, normal rows with -0.0 at every
+    5th element and dyadic tables, unless the case says otherwise."""
+    D, H, S = 4, 32, 96
+    lanes = np.arange(S)
+    x = rng.standard_normal((D, H, S)).astype(np.float32)
+    coefs = [0.25, -0.125, 1.0, 0.3]
+    table = np.round(rng.normal(0, 0.5, (3, S)) * 64) / 64
+    if case == "integer_d0":  # rel = A2[l], integers from 0: d0 integer, its second weight 0
+        coefs, table = [0.0, 0.0, 1.0, 0.0], np.zeros((3, S))
+        table[2] = rng.integers(0, 6, S)
+    elif case == "clamped":  # rel up to 60.5 lanes: d0 clamped to maxspan - 1
+        table[2] += np.where(lanes % 3 == 0, 60.0, 0.0)
+    elif case == "past_span":  # rel in [0, 11.25]: V3's second tap at 8 where span is 8
+        coefs, table = [0.0, 0.0, 1.0, 0.0], np.zeros((3, S))
+        table[2] = lanes % 16 * 0.75
+    elif case == "saturated":  # slice 0 saturates low at its first lanes, slices 1-3 high throughout
+        coefs = [200.0, 0.0, 1.0, -40.0]
+    elif case == "negative_zero":  # rows <= 0: every zero-weight product is -0, and (0 + -0) = +0
+        x = -np.abs(x)
+        coefs, table = [0.0, 0.0, 1.0, 0.0], np.zeros((3, S))
+        table[2] = rng.integers(0, 3, S) + np.where(lanes % 2 == 0, 0.0, 0.5)
+    x.reshape(-1)[::5] = -0.0
+    return torch.from_numpy(x), torch.tensor(coefs, dtype=torch.float32), torch.from_numpy(table.astype(np.float32))
+
+
+def _k7_case_holds(case, x, coefs, table, variant):
+    """Whether the crafted case's property occurs for ``variant``."""
+    D, H, S = x.shape
+    _, rel, sat_lo, sat_hi, n0, span = probes.variant_geometry(coefs, table, variant, D, H, S)
+    valid = ~(sat_lo | sat_hi)
+    maxspan = 4 if variant == 4 else 48
+    d = rel - n0.repeat_interleave(probes.VARIANT_ROWS)[:, None].to(torch.float32)
+    if case == "integer_d0":
+        return bool((valid & (d == torch.floor(d))).any())
+    if case == "clamped":
+        return bool((valid & (d > maxspan - 1)).any())
+    if case == "past_span":  # the first tap runs, the second's chunk starts at or past span
+        m0 = torch.clamp(d, 0.0, maxspan - 1.0).to(torch.int64)
+        sp = span.repeat_interleave(probes.VARIANT_ROWS)[:, None]
+        return variant != 3 or bool((valid & (m0 + 1 < maxspan) & (m0 // 8 * 8 < sp) & ((m0 + 1) // 8 * 8 >= sp)).any())
+    if case == "saturated":
+        return bool((sat_lo | sat_hi).all(1).any()) and bool(sat_lo.any()) and bool(sat_hi.any())
+    if case == "negative_zero":
+        return bool((x == 0).any()) and bool((x <= 0).all())
+    return True
+
+
+@pytest.mark.parametrize("variant", probes.VARIANTS)
+@pytest.mark.parametrize("case", ["random", "integer_d0", "clamped", "past_span", "saturated", "negative_zero"])
+def test_hat_variant_two_taps_match_plain(case, variant):
+    """K7's two-tap read (a torch model of the CUDA kernel's) bit for bit,
+    the sign of zero included, against ``hat_variant_ref``'s sum over every
+    tap of the span budget, on finite rows."""
+    x, coefs, table = _k7_case(case, np.random.default_rng(variant + 10 * len(case)))
+    assert _k7_case_holds(case, x, coefs, table, variant)
+    got, want = _two_tap_model(x, coefs, table, variant), probes.hat_variant_ref(x, coefs, table, variant)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
+
+
+def test_hat_variant_two_taps_differ_on_non_finite_rows():
+    """Where a zero-weight tap of the budget outside the two reads a
+    non-finite value, the full sum is NaN and the two-tap read is not: the
+    two agree on finite rows only."""
+    x, coefs, table = _k7_case("random", np.random.default_rng(5))
+    x[..., 40] = float("inf")
+    got, want = _two_tap_model(x, coefs, table, 0), probes.hat_variant_ref(x, coefs, table, 0)
+    assert bool((torch.isnan(want) & torch.isfinite(got)).any())
+
+
 # --- K3: copied from scripts/microbench_warp.py:198-232 (the probe2_* body) ----
 
 
@@ -483,6 +582,37 @@ def test_ring_profile_block_summary():
     assert s["spread"] == pytest.approx(5.0 / 8.0)
     assert s["busy_us"] == pytest.approx(13 / 3)
     assert s["wait"] == pytest.approx(60 / 400)
+
+
+def test_kernel_stats_reads_ptxas_and_sass():
+    """``kernel_stats``'s reading of ``-Xptxas -v`` (registers and spill
+    stores per entry function) and of a ``cuobjdump -sass`` listing
+    (instructions per function)."""
+    from fetalsyngen_torch.probes.kernel_stats import count_sass, parse_ptxas
+
+    ptxas = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1aPf
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1bPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers
+"""
+    assert parse_ptxas(ptxas) == {"_Z1aPf": (64, 8), "_Z1bPf": (48, 0)}
+    sass = """	code for sm_90a
+		Function : _Z1bPf
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;            /* 0x00000a00ff017b82 */
+                                                                     /* 0x000fe40000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;                /* 0x0000000000007919 */
+                                                                     /* 0x000e220000002100 */
+		..........
+		Function : _Z1aPf
+        /*0000*/                   EXIT ;                            /* 0x000000000000794d */
+"""
+    assert count_sass(sass) == {"_Z1bPf": 2, "_Z1aPf": 1}
 
 
 def test_bounds():
