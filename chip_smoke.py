@@ -82,6 +82,21 @@ operations over 67 TFLOP/s.
     ring of tiles more than once, and each mode's launch geometry (tile rows,
     ring stages, grid, dynamic shared memory) there and at B=4 256^3.
 
+11. the artifact-free input stream (``SyntheticStream``, B=4 256^3) on two
+    trees: A, two phantom subjects written as ``bench.py --stream`` writes
+    them, with phase 5's generator config; B, ``data/sub-sta21`` with phase
+    7's ``synth_train`` generator. Each with prefetch on and off: vol/s over
+    24 batches after 2 warm-ups (the host clock around a read of each
+    batch) beside phase 5's core vol/s, the first seed bank's build (native
+    decode, ``to_ras``, pinning, the copy's CUDA events) and reader, peak
+    memory, K1's launches (3 a batch generated); prefetch on and off
+    bit-identical (every batch's digests), a recorded batch replayed bit for
+    bit on the same stream and a fresh one, ``compose_seeds`` on the card
+    against a host sum, one B=1 batch of tree B against the port's CPU path
+    (image within 1e-4, labels 1e-5 of voxels); on tree A, each batch's host
+    enqueue against its CUDA-event time and a profiler trace with prefetch
+    on (kernel time against the host clock).
+
 Phase 3 also holds K1's form without a displacement (the probes'
 ``pair_l_nodisp`` and ``pair_u`` coefficients, and crafted half-integers)
 and K2's lane-affine form (K7's inputs, and a wide table at 256^3) against
@@ -106,7 +121,9 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -131,12 +148,13 @@ from fetalsyngen_torch.generator.model import (
     SpatialDeformation,
 )
 from fetalsyngen_torch.generator.params import genparams_to_dict, sample_params
-from fetalsyngen_torch.io import nifti
+from fetalsyngen_torch.io import native, nifti
 from fetalsyngen_torch.kernels import build, hat, probes
 from fetalsyngen_torch.ops.affine import make_affine_matrix
 from fetalsyngen_torch.ops.morphology import box_sum
 from fetalsyngen_torch.ops.numerics import device_const
 from fetalsyngen_torch.ops.warp import FIELD_LIM, ul_decompose
+from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream, batch_program, compose_seeds
 from fetalsyngen_torch.probes import microbench_warp, probe_blocktp, profile_kernel_variants, ring_profile
 from fetalsyngen_torch.probes.timing import bound, hat_bound
 from fetalsyngen_torch.testing import phantom_seeds_and_seg, run_scanner_ab, scanner_ab_case
@@ -150,6 +168,8 @@ GEN_CLASSES = tuple([0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50)
 IMAGE_TOL = 1e-4  # |GPU - CPU| on the [0, 1] image
 LABEL_TOL = 1e-5  # fraction of labels allowed to differ between GPU and CPU
 SCANNER_TOL = 1e-4  # |GPU - CPU| of the scanner's outputs over their max |x|
+# phase 5's core vol/s and phase 7's samples/s, printed beside phase 11's
+MEASURED: dict[str, float] = {}
 # the kernels' sources and the TPU kernels they replace, by LAUNCHES key
 KERNELS = {
     "hat_pass_pair": ("fetalsyngen_torch/csrc/hat_pass.cu", "fetalsyngen_tpu/ops/warp.py:1217"),
@@ -793,6 +813,7 @@ def time_slice(dev, cfg, seeds, segs):
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     vols = BATCH * iters / dt
+    MEASURED["core"] = vols
 
     rounds, enqueue = [], []
     for r in range(3):
@@ -1061,6 +1082,7 @@ def api_path(dev, name):
         steps = (t1 - t0, t2 - t1, t3 - t2, start.elapsed_time(end), t4 - t3, t4 - t0)
         for k, v in zip(split, steps):
             split[k].append(v)
+    MEASURED[name] = n / sum(draws)
     log(json.dumps({
         "api": name,
         "samples_per_s": n / sum(draws),
@@ -1302,6 +1324,228 @@ def api_artifacts_phase(dev, forced: bool):
     return launches
 
 
+def write_tree_a(root: Path) -> Path:
+    """Phase 11's tree A: two phantom subjects at SHAPE with subclasses 1 and
+    2, written as ``bench.py --stream`` writes them (the seeds split into
+    four meta-label files by ``seeds % 4``)."""
+    for si, sub in enumerate(["sub-b01", "sub-b02"]):
+        seeds_np, seg_np = phantom_seeds_and_seg(SHAPE, seed=si)
+        anat = root / sub / "anat"
+        anat.mkdir(parents=True)
+        nifti.save(anat / f"{sub}_dseg.nii.gz", seg_np.astype(np.int16))
+        nifti.save(anat / f"{sub}_T2w.nii.gz", (seg_np > 0).astype(np.float32))
+        for n in (1, 2):
+            sd = root / "derivatives" / "seeds" / f"subclasses_{n}" / sub / "anat"
+            sd.mkdir(parents=True)
+            for m in range(1, 5):
+                part = np.where(seeds_np % 4 == (m - 1), seeds_np, 0).astype(np.int8)
+                nifti.save(sd / f"{sub}_mlabel_{m}.nii.gz", part)
+    return root
+
+
+def digest(x: torch.Tensor) -> torch.Tensor:
+    """(B, D) int64 sums of ``x``'s 32-bit patterns over each sample's
+    slices, on the device (no host sync)."""
+    return x.view(torch.int32).sum(dim=(2, 3), dtype=torch.int64)
+
+
+def drive_stream(dev, ds, prefetch: bool, iters: int = 24):
+    """Phase 11's drive of one stream: 2 warm-up batches, then ``iters``
+    timed, the host clock around a read of each batch (as ``bench.py
+    --stream``). Returns the stream, its numbers, every batch's digests and
+    the last batch."""
+    stream = SyntheticStream(ds, batch_size=BATCH, seed=0, prefetch=prefetch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    it = iter(stream)
+    digests = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        b = next(it)
+        float(b["image"][..., ::64, ::64, ::64].sum())
+        digests.append(torch.stack([digest(b["image"]), digest(b["label"])]))
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        b = next(it)
+        float(b["image"][..., ::64, ::64, ::64].sum())
+        digests.append(torch.stack([digest(b["image"]), digest(b["label"])]))
+    dt = time.perf_counter() - t0
+    it.close()  # joins the producer of the batch in flight
+    torch.cuda.synchronize()
+    launches = dict(hat.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    generated = 2 + iters + (1 if prefetch else 0)
+    if launches != counts(hat_pass_pair=3 * generated):
+        raise RuntimeError(f"stream: expected {3 * generated} hat_pass_pair launches and no other, got {launches}")
+    name = next(iter(stream.banks.records))  # the first bank built
+    rec = stream.banks.records[name]
+    start, end = rec["upload"]
+    numbers = {
+        "prefetch": prefetch,
+        "vol_per_s": BATCH * iters / dt,
+        "batches": iters,
+        "warmup_s": warm_s,
+        "first_bank": {
+            "name": name, "reader": rec["reader"], "decode_s": rec["decode_s"],
+            "to_ras_s": rec["to_ras_s"], "pin_s": rec["pin_s"], "upload_ms": start.elapsed_time(end),
+            "bytes": rec["bytes"],
+        },
+        "peak_mem_bytes": peak,
+        "k1_launches": launches["hat_pass_pair"],
+    }
+    return stream, numbers, torch.stack(digests).cpu(), b
+
+
+def stream_phase(dev, tree: str, ds) -> int:
+    """Phase 11 for one tree: the stream with prefetch on, a recorded batch
+    replayed bit for bit on the same stream and on a fresh one,
+    ``compose_seeds`` on the card against a host sum; then the stream with
+    prefetch off, bit-identical to prefetch on (every batch's digests). For
+    each run: vol/s beside phase 5's core vol/s, the first bank's build
+    split, the reader, peak memory, K1 launches. Returns K1's launches."""
+    stream, n_on, d_on, last = drive_stream(dev, ds, True)
+    for where, st in (("same", stream), ("fresh", SyntheticStream(ds, batch_size=BATCH, seed=123, prefetch=False))):
+        again = st.replay_batch(last["meta"])
+        if not (torch.equal(again["image"], last["image"]) and torch.equal(again["label"], last["label"])
+                and again["name"] == last["name"]):
+            raise RuntimeError(f"stream {tree}: replay on the {where} stream is not bit-identical")
+    del again, st
+    name = last["meta"]["resident"][0]
+    bank = stream.banks.bank(name)
+    choices = torch.arange(4, device=dev, dtype=torch.int32) % bank.shape[0]
+    got = compose_seeds(bank, choices).cpu().numpy()
+    host = bank.cpu().numpy()
+    want = sum(host[int(c), m].astype(np.int32) for m, c in enumerate(choices.tolist()))
+    if not np.array_equal(got, want):
+        raise RuntimeError(f"stream {tree}: compose_seeds on the card differs from the host sum")
+    del stream, last, bank
+    _, n_off, d_off, _ = drive_stream(dev, ds, False)
+    if not torch.equal(d_on, d_off):
+        differ = (d_on != d_off).flatten(1).any(1).nonzero().flatten().tolist()
+        raise RuntimeError(f"stream {tree}: prefetch on and off differ in batches {differ}")
+    core = MEASURED.get("core")
+    for n in (n_on, n_off):
+        n["core_vol_per_s"] = core
+        n["of_core"] = n["vol_per_s"] / core if core else None
+        if tree == "tree_b" and MEASURED.get("synth_train"):
+            n["of_api_synth_train"] = n["vol_per_s"] / MEASURED["synth_train"]
+        log(json.dumps({"stream": tree, **n, "prefetch_bit_identical": True, "replay_bit_identical": True,
+                        "compose_seeds_equal_host": True}))
+    return n_on["k1_launches"] + n_off["k1_launches"]
+
+
+def stream_profile(dev, ds, n: int = 12):
+    """Phase 11's trace of the stream (tree A). Prefetch off: each batch's
+    host time until ``next`` returns (the enqueue) against its CUDA-event
+    time (median of 3 after a warm-up). Prefetch on: ``torch.profiler`` over
+    ``n`` batches read after 2 warm-ups: the device's kernel time against the
+    host clock (batches generated in the window counted by K1's launches,
+    3 a batch), and the kernels with the most device time (the producer
+    thread's operators are not traced)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    it = iter(SyntheticStream(ds, batch_size=BATCH, seed=5, prefetch=False))
+    host, card = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        next(it)
+        t_host = time.perf_counter() - t0
+        end.record()
+        end.synchronize()
+        if i:
+            host.append(t_host * 1e3)
+            card.append(start.elapsed_time(end))
+    it.close()
+    log(f"stream, prefetch off: host enqueue {statistics.median(host):.3f} ms, card "
+        f"{statistics.median(card):.3f} ms per batch (medians of 3)")
+
+    it = iter(SyntheticStream(ds, batch_size=BATCH, seed=5, prefetch=True))
+    for _ in range(2):
+        float(next(it)["image"][..., ::64, ::64, ::64].sum())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            float(next(it)["image"][..., ::64, ::64, ::64].sum())
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        it.close()
+        torch.cuda.synchronize()
+    stats = prof.key_averages()
+    kernels = [e for e in stats if e.device_type == DeviceType.CUDA]
+    total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    batches = sum(e.count for e in kernels if "hat_ring_kernel" in e.key) / 3
+    if total_ms <= 0 or not batches:
+        raise RuntimeError("torch.profiler recorded no device time or no K1 launch in the stream")
+    log(f"stream profile, prefetch on, {n} batches read, {batches:g} generated in the window: kernel time "
+        f"{total_ms / batches:.3f} ms per batch generated, host clock {wall_ms / n:.3f} ms per batch read, "
+        f"kernel time / host clock {total_ms / wall_ms:.3f} (profiler on)")
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    # then the gathers (the banks' and segmentations' rows) and reductions
+    # (the seed sums, the peaks), which the core runs fewer of or none
+    for e in top[:10] + [e for e in top[10:] if "index_elementwise" in e.key or "reduce_kernel" in e.key]:
+        ms = e.self_device_time_total / 1e3
+        log(f"  kernel {100 * ms / total_ms:5.1f}% {ms / batches:8.3f} ms/batch "
+            f"{e.count / batches:6.1f} calls/batch  {e.key[:160]}")
+
+
+def stream_cpu_check(dev, ds):
+    """Phase 11's GPU-vs-CPU check: one B=1 batch on the card, then the same
+    batch through the port's batch program on the CPU, with the card's
+    parameters and fields (torch's CUDA and CPU generators differ)."""
+    stream = SyntheticStream(ds, batch_size=1, seed=7, prefetch=False)
+    it = iter(stream)
+    batch = next(it)
+    it.close()
+    meta = batch["meta"]
+    gens = tpipe.make_generators(meta["seeds"], dev)
+    p = sample_params(gens, stream.cfg)
+    f = tpipe.draw_fields(gens, stream.cfg, dev)
+    mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+    t0 = time.perf_counter()
+    out_cpu, seg_cpu = batch_program(
+        mega.cpu(), segs.cpu(), hi.cpu(), torch.from_numpy(meta["subj"]), torch.from_numpy(meta["u"]),
+        p.to("cpu"), f.to("cpu"), stream.cfg, stream._lo,
+    )
+    cpu_s = time.perf_counter() - t0
+    img_err = float((batch["image"].cpu() - out_cpu).abs().max())
+    mism = (batch["label"].cpu() != seg_cpu).nonzero()
+    frac = mism.shape[0] / float(np.prod(SHAPE))
+    log(f"stream tree_b: GPU vs CPU port, B=1 ({cpu_s:.1f} s on the CPU): image max|d|={img_err:.3e} "
+        f"(bar {IMAGE_TOL}), label mismatch fraction={frac:.3e} (bar {LABEL_TOL}), first at {mism[:4].tolist()}")
+    if not img_err <= IMAGE_TOL or frac > LABEL_TOL:
+        raise RuntimeError("stream: GPU and CPU paths of the port disagree beyond the bars")
+
+
+def stream_path(dev, t_start) -> int:
+    """Phase 11: the artifact-free stream on tree A (two 256^3 phantom
+    subjects, phase 5's generator config) and tree B (``data/sub-sta21``,
+    phase 7's ``synth_train`` generator). Returns K1's launches."""
+    t0 = time.perf_counter()
+    reader = "native" if native.available() else "python"
+    log(f"phase 11 native loader: {reader} (built and loaded in {time.perf_counter() - t0:.2f} s), "
+        f"build error: {native.build_error()}")
+    launches = 0
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root = write_tree_a(Path(tmp))
+        log(f"phase 11 tree A written at {time.perf_counter() - t_start:.1f} s")
+        gen = types.SimpleNamespace(cfg=bench_cfg(), device=dev, artifacts={})
+        ds = FetalSynthDataset(str(root), gen, str(root / "derivatives" / "seeds"))
+        launches += stream_phase(dev, "tree_a", ds)
+        stream_profile(dev, ds)
+    log(f"phase 11 tree A done at {time.perf_counter() - t_start:.1f} s")
+    ds = FetalSynthDataset(str(DATA), api_generator(dev), seed_path=str(DATA / "derivatives" / "seeds"))
+    launches += stream_phase(dev, "tree_b", ds)
+    stream_cpu_check(dev, ds)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU")
@@ -1350,6 +1594,8 @@ def main() -> int:
     checks += check_probes(dev)
     check_probe_tiles(dev)
     log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+    launches["hat_pass_pair"] += stream_path(dev, t_start)
+    log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
     missing = [k for k in KERNELS if not launches.get(k)]
     if missing:
         raise RuntimeError(f"kernel forms never launched on the main paths: {missing}")

@@ -1,0 +1,461 @@
+"""The artifact-free input stream: seed banks in device memory, seed
+composition on the device, side-stream prefetch (port of the artifact-free
+part of ``fetalsyngen_tpu.parallel.input_pipeline``).
+
+The dataset path decodes four seed NIfTIs on the host for every sample. The
+stream instead decodes every (subcluster count, meta-label) seed volume of a
+subject once, natively (:mod:`fetalsyngen_torch.io.native`), and keeps it as
+an int8 bank ``(n_options, 4, D, H, W)`` in device memory. Each batch element
+draws its subject and its four subcluster counts, gathers the four chosen
+int8 volumes and sums them on the device, and the batch runs through
+:func:`~fetalsyngen_torch.generator.pipeline.synth_core`. With ``prefetch``
+the next batch is generated on a side CUDA stream while the caller holds the
+current one.
+
+The stream's SR-artifact chain is not ported yet: a generator that
+configures an artifact raises unless the stream is built with
+``artifacts=False``.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..generator.pipeline import draw_fields, make_generators, synth_core
+from ..generator.params import sample_params
+from ..io import native, nifti
+from ..ops.numerics import device_const
+
+# One side stream per CUDA device, made at first use and shared by every
+# stream's producer: the ring kernels keep a tile counter per (device,
+# stream) in a fixed table of 64 (csrc/ring.cuh, tile_counter), so a stream
+# per batch or per iterator would exhaust it.
+_SIDE_STREAMS: dict[int, torch.cuda.Stream] = {}
+_SIDE_LOCK = threading.Lock()
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The prefetch stream of CUDA ``device``."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with _SIDE_LOCK:
+        if index not in _SIDE_STREAMS:
+            _SIDE_STREAMS[index] = torch.cuda.Stream(device=index)
+        return _SIDE_STREAMS[index]
+
+
+class _Ready:
+    """Device tensors and the point of the stream that made them: using them
+    on another stream first waits for that point and records the use, so the
+    allocator keeps their memory until the other stream is done with it."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self.tensors = tensors
+        self.stream = self.event = None
+        if tensors[0].device.type == "cuda":
+            self.stream = torch.cuda.current_stream(tensors[0].device)
+            self.event = torch.cuda.Event()
+            self.event.record(self.stream)
+
+    def get(self) -> tuple[torch.Tensor, ...]:
+        if self.event is not None:
+            cur = torch.cuda.current_stream(self.tensors[0].device)
+            if cur != self.stream:
+                cur.wait_event(self.event)
+                for t in self.tensors:
+                    t.record_stream(cur)
+        return self.tensors
+
+
+def compose_seeds(bank: torch.Tensor, choices: torch.Tensor) -> torch.Tensor:
+    """Sum the seed variants chosen per meta-label from a bank (the device
+    counterpart of ``ImageFromSeeds.load_seeds``).
+
+    The four chosen int8 volumes are gathered first and widened in the sum:
+    widening the bank first would move n_options x 4 volumes at 4 bytes
+    instead of 4 volumes at 1 byte.
+
+    Args:
+        bank: (n_options, 4, D, H, W) int8.
+        choices: (4,) integer, the option index per meta-label (0-based).
+
+    Returns:
+        (D, H, W) int32 seed volume.
+    """
+    picked = bank[choices.long(), torch.arange(4, device=bank.device)]
+    return picked.sum(0, dtype=torch.int32)
+
+
+def choose_options(u: torch.Tensor, hi: torch.Tensor, lo: int) -> torch.Tensor:
+    """(B, 4) int32 option per meta-label from (B, 4) f32 uniforms ``u`` and
+    each element's (B,) option count ``hi``: ``lo + floor(u * (hi - lo))``
+    in f32, clipped to ``[lo, hi - 1]``."""
+    ch = torch.floor(u * (hi - lo).to(torch.float32)[:, None]).to(torch.int32) + lo
+    return torch.minimum(torch.clamp_min(ch, lo), (hi - 1)[:, None])
+
+
+def _take_rows(t: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``t[rows]`` for a contiguous (N, V) tensor, gathered as 8-byte words
+    where a row holds whole words: the indexing kernel's cost goes by
+    elements, so int8 rows gather several times slower than the same bytes
+    as int64."""
+    if (t.shape[1] * t.element_size()) % 8:
+        return t[rows]
+    return t.view(torch.int64)[rows].view(t.dtype)
+
+
+def batch_program(mega, segs, hi, subj, u, p, fields, cfg, lo: int):
+    """One artifact-free batch (the body of the JAX stream's batch program).
+
+    Args:
+        mega: (S, n_options, 4, D, H, W) int8 seed banks of the S resident
+            subjects.
+        segs: (S, D, H, W) int16 segmentations.
+        hi: (S,) int32 usable options per subject.
+        subj: (B,) int64 resident subject per element.
+        u: (B, 4) f32 uniforms choosing the options (:func:`choose_options`).
+        p, fields: the batch's ``GenParams`` and ``Fields``.
+        cfg: the generator config; ``lo`` the lowest option index.
+
+    Returns:
+        (image, label): (B, D, H, W) f32 divided by each sample's peak where
+        it is positive, and int32 labels.
+    """
+    S, n_opt = mega.shape[:2]
+    vol = mega.shape[3:]
+    ch = choose_options(u, hi[subj], lo)
+    rows = (subj[:, None] * n_opt + ch.long()) * 4 + torch.arange(4, device=mega.device)
+    picked = _take_rows(mega.reshape(S * n_opt * 4, -1), rows)  # (B, 4, D*H*W) int8
+    seeds = picked.sum(1, dtype=torch.int32).reshape(-1, *vol)
+    del picked
+    seg = _take_rows(segs.reshape(S, -1), subj).reshape(-1, *vol).to(torch.int32)
+    out, seg, _ = synth_core(p, fields, seeds, seg, cfg)
+    peak = out.amax(dim=(1, 2, 3), keepdim=True)
+    return out / torch.where(peak > 0, peak, 1.0), seg
+
+
+def _c_int8(a: np.ndarray) -> np.ndarray:
+    """A decoded volume (Fortran-ordered, as NIfTI stores it) as a C-ordered
+    int8 array, the same values ``to_ras`` then reorients: narrowed in its
+    own order, then transposed by torch's threaded copy (numpy's transposing
+    copy is several times slower), so that ``to_ras`` copies nothing more for
+    a volume already in RAS."""
+    return torch.from_numpy(a.astype(np.int8)).contiguous().numpy()
+
+
+class SeedBankCache:
+    """Seed banks in device memory, an LRU keyed by subject name.
+
+    Eviction is by a byte budget, not a subject count: a bank is
+    ``n_options * 4 * D*H*W`` int8 (~400 MB for 6 options at 256^3). On CUDA
+    a bank is uploaded through pinned host memory with a non-blocking copy on
+    the current stream; the pinned buffer is kept until that copy completes.
+    ``records[name]`` says how the bank was built: ``reader`` ("native" or
+    "python"), ``decode_s``, ``to_ras_s``, ``pin_s`` (host seconds),
+    ``upload`` (the copy's start and end CUDA events, None on the CPU) and
+    ``bytes``.
+    """
+
+    def __init__(self, seed_paths: dict, max_bytes: int = 1_200_000_000, device="cpu"):
+        self.seed_paths = seed_paths
+        self.max_bytes = max_bytes
+        self.device = torch.device(device)
+        self.records: dict[str, dict] = {}
+        self._cache: collections.OrderedDict[str, _Ready] = collections.OrderedDict()
+        self._bytes = 0
+        self._staging: list[tuple[torch.cuda.Event, torch.Tensor]] = []
+
+    @property
+    def nbytes(self) -> int:
+        return self._bytes
+
+    def options(self, name: str) -> list[int]:
+        return sorted(self.seed_paths[name].keys())
+
+    def _load_all(self, name: str) -> tuple[np.ndarray, dict]:
+        """Decode every (option, meta-label) seed volume of one subject:
+        ((n_options, 4, D, H, W) int8 oriented RAS, the build record less
+        the upload).
+
+        The native loader decodes all volumes at once, oriented by the first
+        volume's affine; without it, or where it refuses a volume, the
+        Python reader decodes each.
+        """
+        per_sub = self.seed_paths[name]
+        opts = self.options(name)
+        paths = [str(per_sub[n][m]) for n in opts for m in range(1, 5)]
+        arrs = None
+        have_native = native.available()  # builds the library at first use
+        t0 = time.perf_counter()
+        if have_native:
+            probe = nifti.load(paths[0])
+            raw = native.load_labels_batch(paths, probe.data.shape)
+            if raw is not None:
+                t1 = time.perf_counter()
+                arrs = [nifti.to_ras(_c_int8(a), probe.affine)[0] for a in raw]
+                record = {"reader": "native", "decode_s": t1 - t0}
+        if arrs is None:
+            arrs, decode_s = [], 0.0
+            for p in paths:
+                t1 = time.perf_counter()
+                img = nifti.load(p)
+                decode_s += time.perf_counter() - t1
+                arrs.append(nifti.to_ras(_c_int8(img.data), img.affine)[0])
+            record = {"reader": "python", "decode_s": decode_s}
+            t1 = t0 + decode_s
+        host = np.stack(arrs).reshape(len(opts), 4, *arrs[0].shape)
+        record["to_ras_s"] = time.perf_counter() - t1
+        return host, record
+
+    def upload(self, host: np.ndarray):
+        """``host`` on the cache's device: (tensor, host seconds spent pinning,
+        the copy's (start, end) CUDA events or None). On CUDA through a
+        pinned buffer, copied without blocking on the current stream; the
+        buffer is kept until the copy completes."""
+        t = torch.from_numpy(host)
+        if self.device.type == "cpu":
+            return t, 0.0, None
+        self._staging = [(ev, buf) for ev, buf in self._staging if not ev.query()]
+        t0 = time.perf_counter()
+        pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        pinned.copy_(t)
+        pin_s = time.perf_counter() - t0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = pinned.to(self.device, non_blocking=True)
+        end.record()
+        self._staging.append((end, pinned))
+        return out, pin_s, (start, end)
+
+    def bank(self, name: str) -> torch.Tensor:
+        """The (n_options, 4, D, H, W) int8 bank of subject ``name``, ready
+        for use on the current stream."""
+        if name in self._cache:
+            self._cache.move_to_end(name)
+            return self._cache[name].get()[0]
+        host, record = self._load_all(name)
+        arr, record["pin_s"], record["upload"] = self.upload(host)
+        record["bytes"] = arr.numel()
+        self.records[name] = record
+        self._cache[name] = _Ready(arr)
+        self._bytes += arr.numel()
+        while self._bytes > self.max_bytes and len(self._cache) > 1:
+            _, evicted = self._cache.popitem(last=False)
+            self._bytes -= evicted.tensors[0].numel()  # int8: 1 byte each
+        return arr
+
+
+class SyntheticStream:
+    """Iterator of device-generated batches from a ``FetalSynthDataset``.
+
+    Each batch mixes subjects per element from the resident subjects' seed
+    banks, composes each element's seeds on the device and runs the batch
+    through ``synth_core``; the images are divided by each sample's peak.
+    The stream runs on the dataset generator's device (CUDA unless the
+    generator says ``device: cpu``). With ``prefetch`` a producer thread
+    generates the next batch on the device's side stream while the caller
+    holds the current one; one producer runs at a time, so the host draws
+    keep their order and prefetch on and off give the same batches.
+
+    Host draws: the subject of each element comes from
+    ``np.random.default_rng(seed)`` as in the JAX stream (the same residents
+    and subjects per batch for one seed); each element's integer seed, which
+    seeds its ``torch.Generator`` for the parameters and voxel fields, and the
+    (B, 4) uniforms that choose its options come from a second generator
+    derived from ``seed``. Every batch carries them in ``"meta"``;
+    :meth:`replay_batch` and :meth:`replay_sample` re-create a batch or one
+    element bit for bit on the same device. ``banks`` is the stream's
+    :class:`SeedBankCache`.
+
+    Args:
+        artifacts: the generator's SR artifacts are not ported to the stream
+            yet: with ``artifacts=True`` a generator that configures any
+            raises ``NotImplementedError``; ``artifacts=False`` runs without.
+        mix_subjects: subjects resident at once (elements draw uniformly
+            among them); the resident set rotates by one subject per batch
+            when the dataset has more.
+        genparams: pins for the stream's artifact chain, read under
+            ``"artifacts"`` or ``"artifact_params"``; the artifact-free
+            batch has nothing they pin.
+    """
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int = 4,
+        seed: int = 0,
+        prefetch: bool = True,
+        artifacts: bool = True,
+        mix_subjects: int = 2,
+        genparams: dict | None = None,
+    ):
+        gen = dataset.generator
+        self.device = torch.device(getattr(gen, "device", None) or "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"SyntheticStream: the generator's device {self.device} means CUDA, but "
+                "torch.cuda.is_available() is false; set the generator's `device: cpu`"
+            )
+        configured = sorted(k for k, v in (getattr(gen, "artifacts", None) or {}).items() if v is not None)
+        if artifacts and configured:
+            raise NotImplementedError(
+                f"SyntheticStream: the generator configures the SR artifacts {configured}, whose "
+                "stream chain is not ported yet (ROADMAP item 7); pass artifacts=False to stream "
+                "without them"
+            )
+        self.dataset = dataset
+        self.cfg = gen.cfg
+        self.batch_size = batch_size
+        self.prefetch = prefetch
+        gp = {k: v for k, v in (genparams or {}).items() if v is not None}
+        self.genparams = gp
+        self.artifact_pins = {
+            k: v for k, v in (gp.get("artifacts", gp.get("artifact_params")) or {}).items() if v is not None
+        }
+        self._rng = np.random.default_rng(seed)
+        self._draws = np.random.default_rng([seed, 1])
+        self.banks = SeedBankCache(dataset.seed_paths, device=self.device)
+        self._names = sorted(dataset.seed_paths.keys())
+        self._segs: dict[str, _Ready] = {}
+        self._i = 0
+        self._lo = max(self.cfg.intensity.min_subclusters - 1, 0)
+        self.mix_subjects = max(1, min(int(mix_subjects), len(self._names)))
+        self._resident: list[str] = []
+        self._mega: _Ready | None = None
+        # one batch (or replay) at a time: the host draws, the resident set
+        # and the bank cache are shared by producers and replays
+        self._lock = threading.RLock()
+
+    def _seg(self, name: str) -> torch.Tensor:
+        if name not in self._segs:
+            idx = [self.dataset._sub_ses_idx(i) for i in range(len(self.dataset.sub_ses))].index(name)
+            seg = nifti.load_ras(str(self.dataset.segm_paths[idx])).data.astype(np.int16)
+            self._segs[name] = _Ready(self.banks.upload(seg)[0])
+        return self._segs[name].get()[0]
+
+    def _stack_banks(self, names: list[str]):
+        """The batch program's (mega, segs, hi) for resident ``names``.
+
+        Deterministic in ``names`` (banks decode from disk), so a replay
+        rebuilds identical inputs from the resident list alone.
+        """
+        banks = [self.banks.bank(n) for n in names]
+        n_opt = max(b.shape[0] for b in banks)
+        padded = [
+            b if b.shape[0] == n_opt else torch.cat([b, b[-1:].expand(n_opt - b.shape[0], *b.shape[1:])])
+            for b in banks
+        ]
+        hi = [min(self.cfg.intensity.max_subclusters, b.shape[0]) for b in banks]
+        return (
+            torch.stack(padded),
+            torch.stack([self._seg(n) for n in names]),
+            device_const(hi, torch.int32, self.device),
+        )
+
+    def _rotate_residents(self):
+        """Advance the resident subjects by one (round-robin) and restack
+        their banks; host I/O only on a bank cache miss."""
+        want = [self._names[(self._i + j) % len(self._names)] for j in range(self.mix_subjects)]
+        self._i += 1
+        if want == self._resident:
+            return
+        self._resident = want
+        self._mega = _Ready(*self._stack_banks(want))
+
+    def _run(self, meta: dict, mega, segs, hi):
+        dev = self.device
+        gens = make_generators(meta["seeds"], dev)
+        p = sample_params(gens, self.cfg)
+        fields = draw_fields(gens, self.cfg, dev)
+        subj = device_const(meta["subj"], torch.int64, dev)
+        u = device_const(meta["u"], torch.float32, dev)
+        images, labels = batch_program(mega, segs, hi, subj, u, p, fields, self.cfg, self._lo)
+        return {
+            "image": images,
+            "label": labels,
+            "name": tuple(meta["resident"][int(s)] for s in meta["subj"]),
+            "meta": meta,
+        }
+
+    def _generate(self) -> dict:
+        B = self.batch_size
+        with self._lock:
+            if self._mega is None or len(self._names) > self.mix_subjects:
+                self._rotate_residents()
+            meta = {
+                "seeds": self._draws.integers(0, 2**31 - 1, B),
+                "u": self._draws.random((B, 4), dtype=np.float32),
+                "resident": tuple(self._resident),
+                # subject per element, the JAX stream's only draw from this rng
+                "subj": self._rng.integers(0, len(self._resident), B),
+                "batch_size": B,
+            }
+            return self._run(meta, *self._mega.get())
+
+    def replay_batch(self, meta: dict) -> dict:
+        """Re-generate a batch bit for bit from its ``meta`` record, on this
+        stream or a fresh one with the same configuration and device."""
+        B = int(meta["batch_size"])
+        if B != self.batch_size:
+            raise ValueError(
+                f"meta was produced with batch_size={B}, this stream uses "
+                f"{self.batch_size}; construct a stream with batch_size={B}"
+            )
+        with self._lock:
+            return self._run(meta, *self._stack_banks(list(meta["resident"])))
+
+    def replay_sample(self, meta: dict, index: int) -> dict:
+        """One element of a recorded batch (see :meth:`replay_batch`)."""
+        batch = self.replay_batch(meta)
+        return {"image": batch["image"][index], "label": batch["label"][index], "name": batch["name"][index]}
+
+    def _produce(self, box: dict) -> None:
+        """Generate one batch into ``box``; on CUDA on the side stream, with
+        the event that completes it. An exception is kept for the consumer."""
+        try:
+            if self.device.type == "cuda":
+                stream = _side_stream(self.device)
+                with torch.cuda.device(self.device), torch.cuda.stream(stream):
+                    box["batch"] = self._generate()
+                    box["event"] = torch.cuda.Event()
+                    box["event"].record(stream)
+            else:
+                box["batch"] = self._generate()
+        except Exception as e:  # noqa: BLE001 - re-raised in the consumer
+            box["error"] = e
+
+    def _start(self) -> tuple[threading.Thread, dict]:
+        box: dict = {}
+        t = threading.Thread(target=self._produce, args=(box,), name="fsg-stream-producer")
+        t.start()
+        return t, box
+
+    def _receive(self, box: dict) -> dict:
+        """The producer's batch, ready on the consumer's current stream."""
+        if "error" in box:
+            raise box["error"]
+        batch = box["batch"]
+        if "event" in box:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(box["event"])
+            batch["image"].record_stream(cur)
+            batch["label"].record_stream(cur)
+        return batch
+
+    def __iter__(self):
+        if not self.prefetch:
+            while True:
+                yield self._generate()
+        t, box = self._start()
+        try:
+            while True:
+                t.join()
+                batch = self._receive(box)
+                t, box = self._start()
+                yield batch
+        finally:
+            t.join()

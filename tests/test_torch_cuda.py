@@ -538,3 +538,97 @@ def test_hat_variant_longest_row(dev):
     wide = torch.zeros((1, 32, S + 1), device=dev)
     with pytest.raises(ValueError, match="at most"):
         probes.hat_variant(wide, coefs, torch.zeros((3, S + 1), device=dev), 0)
+
+
+# ---------------------------------------------------------------------------
+# the artifact-free input stream on the card, at 64^3
+# ---------------------------------------------------------------------------
+
+STREAM_SHAPE = (64, 64, 64)
+
+
+@pytest.fixture
+def stream_ds(dev, tmp_path):
+    from fetalsyngen_torch.data.datasets import FetalSynthDataset
+    from fetalsyngen_torch.generator import model as m
+    from fetalsyngen_torch.testing import build_bids_tree
+
+    root = build_bids_tree(tmp_path / "bids", shape=STREAM_SHAPE)
+    labels = [0] + list(range(10, 50))
+    classes = [0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50))
+    gen = m.FetalSynthGen(
+        shape=STREAM_SHAPE, resolution=(0.5, 0.5, 0.5),
+        intensity_generator=m.ImageFromSeeds(1, 2, labels, classes),
+        spatial_deform=m.SpatialDeformation(20, 0.02, 0.1, STREAM_SHAPE, 0.9, True, 0.03, 0.06, 4.0, 0.5),
+        resampler=m.RandResample(0.9, 0.5, 1.5), bias_field=m.RandBiasField(0.9, 0.004, 0.02, 0.01, 0.3),
+        noise=m.RandNoise(0.9, 5, 15), gamma=m.RandGamma(0.9, 0.1), device=dev, seed=0,
+    )
+    return FetalSynthDataset(str(root), gen, str(root / "derivatives" / "seeds"))
+
+
+def _take(stream, n):
+    it = iter(stream)
+    try:
+        return [next(it) for _ in range(n)]
+    finally:
+        it.close()
+
+
+def test_stream_matches_cpu(stream_ds):
+    """A batch on the card against the port's batch program on the CPU, with
+    the card's parameters and fields: image within 1e-4, labels differing on
+    at most 1e-5 of voxels (chip_smoke's bars)."""
+    from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream, batch_program
+
+    stream = SyntheticStream(stream_ds, batch_size=2, seed=1, prefetch=False)
+    batch = _take(stream, 1)[0]
+    meta = batch["meta"]
+    assert batch["image"].device.type == "cuda" and stream.banks.records[meta["resident"][0]]["reader"] == "native"
+    gens = tpipe.make_generators(meta["seeds"], stream.device)
+    p = sample_params(gens, stream.cfg)
+    f = tpipe.draw_fields(gens, stream.cfg, stream.device)
+    mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+    img, seg = batch_program(
+        mega.cpu(), segs.cpu(), hi.cpu(), torch.from_numpy(meta["subj"]), torch.from_numpy(meta["u"]),
+        p.to("cpu"), f.to("cpu"), stream.cfg, stream._lo,
+    )
+    torch.testing.assert_close(batch["image"].cpu(), img, rtol=0, atol=1e-4)
+    assert (batch["label"].cpu() != seg).sum().item() <= 1e-5 * seg.numel()
+
+
+def test_stream_replay_and_prefetch_bit_identical(stream_ds):
+    from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream
+
+    on = _take(SyntheticStream(stream_ds, batch_size=2, seed=4, prefetch=True), 3)
+    off = _take(SyntheticStream(stream_ds, batch_size=2, seed=4, prefetch=False), 3)
+    for a, b in zip(on, off):
+        assert torch.equal(a["image"], b["image"]) and torch.equal(a["label"], b["label"])
+    fresh = SyntheticStream(stream_ds, batch_size=2, seed=0, prefetch=False)
+    for b in (on[2], off[1]):
+        r = fresh.replay_batch(b["meta"])
+        assert torch.equal(r["image"], b["image"]) and torch.equal(r["label"], b["label"])
+
+
+def test_stream_launches_k1_three_times_per_batch(stream_ds):
+    from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream
+
+    stream = SyntheticStream(stream_ds, batch_size=2, seed=2, prefetch=False)
+    _take(stream, 1)
+    for k in hat.LAUNCHES:
+        hat.LAUNCHES[k] = 0
+    _take(stream, 4)
+    torch.cuda.synchronize()
+    assert hat.LAUNCHES == {**dict.fromkeys(hat.LAUNCHES, 0), "hat_pass_pair": 12}
+
+
+def test_many_prefetching_iterators_share_one_side_stream(stream_ds):
+    """More prefetching iterators than the ring kernels' 64 tile-counter
+    slots: every producer runs on the device's one side stream."""
+    from fetalsyngen_torch.parallel import input_pipeline as ip
+
+    stream = ip.SyntheticStream(stream_ds, batch_size=1, seed=3, prefetch=True)
+    for _ in range(70):
+        batch = _take(stream, 1)[0]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(batch["image"]).all())
+    assert list(ip._SIDE_STREAMS) == [stream.device.index]

@@ -231,7 +231,8 @@ def test_port_imports_no_jax():
               "generator.artifacts.draws", "generator.artifacts.transforms", "generator.artifacts.motion",
               "generator.artifacts.psf", "generator.artifacts.quality", "generator.artifacts.scanner",
               "kernels.probes", "probes.timing", "probes.microbench_warp", "probes.probe_blocktp",
-              "probes.profile_kernel_variants", "probes.ring_profile"):
+              "probes.profile_kernel_variants", "probes.ring_profile", "io.native",
+              "parallel.input_pipeline"):
         assert f"fetalsyngen_torch.{m}" in mods
     # PyYAML is blocked too: only ``config.load_yaml`` may need it. The
     # recorded trajectories are the port's own file.

@@ -1,0 +1,404 @@
+"""The port's artifact-free input stream against the JAX package's, on the CPU.
+
+The native loader, the seed banks, the seed composition and the choice law
+are held against ``fetalsyngen_tpu.io.native`` and
+``fetalsyngen_tpu.parallel.input_pipeline`` on a 32^3 mini-BIDS tree. The
+whole batch is held against the JAX stream's (f32 contract,
+``FSG_STREAM_BF16=0``): the port's batch program gets JAX's draws (the
+per-sample keys' ``GenParams`` and voxel fields, and the uniforms that
+choose the options) and must give the image within 1e-4 (values in [0, 1])
+and the same labels. The rest holds the port's stream to its own contract:
+names, replay, prefetch, the refusals.
+"""
+
+import dataclasses
+import sys
+import threading
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from fetalsyngen_tpu.data.datasets import FetalSynthDataset as JaxDataset
+from fetalsyngen_tpu.generator import model as jmodel
+from fetalsyngen_tpu.generator import params as jparams
+from fetalsyngen_tpu.io import native as jnative
+from fetalsyngen_tpu.parallel import input_pipeline as jpipe
+from fetalsyngen_torch.convert import fields_from_numpy, params_from_numpy
+from fetalsyngen_torch.data.datasets import FetalSynthDataset
+from fetalsyngen_torch.generator import pipeline as tpipe
+from fetalsyngen_torch.generator.artifacts import quality as tq
+from fetalsyngen_torch.io import native, nifti
+from fetalsyngen_torch.parallel import input_pipeline as tstream
+from fetalsyngen_torch.testing import build_bids_tree
+
+REPO = Path(__file__).resolve().parent.parent
+SHAPE = (32, 32, 32)
+B = 2
+LABELS = [0] + list(range(10, 50))
+GEN_CLASSES = [0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50))
+
+
+def _generator(mod, **kw):
+    """``small_generator`` of the dataset tests at 32^3, from the port's
+    model module or JAX's."""
+    return mod.FetalSynthGen(
+        shape=SHAPE,
+        resolution=(0.5, 0.5, 0.5),
+        intensity_generator=mod.ImageFromSeeds(1, 2, LABELS, GEN_CLASSES),
+        spatial_deform=mod.SpatialDeformation(20, 0.02, 0.1, SHAPE, 0.9, True, 0.03, 0.06, 4.0, 0.5),
+        resampler=mod.RandResample(0.9, 0.5, 1.5),
+        bias_field=mod.RandBiasField(0.9, 0.004, 0.02, 0.01, 0.3),
+        noise=mod.RandNoise(0.9, 5, 15),
+        gamma=mod.RandGamma(0.9, 0.1),
+        seed=0,
+        **kw,
+    )
+
+
+def _port_generator(**kw):
+    from fetalsyngen_torch.generator import model
+
+    return _generator(model, device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def root(tmp_path_factory):
+    return build_bids_tree(tmp_path_factory.mktemp("bids"), shape=SHAPE)
+
+
+@pytest.fixture(scope="module")
+def ds(root):
+    return FetalSynthDataset(str(root), _port_generator(), str(root / "derivatives" / "seeds"))
+
+
+@pytest.fixture(scope="module")
+def jds(root):
+    return JaxDataset(str(root), _generator(jmodel), str(root / "derivatives" / "seeds"))
+
+
+@pytest.fixture(scope="module")
+def seed_files(root):
+    return sorted(str(p) for p in root.glob("derivatives/seeds/subclasses_2/sub-aaa/anat/*.nii.gz"))
+
+
+def _batches(stream, n):
+    it = iter(stream)
+    try:
+        return [next(it) for _ in range(n)]
+    finally:
+        it.close()
+
+
+def _equal(a, b):
+    return torch.equal(a["image"], b["image"]) and torch.equal(a["label"], b["label"]) and a["name"] == b["name"]
+
+
+# ---------------------------------------------------------------------------
+# native loader
+# ---------------------------------------------------------------------------
+
+
+def test_native_source_is_jax_copy_and_builds_under_build_dir():
+    assert native.SOURCE.read_bytes() == (REPO / "fetalsyngen_tpu/io/native/nifti_loader.cpp").read_bytes()
+    assert native.available(), native.build_error()
+    assert native.build_error() is None
+    lib = Path(native.get_lib()._name)
+    assert lib.parent == REPO / "build" / "fetalsyngen_torch_native" and lib.exists()
+    assert not list(native.SOURCE.parent.glob("*.so"))
+
+
+def test_native_batch_matches_jax_and_python_reader(seed_files):
+    assert len(seed_files) == 4
+    got = native.load_labels_batch(seed_files, SHAPE)
+    ref = jnative.load_labels_batch(seed_files, SHAPE)
+    assert got is not None and ref is not None and len(got) == len(seed_files)
+    for g, r, p in zip(got, ref, seed_files):
+        assert g.dtype == np.int32 and g.shape == SHAPE
+        np.testing.assert_array_equal(g, r)
+        np.testing.assert_array_equal(g, nifti.load(p).data.astype(np.int32))
+
+
+def test_native_shape_mismatch_returns_none(seed_files):
+    assert native.load_labels_batch(seed_files, (8, 8, 8)) is None
+    assert jnative.load_labels_batch(seed_files, (8, 8, 8)) is None
+
+
+def test_failed_build_is_reported_and_banks_fall_back(ds, tmp_path, monkeypatch):
+    """A compiler that fails leaves no library, ``build_error`` holds its
+    message, and the bank cache decodes with the Python reader, saying so,
+    into the same bytes."""
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_error", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    assert native.get_lib() is None and not native.available()
+    assert "no-such-compiler" in native.build_error()
+    assert not list((tmp_path / "native").glob("*.so"))
+    name = sorted(ds.seed_paths)[0]
+    cache = tstream.SeedBankCache(ds.seed_paths)
+    bank = cache.bank(name)
+    assert cache.records[name]["reader"] == "python"
+    monkeypatch.undo()
+    native_cache = tstream.SeedBankCache(ds.seed_paths)
+    assert torch.equal(native_cache.bank(name), bank)
+    assert native_cache.records[name]["reader"] == "native"
+
+
+# ---------------------------------------------------------------------------
+# seed banks, composition, the choice law
+# ---------------------------------------------------------------------------
+
+
+def test_banks_equal_jax_byte_for_byte(ds, jds):
+    port = tstream.SeedBankCache(ds.seed_paths)
+    ref = jpipe.SeedBankCache(jds.seed_paths)
+    assert port.max_bytes == ref.max_bytes
+    for name in sorted(ds.seed_paths):
+        got, want = port.bank(name), np.asarray(ref.bank(name))
+        assert got.dtype == torch.int8 and got.device.type == "cpu"
+        assert tuple(got.shape) == want.shape == (2, 4, *SHAPE)
+        assert got.numpy().tobytes() == want.tobytes()
+        rec = port.records[name]
+        assert rec["reader"] == "native" and rec["upload"] is None
+        assert min(rec["decode_s"], rec["to_ras_s"]) >= 0.0
+    assert port.nbytes == ref.nbytes
+
+
+def test_bank_cache_evicts_by_bytes_in_lru_order(ds, jds):
+    """As ``tests/test_input_pipeline.py``: a budget of one bank keeps the
+    last; with a budget of two banks, the least recently used goes, in the
+    same order as JAX's cache."""
+    names = sorted(ds.seed_paths)
+    one = tstream.SeedBankCache(ds.seed_paths).bank(names[0]).numel()
+    cache = tstream.SeedBankCache(ds.seed_paths, max_bytes=one)
+    cache.bank(names[0])
+    cache.bank(names[1])
+    assert list(cache._cache) == [names[1]] and cache.nbytes <= one
+    # a third subject (an alias of the first) makes an LRU order observable
+    order = [names[0], names[1], names[0], "sub-ccc", names[1]]
+    kept = []
+    for mod, paths in ((tstream, dict(ds.seed_paths)), (jpipe, dict(jds.seed_paths))):
+        paths["sub-ccc"] = paths[names[0]]
+        c = mod.SeedBankCache(paths, max_bytes=2 * one)
+        steps = []
+        for n in order:
+            c.bank(n)
+            steps.append(list(c._cache))
+        kept.append(steps)
+        assert c.nbytes == 2 * one
+    assert kept[0] == kept[1]
+    assert kept[0][3] == [names[0], "sub-ccc"]
+
+
+@pytest.mark.parametrize("choices", [(0, 1, 0, 1), (1, 1, 1, 1), (1, 0, 0, 1)])
+def test_compose_seeds_matches_jax(ds, jds, choices):
+    name = sorted(ds.seed_paths)[1]
+    bank = tstream.SeedBankCache(ds.seed_paths).bank(name)
+    got = tstream.compose_seeds(bank, torch.tensor(choices, dtype=torch.int32))
+    jbank = jpipe.SeedBankCache(jds.seed_paths).bank(name)
+    want = np.asarray(jpipe.compose_seeds(jbank, jnp.asarray(choices, jnp.int32)))
+    assert got.dtype == torch.int32 and tuple(got.shape) == SHAPE
+    np.testing.assert_array_equal(got.numpy(), want)
+    host = sum(bank[c, m].numpy().astype(np.int32) for m, c in enumerate(choices))
+    np.testing.assert_array_equal(got.numpy(), host)
+
+
+def _jax_choice(u, hi_s, lo):
+    """The JAX stream's choice law (``input_pipeline.py:190-192``) on (B, 4)."""
+    ch = lo + jnp.floor(u * (hi_s - lo).astype(jnp.float32)[:, None]).astype(jnp.int32)
+    return jnp.clip(ch, lo, hi_s[:, None] - 1)
+
+
+@pytest.mark.parametrize("lo", [0, 1])
+def test_choice_law_matches_jax(lo):
+    rng = np.random.default_rng(4)
+    below_one = np.nextafter(np.float32(1), np.float32(0))
+    # products landing exactly on integers (0.5 * 2, 0.25 * 4, 0.75 * 4 ...),
+    # the ends of [0, 1), then random draws
+    exact = np.array([0.0, 0.5, 0.25, 0.75, 1 / 3, 2 / 3, 0.2, 0.6, below_one], np.float32)
+    u = np.concatenate([np.resize(exact, 36), rng.random(60, dtype=np.float32)]).reshape(-1, 4)
+    hi = np.resize(np.array([2, 3, 4, 5, 6], np.int32), len(u))
+    hi = np.maximum(hi, lo + 1)
+    got = tstream.choose_options(torch.from_numpy(u), torch.from_numpy(hi), lo)
+    want = np.asarray(_jax_choice(jnp.asarray(u), jnp.asarray(hi), lo))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy() >= lo).all() and (got.numpy() < hi[:, None]).all()
+
+
+@pytest.mark.parametrize("dtype, V", [(torch.int8, 64), (torch.int8, 27), (torch.int16, 12), (torch.int16, 10)])
+def test_take_rows_is_indexing(dtype, V):
+    """The batch program's word-wise gather equals plain indexing, whether
+    or not a row holds whole 8-byte words."""
+    t = torch.randint(-100, 100, (6, V), generator=torch.Generator().manual_seed(V)).to(dtype)
+    rows = torch.tensor([[1, 5, 0, 2], [3, 3, 4, 0]])
+    assert torch.equal(tstream._take_rows(t, rows), t[rows])
+
+
+# ---------------------------------------------------------------------------
+# the whole batch against the JAX stream
+# ---------------------------------------------------------------------------
+
+
+def _jax_draws(sub, cfg, n):
+    """The JAX stream's per-sample parameters and fields (from ``split(sub,
+    n)``) and its option uniforms (``fold_in(sub, 2)``), as numpy."""
+    keys = jax.random.split(jnp.asarray(sub), n)
+    shapes = tpipe.field_shapes(cfg)
+    params, fields = [], []
+    for key in keys:
+        p = jparams.sample_params(key, cfg)
+        params.append({f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)})
+        fields.append({
+            k: np.asarray(jax.random.normal(jparams.field_key(key, f"field_{k}"), shp, jnp.float32))
+            for k, shp in shapes.items()
+        })
+    u = np.asarray(jax.random.uniform(jax.random.fold_in(jnp.asarray(sub), 2), (n, 4)))
+    stack = lambda ds_: {k: np.stack([d[k] for d in ds_]) for k in ds_[0]}  # noqa: E731
+    return stack(params), stack(fields), u
+
+
+def test_batch_matches_jax_stream(ds, jds, monkeypatch):
+    monkeypatch.setenv("FSG_STREAM_BF16", "0")
+    jstream = jpipe.SyntheticStream(jds, batch_size=B, seed=0, prefetch=False, artifacts=False)
+    jbatch = next(iter(jstream))
+    meta = jbatch["meta"]
+    params, fields, u = _jax_draws(meta["sub"], jstream.cfg, B)
+
+    stream = tstream.SyntheticStream(ds, batch_size=B, seed=0, prefetch=False, artifacts=False)
+    mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+    image, label = tstream.batch_program(
+        mega, segs, hi, torch.tensor(meta["subj"]), torch.tensor(u),
+        params_from_numpy(params), fields_from_numpy(**fields), stream.cfg, stream._lo,
+    )
+    j_image, j_label = np.asarray(jbatch["image"]), np.asarray(jbatch["label"])
+    assert image.shape == (B, *SHAPE) and label.dtype == torch.int32
+    assert float(image.min()) >= 0.0 and float(image.amax(dim=(1, 2, 3)).min()) == 1.0
+    np.testing.assert_allclose(image.numpy(), j_image, atol=1e-4, rtol=0)
+    flips = np.argwhere(label.numpy() != j_label)
+    assert len(flips) == 0, f"{len(flips)} labels differ, first at {flips[:8].tolist()}"
+    # the port's own stream draws the same residents and subjects per batch
+    assert next(iter(stream))["name"] == jbatch["name"]
+
+
+def test_names_rotate_as_jax(ds, jds):
+    """With one resident subject the set rotates each batch; for one seed
+    the port's stream names the same subjects as JAX's, batch by batch. The
+    names are host draws: JAX's device program is replaced by a stub that
+    returns nothing, so no JAX program compiles."""
+    jstream = jpipe.SyntheticStream(jds, batch_size=B, seed=5, prefetch=False, artifacts=False, mix_subjects=1)
+    jstream._batch_fn = lambda *a: (None, None)
+    want = [jstream._generate()["name"] for _ in range(3)]
+    stream = tstream.SyntheticStream(ds, batch_size=B, seed=5, prefetch=False, artifacts=False, mix_subjects=1)
+    got = [b["name"] for b in _batches(stream, 3)]
+    assert got == want
+    assert {n[0] for n in got} == set(ds.seed_paths)
+
+
+# ---------------------------------------------------------------------------
+# the port's own contract
+# ---------------------------------------------------------------------------
+
+
+def test_replay_is_bit_identical(ds):
+    stream = tstream.SyntheticStream(ds, batch_size=B, seed=3, prefetch=False)
+    batches = _batches(stream, 3)
+    assert set(batches[0]["meta"]) == {"seeds", "u", "resident", "subj", "batch_size"}
+    assert not torch.equal(batches[0]["image"], batches[1]["image"])
+    meta = batches[1]["meta"]
+    assert _equal(stream.replay_batch(meta), batches[1])
+    fresh = tstream.SyntheticStream(ds, batch_size=B, seed=99, prefetch=False)
+    assert _equal(fresh.replay_batch(meta), batches[1])
+    one = fresh.replay_sample(meta, 1)
+    assert torch.equal(one["image"], batches[1]["image"][1]) and one["name"] == batches[1]["name"][1]
+    with pytest.raises(ValueError, match="batch_size"):
+        tstream.SyntheticStream(ds, batch_size=B + 1, seed=3, prefetch=False).replay_batch(meta)
+
+
+def test_prefetch_on_and_off_give_the_same_batches(ds):
+    on = _batches(tstream.SyntheticStream(ds, batch_size=B, seed=11, prefetch=True), 3)
+    off = _batches(tstream.SyntheticStream(ds, batch_size=B, seed=11, prefetch=False), 3)
+    assert all(_equal(a, b) for a, b in zip(on, off))
+
+
+def test_producer_error_reaches_the_consumer(ds, monkeypatch):
+    stream = tstream.SyntheticStream(ds, batch_size=B, seed=0, prefetch=True)
+
+    def fail(*a):
+        raise ValueError("producer failed")
+
+    monkeypatch.setattr(stream, "_run", fail)
+    with pytest.raises(ValueError, match="producer failed"):
+        next(iter(stream))
+
+
+def test_concurrent_iterators_keep_the_draws_whole(ds):
+    """Two prefetching iterators and replays on one stream, with a short
+    switch interval: every batch is the replay of its own meta, and the
+    draws together are the sequential stream's first six."""
+    stream = tstream.SyntheticStream(ds, batch_size=1, seed=21, prefetch=True)
+    got, errors = [], []
+
+    def pull():
+        try:
+            it = iter(stream)
+            for _ in range(3):
+                got.append(next(it))
+            it.close()
+        except Exception as e:  # noqa: BLE001 - reported by the assertion below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=pull) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors and not any(t.is_alive() for t in threads)
+    seq = _batches(tstream.SyntheticStream(ds, batch_size=1, seed=21, prefetch=False), 6)
+    key = lambda b: int(b["meta"]["seeds"][0])  # noqa: E731
+    assert sorted(map(key, got)) == sorted(map(key, seq))
+    for b in got:
+        assert _equal(stream.replay_batch(b["meta"]), b)
+
+
+def test_artifacts_refused_until_ported(root):
+    gen = _port_generator(blur_cortex=tq.BlurCortex(1.0, 2, 5, 20))
+    ads = FetalSynthDataset(str(root), gen, str(root / "derivatives" / "seeds"))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tstream.SyntheticStream(ads, batch_size=B)
+    stream = tstream.SyntheticStream(ads, batch_size=B, artifacts=False, prefetch=False)
+    batch = next(iter(stream))
+    assert batch["image"].shape == (B, *SHAPE)
+
+
+def test_genparams_pins_read_under_both_keys(ds):
+    pins = {"blur_cortex": {"nblur": 9}, "struct_noise": None}
+    for key in ("artifacts", "artifact_params"):
+        stream = tstream.SyntheticStream(ds, batch_size=B, genparams={key: pins, "seed": None})
+        assert stream.artifact_pins == {"blur_cortex": {"nblur": 9}}
+        assert stream.genparams == {key: pins}
+
+
+def test_default_device_needs_a_card(root):
+    """A generator without a device means CUDA; without a card the stream
+    refuses, it does not fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+
+    class _Gen:
+        cfg = _port_generator().cfg
+        artifacts = {}
+
+    cuda_ds = FetalSynthDataset(str(root), _Gen(), str(root / "derivatives" / "seeds"))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        tstream.SyntheticStream(cuda_ds, batch_size=B)
