@@ -97,6 +97,30 @@ operations over 67 TFLOP/s.
     enqueue against its CUDA-event time and a profiler trace with prefetch
     on (kernel time against the host clock).
 
+12. the input stream with the SR artifacts (``SyntheticStream``, B=4
+    256^3) on ``data/sub-sta21`` with ``synth_train.yaml``'s generator, its
+    four artifacts at the YAML's probabilities: vol/s with prefetch on and
+    off over 24 batches after 2 warm-ups, beside phase 9's API samples/s
+    with the artifacts and phase 11's artifact-free stream, the host's
+    ``pack_motion`` ms a batch, the share of samples per motion engine
+    (small / 384 / 512 / 640 / off) and the stacks accepted; prefetch on and
+    off bit-identical, replay bit-identical on the same and a fresh stream.
+    Then one B=4 batch with every artifact forced on, and one B=1 batch per
+    engine through ``resolution_slice`` pins (0.7 / 0.5 / 0.35 / 0.25 mm),
+    each with the dz-split and the coarse weight as they default, and with
+    each turned off: per-artifact CUDA events, K1/K2 launches per form, peak
+    memory; each replayed with every K1/K2 launch held against its plain
+    version on the same inputs (bit-identical). One forced batch under sync
+    debug mode "error" (the chain lifts it around its one planned read of the
+    validity flags); one B=1 forced batch on the card against the port's CPU
+    path (the core's labels within phase 11's bar; the chain on the CPU from
+    the card's core output with the card's recorded draws: the same validity
+    flags, within 1e-4 of its scale outside the voxels whose recon weight
+    crosses 1e-2 or whose boundaries mask differs between the two, their
+    share at most 1e-3). Each K1/K2 form at each
+    shape the stream gave it is then timed against its plain version, its
+    bound and ``grid_sample``: the kernel entries ``stream:<form>``.
+
 Phase 3 also holds K1's form without a displacement (the probes'
 ``pair_l_nodisp`` and ``pair_u`` coefficients, and crafted half-integers)
 and K2's lane-affine form (K7's inputs, and a wide table at 256^3) against
@@ -116,7 +140,9 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -133,6 +159,7 @@ import torch.nn.functional as F
 from fetalsyngen_torch.data.datasets import FetalSynthDataset
 from fetalsyngen_torch.data.transforms import scale_intensity
 from fetalsyngen_torch.generator import pipeline as tpipe
+from fetalsyngen_torch.generator.artifacts import batched as tba
 from fetalsyngen_torch.generator.artifacts import quality as tq
 from fetalsyngen_torch.generator.artifacts import scanner as sc
 from fetalsyngen_torch.generator.artifacts.motion import sample_motion
@@ -188,6 +215,18 @@ KERNELS = {
     **{f"hat_variant_v{v}": ("fetalsyngen_torch/csrc/hat_single.cu", "scripts/profile_kernel_variants.py:35")
        for v in probes.VARIANTS},
 }
+
+
+# phase 12: the stream's K1/K2 forms, held and timed at the stream's own
+# shapes; their kernel entries are named "stream:<form>"
+STREAM_FORMS = ("hat_pass_lane", "hat_pass_slice", "hat_pass_pair_lane")
+for _form in STREAM_FORMS:
+    KERNELS[f"stream:{_form}"] = KERNELS[_form]
+# (engine, pinned slice resolution in mm) of phase 12's per-engine batches
+STREAM_ENGINES = (("small", 0.7), ("384", 0.5), ("512", 0.35), ("640", 0.25))
+# every artifact's gate forced on (the motion artifact's by any pin)
+FORCED_GATES = {"blur_cortex": {"apply": True}, "struct_noise": {"apply": True}, "boundaries": {"apply": True}}
+FLIP_SHARE_MAX = 1e-3  # GPU vs CPU: the share of voxels whose recon weight crosses 1e-2
 
 
 def log(msg: str) -> None:
@@ -1319,6 +1358,7 @@ def api_artifacts_phase(dev, forced: bool):
         fired = [a.elapsed_time(b) for a, b, f in t.spans if f]
         per_artifact[k] = {"fired": len(fired), "events_ms_median": statistics.median(fired) if fired else None,
                            "events_ms_max": max(fired) if fired else None}
+    MEASURED[name] = n / dt
     log(json.dumps({"api": name, "samples_per_s": n / dt, "draws": n, "replay_bit_identical": True,
                     "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), "artifacts": per_artifact}))
     return launches
@@ -1426,6 +1466,7 @@ def stream_phase(dev, tree: str, ds) -> int:
         differ = (d_on != d_off).flatten(1).any(1).nonzero().flatten().tolist()
         raise RuntimeError(f"stream {tree}: prefetch on and off differ in batches {differ}")
     core = MEASURED.get("core")
+    MEASURED[f"stream_{tree}"] = n_on["vol_per_s"]
     for n in (n_on, n_off):
         n["core_vol_per_s"] = core
         n["of_core"] = n["vol_per_s"] / core if core else None
@@ -1546,6 +1587,376 @@ def stream_path(dev, t_start) -> int:
     return launches
 
 
+class StreamHatCheck:
+    """Phase 12: the scanner's K1 and K2 entry points, wrapped so that every
+    launch is also run through its plain version on the same inputs and held
+    bit for bit; the first inputs of each (form, shape) are kept for timing."""
+
+    def __init__(self):
+        self.err = collections.defaultdict(float)
+        self.differ = collections.Counter()
+        self.calls = collections.Counter()
+        self.kept = {}
+
+    def single(self, x, coefs, disp=None, nearest=False):
+        out = hat.hat_pass(x, coefs, disp, nearest)
+        key = hat._SINGLE_FORMS[hat._form(nearest, coefs, disp, hat._SINGLE_FORMS, "hat_pass")]
+        self._note(key, (out,), (hat.hat_pass_ref(x, coefs, disp, nearest),), (x, None, coefs, disp))
+        return out
+
+    def pair(self, va, vb, coefs, disp, nearest_b=True):
+        got = hat.hat_pass_pair(va, vb, coefs, disp, nearest_b)
+        key = hat._PAIR_FORMS[hat._form(nearest_b, coefs, disp, hat._PAIR_FORMS, "hat_pass_pair")]
+        self._note(key, got, hat.hat_pass_pair_ref(va, vb, coefs, disp, nearest_b), (va, vb, coefs, disp))
+        return got
+
+    def _note(self, key, got, want, inputs):
+        self.calls[key] += 1
+        self.err[key] = max(self.err[key], max(float((g - w).abs().max()) for g, w in zip(got, want)))
+        self.differ[key] += sum(int((g != w).sum()) for g, w in zip(got, want))
+        shape = tuple(inputs[0].shape)
+        if (key, shape) not in self.kept:
+            self.kept[key, shape] = tuple(None if t is None else t.clone() for t in inputs)
+
+    @contextlib.contextmanager
+    def on(self):
+        saved = sc.hat_pass, sc.hat_pass_pair
+        sc.hat_pass, sc.hat_pass_pair = self.single, self.pair
+        try:
+            yield self
+        finally:
+            sc.hat_pass, sc.hat_pass_pair = saved
+
+
+def stream_ds(dev):
+    """Phase 12's dataset: ``data/sub-sta21`` with ``synth_train.yaml``'s
+    generator, its four SR artifacts at the YAML's probabilities."""
+    gen = api_generator(dev, seed=3, artifacts=default_artifacts())
+    return FetalSynthDataset(str(DATA), gen, seed_path=str(DATA / "derivatives" / "seeds"))
+
+
+def engine_of(pack, b, stream) -> str:
+    """The motion engine sample ``b`` of ``pack`` runs: "off", "small" or
+    its cube tier."""
+    if not pack["motion_on"][b]:
+        return "off"
+    cube, small = tba.engine_cube(tba.row_of(pack, b), stream.cube, stream.small_cube)
+    return "small" if small else str(cube)
+
+
+def drive_artifact_stream(dev, ds, prefetch: bool, iters: int = 24):
+    """Phase 12's drive: ``SyntheticStream`` with the artifacts, 2 warm-up
+    batches then ``iters`` read, the host clock around a read of each batch.
+    Returns its numbers, every batch's digests, its metas and launches."""
+    stream = SyntheticStream(ds, batch_size=BATCH, seed=0, prefetch=prefetch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    before = dict(tba.COUNTS)
+    it = iter(stream)
+    digests, metas = [], []
+    for _ in range(2):
+        b = next(it)
+        float(b["image"][..., ::64, ::64, ::64].sum())
+        digests.append(torch.stack([digest(b["image"]), digest(b["label"])]))
+        metas.append(b["meta"])
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        b = next(it)
+        float(b["image"][..., ::64, ::64, ::64].sum())
+        digests.append(torch.stack([digest(b["image"]), digest(b["label"])]))
+        metas.append(b["meta"])
+    dt = time.perf_counter() - t0
+    it.close()
+    torch.cuda.synchronize()
+    launches = dict(hat.LAUNCHES)
+    counted = {k: tba.COUNTS[k] - before[k] for k in before}
+    engines = collections.Counter(engine_of(m["pack"], i, stream) for m in metas for i in range(BATCH))
+    numbers = {
+        "prefetch": prefetch, "vol_per_s": BATCH * iters / dt, "batches": iters,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), "launches": launches,
+        "engine_share": {k: v / (BATCH * len(metas)) for k, v in sorted(engines.items())},
+        "generated": counted, "stacks_accepted_per_motion_sample":
+            counted["stacks_accepted"] / max(counted["motion_samples"], 1),
+    }
+    return stream, numbers, torch.stack(digests).cpu(), launches
+
+
+@contextlib.contextmanager
+def pinned(stream, B, motion_pins, gates=None, split=True, coarse=True):
+    """``stream`` made to draw B-sample batches with the motion artifact's
+    pins ``motion_pins``, quality gates ``gates`` ((3,) or None) and the
+    engine's dz-split and coarse weight as given, then restored."""
+    saved = stream.batch_size, stream._sm_gp, stream._gates, stream.chain
+    stream.batch_size, stream._sm_gp, stream._gates = B, motion_pins, gates
+    stream.chain = dataclasses.replace(stream.chain, split_dz=split, coarse_w=coarse)
+    try:
+        yield stream
+    finally:
+        stream.batch_size, stream._sm_gp, stream._gates, stream.chain = saved
+
+
+def checked_replay(stream, batch, check, what):
+    """``batch`` replayed with every K1/K2 launch held by ``check``; raises
+    unless it is bit-identical."""
+    with check.on():
+        again = stream.replay_batch(batch["meta"])
+    if not (torch.equal(again["image"], batch["image"]) and torch.equal(again["label"], batch["label"])):
+        raise RuntimeError(f"{what}: the checked replay differs from the batch")
+
+
+def engine_batch(dev, stream, name, rs, split, coarse, check):
+    """One B=1 batch of phase 12 routed to one engine by its pinned slice
+    resolution (the motion gate forced on): its per-artifact CUDA events, the
+    K1/K2 launches per form and peak memory; then the batch replayed with
+    every K1/K2 launch held against its plain version, bit-identical to the
+    first run. Returns the launches."""
+    with pinned(stream, 1, {"resolution_slice": rs}, None, split, coarse):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        events = []
+        t0 = time.perf_counter()
+        batch = stream._generate(events=events)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        launches = dict(hat.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        pack = batch["meta"]["pack"]
+        got = engine_of(pack, 0, stream)
+        if got != name:
+            raise RuntimeError(f"stream engine {name}: resolution_slice {rs} routed the sample to {got}")
+        checked_replay(stream, batch, check, f"stream engine {name}")
+    per = {a: round(s.elapsed_time(e), 3) for _, a, s, e in events}
+    log(json.dumps({"stream_engine": name, "resolution_slice": rs, "dz_split": split, "coarse_w": coarse,
+                    "artifact_events_ms": per, "host_ms": host_ms, "launches": {k: v for k, v in launches.items() if v},
+                    "peak_mem_bytes": peak, "dz_ok": pack["dz_ok"][0].tolist(), "num_stacks": int(pack["num_stacks"][0])}))
+    return launches
+
+
+def stream_forced_batch(dev, stream, check):
+    """Phase 12: one B=4 batch with every artifact forced on (the motion
+    artifact by ``{"apply": True}``, its geometry drawn): per-artifact events
+    per sample, launches, peak memory; then replayed under the check."""
+    with pinned(stream, BATCH, {"apply": True}, np.ones(3, np.int32)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        events = []
+        batch = stream._generate(events=events)
+        torch.cuda.synchronize()
+        launches = dict(hat.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        checked_replay(stream, batch, check, "stream forced batch")
+    per = collections.defaultdict(list)
+    for _, a, s, e in events:
+        per[a].append(round(s.elapsed_time(e), 3))
+    pack = batch["meta"]["pack"]
+    log(json.dumps({"stream_forced": True, "engines": [engine_of(pack, b, stream) for b in range(BATCH)],
+                    "artifact_events_ms_per_sample": per, "launches": {k: v for k, v in launches.items() if v},
+                    "peak_mem_bytes": peak}))
+    return launches
+
+
+def stream_sync_check(stream):
+    """Phase 12: one forced batch with CUDA's sync debug mode at "error";
+    the chain lifts it around its one planned read of the validity flags, so
+    any other host sync fails the batch."""
+    with pinned(stream, BATCH, {"apply": True}, np.ones(3, np.int32)):
+        torch.cuda.synchronize()
+        before = tba.COUNTS["transfers"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            batch = stream._generate()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    reads = tba.COUNTS["transfers"] - before
+    if reads != 1 or not bool(torch.isfinite(batch["image"]).all()):
+        raise RuntimeError(f"stream sync check: {reads} planned reads (want 1) or non-finite image")
+    log(f"stream sync check: one forced B={BATCH} batch under sync debug mode 'error', {reads} planned read")
+
+
+def stream_profile_artifacts(stream, n: int = 2):
+    """Phase 12's trace: ``torch.profiler`` over ``n`` forced batches,
+    prefetch off: the card's kernel time against the host clock, the kernels
+    with the most device time, and the copy kernels (the contiguous copies
+    before the hat passes, einsum's permuted operands) per batch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with pinned(stream, BATCH, {"apply": True}, np.ones(3, np.int32)):
+        stream._generate()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                stream._generate()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        raise RuntimeError("torch.profiler recorded no device time in the stream with artifacts")
+    copies = [e for e in kernels if "copy" in e.key.lower()]
+    log(f"stream artifacts profile, {n} forced B={BATCH} batches, prefetch off: kernel time {busy_ms / n:.3f} ms "
+        f"a batch, host clock {wall_ms / n:.3f} ms a batch, kernel time / host clock {busy_ms / wall_ms:.3f} "
+        f"(profiler on); copy kernels {sum(e.count for e in copies) / n:.1f} a batch, "
+        f"{sum(e.self_device_time_total for e in copies) / 1e3 / n:.3f} ms a batch")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
+        ms = e.self_device_time_total / 1e3
+        log(f"  kernel {100 * ms / busy_ms:5.1f}% {ms / n:9.3f} ms/batch {e.count / n:7.1f} calls/batch  {e.key[:150]}")
+
+
+def stream_artifacts_cpu_check(dev, stream):
+    """Phase 12: one B=1 forced batch (small engine, every artifact on) on
+    the card against the port's CPU path on the same meta. The core's labels
+    against the CPU core's within phase 11's bar (nearest-label ties may
+    flip, ROADMAP §3); the chain run on the CPU from the card's core output
+    with the card's recorded draws (torch's CUDA and CPU generators differ):
+    the same validity flags, the image within 1e-4 of its scale outside the
+    voxels whose recon weight crosses 1e-2 between the two (grown by one
+    voxel where the box smooth ran) or whose boundaries mask differs, whose
+    share is printed and bounded."""
+    with pinned(stream, 1, {"resolution_slice": 0.7}, np.ones(3, np.int32)):
+        batch = stream._generate()
+        meta = batch["meta"]
+        rec = tba.chain_draws(meta["seeds"], dev, record=True)
+        tr_gpu, tr_cpu, core = [], [], {}
+        chain_gpu = stream.make_chain(meta, draws=rec, traces=tr_gpu)
+
+        def chain(out, seg):
+            core.update(out=out.cpu(), seg=seg.cpu())
+            core["chain"] = chain_gpu(out, seg)
+            return core["chain"]
+
+        gens = tpipe.make_generators(meta["seeds"], dev)
+        p = sample_params(gens, stream.cfg)
+        f = tpipe.draw_fields(gens, stream.cfg, dev)
+        mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+        args = (torch.from_numpy(meta["subj"]), torch.from_numpy(meta["u"]))
+        gpu, _ = batch_program(mega, segs, hi, *(a.to(dev) for a in args), p, f, stream.cfg, stream._lo, chain)
+        if not torch.equal(gpu, batch["image"]):
+            raise RuntimeError("stream GPU vs CPU: the recorded rerun differs from the batch")
+        t0 = time.perf_counter()
+        _, seg_cpu = batch_program(mega.cpu(), segs.cpu(), hi.cpu(), *args, p.to("cpu"), f.to("cpu"), stream.cfg,
+                                   stream._lo)
+        chain_cpu = stream.make_chain(meta, draws=[tba.Draws(d.seed, "cpu", given=d.recorded) for d in rec],
+                                      traces=tr_cpu)
+        img = chain_cpu(core["out"], core["seg"])
+        cpu_s = time.perf_counter() - t0
+    label_frac = float((core["seg"] != seg_cpu).float().mean())
+    g, c = tr_gpu[0], tr_cpu[0]
+    if g["accepted"] != c["accepted"] or not np.array_equal(g["valid"], c["valid"]):
+        raise RuntimeError(f"stream GPU vs CPU: accepted stacks {g['accepted']} / {c['accepted']}, "
+                           f"{int((g['valid'] != c['valid']).sum())} validity flags differ")
+    # the chain's two discontinuities: the recon weight's 1e-2 threshold
+    # (grown by the box smooth) and the boundaries' mask (its fuzzy levels
+    # round a Gaussian mixture)
+    w_flips = (g["weight"].cpu() > 1e-2) != (c["weight"] > 1e-2)
+    if meta["pack"]["smooth_on"][0]:
+        w_flips = box_sum(w_flips.to(torch.float32), 3) > 0
+    m_flips = g["mask"].cpu() != c["mask"]
+    flips = w_flips | m_flips
+    share = float(flips.float().mean())
+    want = core["chain"][0].cpu()
+    d = (want - img[0]).abs() / float(want.abs().max())
+    err = float(torch.where(flips, 0.0, d).max())
+    worst = [int(i) for i in np.unravel_index(int(torch.where(flips, 0.0, d).argmax()), SHAPE)]
+    log(f"stream artifacts GPU vs CPU port, B=1 forced, engine {engine_of(meta['pack'], 0, stream)} ({cpu_s:.1f} s "
+        f"on the CPU): chain max|d| / scale outside the flips={err:.3e} at {worst} (bar {IMAGE_TOL}); flips: recon "
+        f"weight {int(w_flips.sum())}, boundaries mask {int(m_flips.sum())}, share {share:.3e} (bar {FLIP_SHARE_MAX}); "
+        f"overall {float(d.max()):.3e}, voxels above the bar {int((d > IMAGE_TOL).sum())}; core labels differing "
+        f"{label_frac:.3e} (bar {LABEL_TOL}); accepted stacks {g['accepted']}")
+    if not err <= IMAGE_TOL or share > FLIP_SHARE_MAX or label_frac > LABEL_TOL:
+        raise RuntimeError("stream with artifacts: GPU and CPU paths of the port disagree beyond the bars")
+
+
+def stream_kernel_checks(dev, check):
+    """Phase 12: each K1/K2 form the stream launched, at each of its shapes
+    (the inputs the check kept), against its plain version: bit-identical,
+    timed with its bound and a ``grid_sample`` yardstick."""
+    results = []
+    for (key, shape), (xa, xb, coefs, disp) in sorted(check.kept.items(), key=lambda kv: (kv[0][0], kv[0][1])):
+        B, D, H, S = xa.shape
+        OW = S if disp is None else disp.shape[-1]
+        pair = xb is not None
+        if pair:
+            run = lambda: hat.hat_pass_pair(xa, xb, coefs, disp, nearest_b=False)  # noqa: E731
+            plain = lambda: hat.hat_pass_pair_ref(xa, xb, coefs, disp, nearest_b=False)  # noqa: E731
+        else:
+            run = lambda: hat.hat_pass(xa, coefs, disp)  # noqa: E731
+            plain = lambda: hat.hat_pass_ref(xa, coefs, disp)  # noqa: E731
+        pos = hat._positions_of(coefs, B, D, H, OW, disp)
+        n_half, n_out = count_positions(pos, S)
+        n = 20 if B * D * H * S <= 2**26 else 5
+        results.append(compare(
+            f"stream:{key}", f"stream {tuple(shape)}", run, plain, hat_bound(pair, B, D, H, S, OW, disp),
+            lib=lambda: grid_sample_ms([xa] + ([xb] if pair else []), pos, n), n=n,
+            note=f" half-integer positions={n_half} saturated={n_out}",
+        ))
+        del pos
+    check.kept.clear()
+    return results
+
+
+def stream_artifacts_path(dev, t_start):
+    """Phase 12: the stream with the SR artifacts (``synth_train.yaml``'s
+    generator on ``data/sub-sta21``, B=4 256^3). Returns (the stream forms'
+    launches by kernel entry, the kernel checks)."""
+    ds = stream_ds(dev)
+    stream, n_on, d_on, l_on = drive_artifact_stream(dev, ds, True)
+    _, n_off, d_off, l_off = drive_artifact_stream(dev, ds, False)
+    if not torch.equal(d_on, d_off):
+        differ = (d_on != d_off).flatten(1).any(1).nonzero().flatten().tolist()
+        raise RuntimeError(f"stream with artifacts: prefetch on and off differ in batches {differ}")
+    it = iter(stream)
+    b = next(it)
+    it.close()
+    for where, st in (("same", stream), ("fresh", SyntheticStream(ds, batch_size=BATCH, seed=5, prefetch=False))):
+        again = st.replay_batch(b["meta"])
+        if not (torch.equal(again["image"], b["image"]) and torch.equal(again["label"], b["label"])):
+            raise RuntimeError(f"stream with artifacts: replay on the {where} stream is not bit-identical")
+    del again, b
+    sm = stream._sm
+    pack_ms = []
+    for i in range(24):
+        t0 = time.perf_counter()
+        tba.pack_motion(np.random.default_rng(i), BATCH, SHAPE, 0.5, sm, stream.cube, stream.ns_grid,
+                        small_cube=stream.small_cube)
+        pack_ms.append(1e3 * (time.perf_counter() - t0))
+    for n in (n_on, n_off):
+        n.update(api_artifacts_samples_per_s=MEASURED.get("synth_train_artifacts"),
+                 artifact_free_stream_vol_per_s=MEASURED.get("stream_tree_b"),
+                 pack_motion_ms_per_batch=statistics.mean(pack_ms), cubes=list(stream.cubes),
+                 ns_grid=stream.ns_grid, small_cube=stream.small_cube)
+        log(json.dumps({"stream_artifacts": "tree_b", **n, "prefetch_bit_identical": True,
+                        "replay_bit_identical": True}))
+    log(f"phase 12 drives done at {time.perf_counter() - t_start:.1f} s")
+    launches = collections.Counter()
+    for lc in (l_on, l_off):
+        launches.update(lc)
+    check = StreamHatCheck()
+    launches.update(stream_forced_batch(dev, stream, check))
+    for name, rs in STREAM_ENGINES:
+        for split, coarse in ((True, True), (False, True), (True, False)):
+            launches.update(engine_batch(dev, stream, name, rs, split, coarse, check))
+    log(f"phase 12 engine batches done at {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"stream_launch_check": {k: {"calls": check.calls[k], "max_abs_err": check.err[k],
+                                                  "elements_differing": check.differ[k]} for k in check.calls}}))
+    if any(check.differ.values()) or any(check.err.values()):
+        raise RuntimeError(f"stream: a K1/K2 launch differs from its plain version: {dict(check.differ)}")
+    if not (launches["hat_pass_pair"] and launches["hat_pass_lane"] and launches["hat_pass_slice"]
+            and launches["hat_pass_pair_lane"]):
+        raise RuntimeError(f"stream: a K1/K2 form of the stream was never launched: {dict(launches)}")
+    stream_sync_check(stream)
+    stream_profile_artifacts(stream)
+    stream_artifacts_cpu_check(dev, stream)
+    log(f"phase 12 checks done at {time.perf_counter() - t_start:.1f} s")
+    checks = stream_kernel_checks(dev, check)
+    return {f"stream:{k}": launches[k] for k in STREAM_FORMS}, checks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU")
@@ -1596,6 +2007,10 @@ def main() -> int:
     log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
     launches["hat_pass_pair"] += stream_path(dev, t_start)
     log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
+    stream_launches, stream_checks = stream_artifacts_path(dev, t_start)
+    launches.update(stream_launches)
+    checks += stream_checks
+    log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
     missing = [k for k in KERNELS if not launches.get(k)]
     if missing:
         raise RuntimeError(f"kernel forms never launched on the main paths: {missing}")

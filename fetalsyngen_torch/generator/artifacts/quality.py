@@ -70,10 +70,19 @@ def _volume(x) -> torch.Tensor:
 
 
 def topk_flat(scores: torch.Tensor, k: int):
-    """Exact top-k of a flat score vector (values, indices), descending. The
-    JAX package's blocked prefilter is a TPU speed device with the same
-    output outside a collision case its docstring bounds."""
-    return torch.topk(scores, k)
+    """Exact top-k of a flat f32 score vector (values, indices), descending,
+    equal scores in index order as XLA's top-k orders them. Uniform draws
+    tie often (a float below 1 has 2^24 values, a 256^3 volume 2^24 voxels),
+    and ``torch.topk`` orders ties differently on the card and the CPU, so
+    the ranking runs on int64 keys: the score's order-preserving integer
+    above the reversed index. The JAX package's blocked prefilter is a TPU
+    speed device with the same output outside a collision case its
+    docstring bounds."""
+    bits = scores.contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    rev = 2**32 - 1 - torch.arange(scores.numel(), device=scores.device, dtype=torch.int64)
+    _, idx = torch.topk(key * 2**32 + rev, k)
+    return scores[idx], idx
 
 
 def masked_random_centers(u: torch.Tensor, mask: torch.Tensor, n_max: int, n_valid: int):
@@ -253,7 +262,7 @@ class StructNoise:
             gen = make_generator(derive_seed(seed, 1), dev)
             normals = draw_pyramid_normals(gen, shape, nstages, self.nstages_max, dev)
         noise = multiscale_noise(shape, normals, self.nstages_max)
-        noisy = torch.clamp(output + noise_std * noise, min=0.0, max=output.max() * 2)
+        noisy = torch.minimum(torch.clamp_min(output + noise_std * noise, 0.0), output.max() * 2)
 
         meta = {"nstages": nstages, "noise_std": noise_std}
         mp = self.merge_params

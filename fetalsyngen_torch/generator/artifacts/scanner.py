@@ -30,9 +30,11 @@ and the JAX package's ``fold_in`` tags (``100 + attempt``, 7, 8); they are
 arguments of the compute functions (``draw_slice_artifacts``). The returned
 metadata holds both seeds, so a call replays from the genparams dict alone.
 
-Left out (the stream's engine, ROADMAP): the coarse validity mask, the
-dz-split, the fast noise mode, the zoom-first warp and the small-frame
-(``fs != 1``) geometry.
+The stream's motion engine (``batched.motion_t``) adds its own modes to
+these stages: the coarse validity of :func:`_valid_coarse` (no mask
+operand), the dz-split of :func:`_extract_pair` and :func:`_recon_one`, the
+fast noise mode of :func:`_slice_artifacts`, the coarse weight chain of
+:func:`_recon_one` and the small-frame (``fs != 1``) geometry.
 """
 
 from __future__ import annotations
@@ -190,25 +192,31 @@ def _slice_coef_tables(G, rs, c_ss, z0, gap, ns_grid):
     return dz, dv_tab, du_tab
 
 
-def _dz_lane_table(dz, rs, c_ss, z0, gap_vox, cube, ns_grid):
+def _dz_lane_table(dz, rs, c_ss, z0, gap_vox, cube, ns_grid, n_near=None, okf=None):
     """(3, cube) lane-affine table of the acquisition's z-deviation pass on
     the (v, u, z) layout: lane z takes the dz coefficients of its nearest
-    slice, in voxel units of the stack frame's rows."""
-    lanes = torch.arange(cube, dtype=F32, device=dz.device)
-    n_near = torch.clamp(torch.round((lanes - z0) / gap_vox), 0, ns_grid - 1).to(torch.int64)
+    slice (``n_near[z]``, by default by the nominal plane spacing), in voxel
+    units of the stack frame's rows. With the dz-split engaged (``okf`` 1)
+    the translation term rides the extraction matmul instead."""
+    if n_near is None:
+        lanes = torch.arange(cube, dtype=F32, device=dz.device)
+        n_near = torch.clamp(torch.round((lanes - z0) / gap_vox), 0, ns_grid - 1).to(torch.int64)
     a = dz[n_near]  # (cube, 3)
-    return torch.stack([a[:, 0] * rs, a[:, 1] * rs, a[:, 2] - (a[:, 0] + a[:, 1]) * rs * c_ss])
+    a3 = a[:, 2] if okf is None else a[:, 2] * (1.0 - okf)
+    return torch.stack([a[:, 0] * rs, a[:, 1] * rs, a3 - (a[:, 0] + a[:, 1]) * rs * c_ss])
 
 
-def _dzr_lane_table(Grec, rs, c_ss, z0, gap_vox, ns_grid):
+def _dzr_lane_table(Grec, rs, c_ss, z0, gap_vox, ns_grid, okf=None):
     """(3, nsp) lane-affine table of the reconstruction's slice-index pass on
     the (u, v, n) layout, zero past ``ns_grid`` up to ``nsp``, the slice
     count padded to a multiple of 128 as in the JAX package (the pass clamps
-    at the last lane, so the padding changes positions past ns_grid - 1)."""
+    at the last lane, so the padding changes positions past ns_grid - 1).
+    With the dz-split engaged (``okf`` 1) the translation rides the
+    placement matmul."""
     nidx = torch.arange(ns_grid, dtype=F32, device=Grec.device)
     base_z = z0 + nidx * gap_vox
     g1, g2, g3 = Grec[:, 0, 1], Grec[:, 0, 2], Grec[:, 0, 3]
-    t_eff = g3 - base_z
+    t_eff = g3 - base_z if okf is None else (g3 - base_z) * (1.0 - okf)
     dzr = torch.stack([-g2 * rs / gap_vox, -g1 * rs / gap_vox, (-t_eff + (g1 + g2) * rs * c_ss) / gap_vox])
     return F.pad(dzr, (0, -(-ns_grid // _LANE_PAD) * _LANE_PAD - ns_grid))
 
@@ -219,54 +227,90 @@ def _pair(a, b, coefs, disp):
     return oa[0], ob[0]
 
 
+def _single(x, coefs, disp=None):
+    """One K2 pass of a (D, H, W) volume: a (4,) coefficient row with a
+    (3, W) lane-affine ``disp``, or (D, 4) per-slice coefficients."""
+    return hat_pass(x.contiguous()[None], coefs.contiguous()[None], None if disp is None else disp.contiguous()[None])[0]
+
+
 def _unit_coefs(device) -> torch.Tensor:
     """The (0, 0, 1, 0) coefficient row: position = lane (+ displacement)."""
     return device_const([0.0, 0.0, 1.0, 0.0], F32, device)
 
 
-def _extract_pair(Wv, Wm, gap_vox, z0, dz, rs, c_ss, dv, du, cube, ns_grid):
+def _extract_pair(Wv, Wm, gap_vox, z0, dz, rs, c_ss, dv, du, cube, ns_grid, split_dz=False):
     """NS slices of the (volume, mask) stack frames, in the (v, u, z) layout
-    the rigid warp emits, with shared motion.
+    the rigid warp emits, with shared motion; ``Wm`` None: the volume alone
+    (K2 instead of K1).
 
     The z extraction ``out(n) = V[z0 + gap_vox*n + dz(n)]`` has lane slope
     ``gap_vox``; it factors exactly (for ``gap_vox > 2``) into a unit-slope
     deviation pass ``V'[z] = V[z + dz(n_near(z))]``, ``n_near(z)`` the slice
-    nearest to z (K1, lane-affine table: dz is affine per slice), and an
+    nearest to z (lane-affine table: dz is affine per slice), and an
     interpolation matmul ``out(n) = V'[z0 + gap_vox*n]``. The in-plane
-    deviations dv and du are per-slice affine: K1 with per-slice
-    coefficients. Returns (slices, mask slices), (n, v, u) each.
+    deviations dv and du are per-slice affine: per-slice coefficients.
+
+    ``split_dz`` (the stream's dz-split, a 0/1 float): the per-slice plane
+    translation moves from the hat pass into the extraction matmul (slice
+    n sampled about its actual plane centre), and lanes attach to the slice
+    whose centre is nearest; 0 gives the exact tables in the same program.
+    Returns (slices, mask slices or None), (n, v, u) each.
     """
     dev = Wv.device
     nidx = torch.arange(ns_grid, dtype=F32, device=dev)
-    Mzn = interp_matrix_1d(z0 + gap_vox * nidx, cube)  # (ns_grid, cube)
-    dz_tab = _dz_lane_table(dz, rs, c_ss, z0, gap_vox, cube, ns_grid)
-    x, m = _pair(Wv, Wm, _unit_coefs(dev), dz_tab[None].contiguous())
-    # n-extraction emitting (n, u, v)
-    m = torch.einsum("oi,jki->okj", Mzn, m)
+    okf = n_near = None
+    if split_dz is False or split_dz is None:
+        Mzn = interp_matrix_1d(z0 + gap_vox * nidx, cube)  # (ns_grid, cube)
+    else:
+        okf = float(split_dz)
+        # plane centres (padded table rows repeat the last real slice: argmin
+        # ties resolve to the real row)
+        pos_n = z0 + gap_vox * nidx + dz[:, 2] * okf
+        if okf > 0.5:
+            lanes = torch.arange(cube, dtype=F32, device=dev)
+            n_near = torch.argmin(torch.abs(lanes[:, None] - pos_n[None, :]), dim=1)
+        Mzn = interp_matrix_1d(pos_n, cube)
+    dz_tab = _dz_lane_table(dz, rs, c_ss, z0, gap_vox, cube, ns_grid, n_near, okf)
+    unit = _unit_coefs(dev)
+    if Wm is not None:
+        x, m = _pair(Wv, Wm, unit, dz_tab[None].contiguous())
+        # n-extraction emitting (n, u, v)
+        m = torch.einsum("oi,jki->okj", Mzn, m)
+        x = torch.einsum("oi,jki->okj", Mzn, x)
+        x, m = _pair(x, m, dv, None)
+        x, m = _pair(x.transpose(1, 2), m.transpose(1, 2), du, None)  # (n, v, u)
+        return x, m
+    x = _single(Wv, unit, dz_tab)
     x = torch.einsum("oi,jki->okj", Mzn, x)
-    x, m = _pair(x, m, dv, None)
-    x, m = _pair(x.transpose(1, 2), m.transpose(1, 2), du, None)  # (n, v, u)
-    return x, m
+    x = _single(x, dv)
+    return _single(x.transpose(1, 2), du), None
 
 
-def draw_slice_artifacts(gen: torch.Generator, ns_grid: int, size: int, device) -> dict:
+def draw_slice_artifacts(gen: torch.Generator, ns_grid: int, size: int, device, fast: bool = False) -> dict:
     """The device draws of :func:`_slice_artifacts` for one stack: the two
-    Rician noise components, the void gates and the six void shape uniforms."""
+    Rician noise components (one with ``fast``), the void gates and the six
+    void shape uniforms."""
     return {
-        "noise": torch.randn((2, ns_grid, size, size), generator=gen, device=device),
+        "noise": torch.randn((1 if fast else 2, ns_grid, size, size), generator=gen, device=device),
         "void_on": torch.rand((ns_grid, 1, 1), generator=gen, device=device),
         "void": torch.rand((6, ns_grid, 1, 1), generator=gen, device=device),
     }
 
 
-def _slice_artifacts(slices, valid, gamma, gamma_on, sigma, void_prob, threshold, noise, void_on, void):
+def _slice_artifacts(slices, valid, gamma, gamma_on, sigma, void_prob, threshold, noise, void_on, void,
+                     fast=False):
     """Per-slice gamma, Rician noise and signal voids over the valid slices
-    (reference ``simulate_reco.py:210-298``)."""
+    (reference ``simulate_reco.py:210-298``). ``fast`` (the stream's mode):
+    one normal field, the Rician partner its roll by ``(1, h // 2)``."""
     if gamma_on:
         # normalization max over the kept slices (simulate_reco.py:210-234)
         g = 300.0 * torch.pow(torch.clamp_min(slices, 0.0) / 300.0, gamma)
         slices = g / torch.clamp_min(torch.max(g * valid[:, None, None]), 1e-6)
-    n12 = noise * sigma
+    if fast:
+        n1 = noise.reshape(slices.shape) * sigma
+        n12 = (n1, torch.roll(n1, (1, slices.shape[1] // 2), (0, 1)))
+    else:
+        n12 = noise * sigma
     noisy = torch.sqrt((slices + n12[0]) ** 2 + n12[1] ** 2)
     slices = torch.where(slices > threshold, noisy, slices)
     # signal voids (simulate_reco.py:258-298); the grid offsets are the
@@ -300,15 +344,44 @@ def _validity(mslices, thr_frac, ns_count, ns_grid):
     return ((arange_n >= first) & (arange_n <= last) & (arange_n < ns_count)).to(F32)
 
 
-def _acquire_one(vol_p, mask_p, fwd, G, rs, gap_vox, z0, sig, thr_frac, ns_count,
-                 gamma, gamma_on, sigma, void_prob, threshold, cube, ns_grid, draws):
-    """One stack's acquisition from the padded (cube^3) volume and mask.
+def _coarse_mask(mask_p: torch.Tensor, f: int = 4) -> torch.Tensor:
+    """Box mean of the padded cube mask over ``f``-cubes (the coarse grid's
+    voxel centres land on fine positions ``f*i + (f-1)/2``). A 0/1 mask
+    sums exactly, so any summation order gives the same pool."""
+    return F.avg_pool3d(mask_p[None, None], f)[0, 0]
 
-    ``fwd`` = (q_idx, angles, scale, delta) of the stack-frame map, ``G`` the
-    (NS, 3, 4) slice table, ``sig`` the (3,) acquisition PSF sigmas, ``draws``
-    :func:`draw_slice_artifacts`. Returns (slices (NS, SS, SS), valid (NS,)
-    f32). Mirrors the reference stack-loop body (``simulate_reco.py:366-424``).
-    """
+
+def _valid_coarse(cmask, q_idx, angles, wscale, wdelta, G, thr_frac, ns_count, cube: int, ns_grid: int,
+                  f: int = 4, zoom_first: bool = False):
+    """Slice validity from the z-profile of the rigidly warped coarse mask
+    (the stream's fast mode): the relative threshold of
+    ``simulate_reco.py:408-420`` cancels every mass-preserving stage, so the
+    profile sampled at each plane centre ``G[n, 0, 3]`` on the ``f``-times
+    coarser grid decides. Band-edge slices at the threshold may flip against
+    the exact mask-mass rule. ``zoom_first``: the small frame's warp order.
+    (NS,) f32 flags."""
+    from ...ops.warp import warp_rigid_zoom_first
+
+    delta_c = (wdelta + ((f - 1) / 2.0) * (wscale - 1.0)) / f
+    if zoom_first:
+        wm = warp_rigid_zoom_first(cmask, q_idx, angles, wscale, delta_c)
+    else:
+        wm, _ = warp_rigid_pair_traced(cmask, None, q_idx, angles, wscale, delta_c)
+    prof = torch.sum(wm, (1, 2))  # (cube / f,) z mass profile
+    pos_c = (G[:, 0, 3] - (f - 1) / 2.0) / f
+    nnz = interp_matrix_1d(pos_c, cube // f) @ prof
+    arange_n = torch.arange(ns_grid, device=G.device)
+    nnz = nnz * (arange_n < ns_count)
+    valid = nnz > torch.max(nnz) * thr_frac
+    first = torch.min(torch.where(valid, arange_n, ns_grid))
+    last = torch.max(torch.where(valid, arange_n, -1))
+    return ((arange_n >= first) & (arange_n <= last) & (arange_n < ns_count)).to(F32)
+
+
+def _acquire_slices(vol_p, mask_p, fwd, G, rs, gap_vox, z0, sig, cube, ns_grid, split_dz=False):
+    """One stack's slices (and mask slices, unless ``mask_p`` is None) from
+    the padded cube volume: the rigid warp with the acquisition PSF and xy
+    scale, then :func:`_extract_pair`."""
     dev = vol_p.device
     c_ss = (cube - 1) / 2.0
     lanes = torch.arange(cube, dtype=F32, device=dev)
@@ -320,17 +393,51 @@ def _acquire_one(vol_p, mask_p, fwd, G, rs, gap_vox, z0, sig, thr_frac, ns_count
     Wv, Wm = warp_rigid_pair_traced(
         vol_p, mask_p, q_idx, angles, wscale, wdelta,
         post_a=(_toeplitz(sig[0], cube), scale_m @ _toeplitz(sig[1], cube), scale_m @ _toeplitz(sig[2], cube)),
-        post_b=(None, scale_m, scale_m),
+        post_b=None if mask_p is None else (None, scale_m, scale_m),
         out_perm=(1, 2, 0),
     )
     dz, dv_tab, du_tab = _slice_coef_tables(G, rs, c_ss, z0, gap_vox, ns_grid)
-    slices, mslices = _extract_pair(Wv, Wm, gap_vox, z0, dz, rs, c_ss, dv_tab, du_tab, cube, ns_grid)
-    valid = _validity(mslices, thr_frac, ns_count, ns_grid)
-    slices = _slice_artifacts(slices, valid, gamma, gamma_on, sigma, void_prob, threshold, **draws)
+    return _extract_pair(Wv, Wm, gap_vox, z0, dz, rs, c_ss, dv_tab, du_tab, cube, ns_grid, split_dz)
+
+
+def _acquire_one(vol_p, mask_p, fwd, G, rs, gap_vox, z0, sig, thr_frac, ns_count,
+                 gamma, gamma_on, sigma, void_prob, threshold, cube, ns_grid, draws,
+                 coarse_mask=None, split_dz=False, valid=None):
+    """One stack's acquisition from the padded (cube^3) volume and mask.
+
+    ``fwd`` = (q_idx, angles, scale, delta) of the stack-frame map, ``G`` the
+    (NS, 3, 4) slice table, ``sig`` the (3,) acquisition PSF sigmas, ``draws``
+    :func:`draw_slice_artifacts`. Returns (slices (NS, SS, SS), valid (NS,)
+    f32). Mirrors the reference stack-loop body (``simulate_reco.py:366-424``).
+    ``coarse_mask`` (:func:`_coarse_mask`, the stream's fast mode): no mask
+    operand, validity from :func:`_valid_coarse`, the fast noise mode;
+    ``valid`` gives those flags computed beforehand.
+    """
+    fast = coarse_mask is not None or valid is not None
+    slices, mslices = _acquire_slices(vol_p, None if fast else mask_p, fwd, G, rs, gap_vox, z0, sig, cube,
+                                      ns_grid, split_dz)
+    if fast:
+        if valid is None:
+            valid = _valid_coarse(coarse_mask, *fwd, G, thr_frac, ns_count, cube, ns_grid)
+    else:
+        valid = _validity(mslices, thr_frac, ns_count, ns_grid)
+    slices = _slice_artifacts(slices, valid, gamma, gamma_on, sigma, void_prob, threshold, **draws, fast=fast)
     return slices, valid
 
 
-def _recon_one(slices, keep_f, Grec, rs, gap_vox, z0, sig_rec, inv, cube, ns_grid, out_shape):
+def _placement(rows, centers, z0, gap_vox, ns_grid):
+    """(len(rows), ns_grid) n -> z placement hats of the dz-split: slice n's
+    hat (width ``gap_vox``) centred on ``centers[n]``; rows before the slab
+    take slice 0 and rows past it the last slice (``interp_matrix``'s edge
+    clamp, so a zero split is the exact operator)."""
+    Mplace = torch.clamp_min(1.0 - torch.abs((rows[:, None] - centers[None, :]) / gap_vox), 0.0)
+    qz = ((rows - z0) / gap_vox)[:, None]
+    cols = torch.arange(ns_grid, device=rows.device)[None, :]
+    return torch.where(qz < 0, (cols == 0).to(F32), torch.where(qz > ns_grid - 1, (cols == ns_grid - 1).to(F32), Mplace))
+
+
+def _recon_one(slices, keep_f, Grec, rs, gap_vox, z0, sig_rec, inv, cube, ns_grid, out_shape,
+               split_dz=False, coarse_inv=None):
     """One stack's placement on the recon grid: (value, weight), each of
     ``out_shape``. Mirrors the adjoint placement (``simulate_reco.py:38-54,
     769``) with the recon PSF spread.
@@ -342,11 +449,21 @@ def _recon_one(slices, keep_f, Grec, rs, gap_vox, z0, sig_rec, inv, cube, ns_gri
     the inverse xy scale, and the inverse rigid warp. The weight is constant
     per slice (``keep_f``) until the slice-index pass, so it skips the
     in-plane passes exactly.
+
+    ``split_dz`` (the stream's dz-split, a 0/1 float): the plane translation
+    leaves the slice-index pass for the placement matmul (:func:`_placement`).
+    ``coarse_inv`` (the stream's coarse weight chain): the host decomposition
+    of the inverse map between the stack frame pooled by ``cube // 128`` and
+    the recon frame pooled by 2; the value's slice-index pass runs alone (K2
+    lane-affine), the weight runs on the pooled grids (K2 lane-affine on
+    (128, 128, nsp)) and is upsampled bilinearly. Needs ``cube % 128 == 0``
+    and an even ``out_shape``.
     """
     dev = slices.device
     c_ss = (cube - 1) / 2.0
     lanes = torch.arange(cube, dtype=F32, device=dev)
-    dzr_l = _dzr_lane_table(Grec, rs, c_ss, z0, gap_vox, ns_grid)
+    okf = None if split_dz is False or split_dz is None else float(split_dz)
+    dzr_l = _dzr_lane_table(Grec, rs, c_ss, z0, gap_vox, ns_grid, okf)
     dv_tab, du_tab = _inplane_coef_tables(Grec, rs, c_ss, -1.0)
 
     inv_scale_m = interp_matrix_1d((lanes - c_ss) / rs + c_ss, cube)
@@ -354,27 +471,73 @@ def _recon_one(slices, keep_f, Grec, rs, gap_vox, z0, sig_rec, inv, cube, ns_gri
     inv_scale_blur_m = inv_scale_m @ _toeplitz(sig_rec[1], cube)
 
     x = (slices * keep_f[:, None, None]).contiguous()
-    x = hat_pass(x[None], du_tab[None].contiguous())[0].transpose(1, 2)  # (n, u, v)
-    x = hat_pass(x.contiguous()[None], dv_tab[None].contiguous())[0].permute(1, 2, 0)  # (u, v, n)
+    x = _single(x, du_tab).transpose(1, 2)  # (n, u, v)
+    x = _single(x, dv_tab).permute(1, 2, 0)  # (u, v, n)
     # the slice (lane) axis padded with zero value and zero weight (see
     # _dzr_lane_table)
     nsp = dzr_l.shape[1]
     x = F.pad(x, (0, nsp - ns_grid))
-    w = F.pad(keep_f, (0, nsp - ns_grid))[None, None, :].expand(cube, cube, nsp)
-    x, w = _pair(x, w, _unit_coefs(dev), dzr_l[None].contiguous())
-    x, w = x[..., :ns_grid], w[..., :ns_grid]
+    keep_l = F.pad(keep_f, (0, nsp - ns_grid))
+    if coarse_inv is None:
+        w = keep_l[None, None, :].expand(cube, cube, nsp)
+        x, w = _pair(x, w, _unit_coefs(dev), dzr_l[None].contiguous())
+        w = w[..., :ns_grid]
+    else:
+        x = _single(x, _unit_coefs(dev), dzr_l)
+    x = x[..., :ns_grid]
     # n -> z placement and the z recon PSF: one (cube, ns_grid) matmul whose
     # einsum emits (z, v, u)
-    Mn2z = sigz_m @ interp_matrix_1d((lanes - z0) / gap_vox, ns_grid)
+    nidx = torch.arange(ns_grid, dtype=F32, device=dev)
+    if okf is None:
+        Mn2z = sigz_m @ interp_matrix_1d((lanes - z0) / gap_vox, ns_grid)
+    else:
+        base_z = z0 + nidx * gap_vox
+        centers = base_z + (Grec[:, 0, 3] - base_z) * okf
+        Mn2z = sigz_m @ _placement(lanes, centers, z0, gap_vox, ns_grid)
     x = torch.einsum("oi,jki->okj", Mn2z, x)
-    w = torch.einsum("oi,jki->okj", Mn2z, w)
 
-    def spread(y):
+    def spread(y, m):
         # in-plane recon PSF (simulate_reco.py:338-344) with the inverse xy scale
-        return axis_mm(axis_mm(y, inv_scale_blur_m, 1), inv_scale_blur_m, 2)
+        return axis_mm(axis_mm(y, m, 1), m, 2)
 
     q_idx, angles, scale, delta = inv
-    return warp_rigid_pair_traced(spread(x), spread(w), q_idx, angles, scale, delta, out_shape=out_shape)
+    if coarse_inv is None:
+        w = torch.einsum("oi,jki->okj", Mn2z, w)
+        return warp_rigid_pair_traced(spread(x, inv_scale_blur_m), spread(w, inv_scale_blur_m), q_idx, angles,
+                                      scale, delta, out_shape=out_shape)
+    v_s, _ = warp_rigid_pair_traced(spread(x, inv_scale_blur_m), None, q_idx, angles, scale, delta,
+                                    out_shape=out_shape)
+
+    # --- the coarse weight chain ---------------------------------------------
+    f = max(1, cube // 128)
+    cc = cube // f
+    h = (f - 1) / 2.0
+    # pooled rows sit at fine rows f*u + (f-1)/2: the lane-affine table
+    # scales by f, the centre offset folds into the constant
+    dzr_c = torch.stack([dzr_l[0] * f, dzr_l[1] * f, dzr_l[2] + (dzr_l[0] + dzr_l[1]) * h])
+    w_c = keep_l[None, None, :].expand(cc, cc, nsp)
+    w_c = _single(w_c, _unit_coefs(dev), dzr_c)[..., :ns_grid]
+    # fine-frame positions of the coarse lanes (every axis of the cube); the
+    # blur kernels narrow to sigma / f
+    lane_f = f * torch.arange(cc, dtype=F32, device=dev) + h
+    sigz_c = _toeplitz(sig_rec[0] / f, cc)
+    if okf is None:
+        Mn2z_c = sigz_c @ interp_matrix_1d((lane_f - z0) / gap_vox, ns_grid)
+    else:
+        Mn2z_c = sigz_c @ _placement(lane_f, centers, z0, gap_vox, ns_grid)
+    w_c = torch.einsum("oi,jki->okj", Mn2z_c, w_c)  # (z_c, v_c, u_c)
+    # coarse inverse scale and in-plane PSF: coarse lane -> fine position ->
+    # fine source -> coarse source
+    src_c = ((lane_f - c_ss) / rs + c_ss - h) / f
+    m_c = interp_matrix_1d(src_c, cc) @ _toeplitz(sig_rec[1] / f, cc)
+    os_c = tuple(s // 2 for s in out_shape)
+    w_c, _ = warp_rigid_pair_traced(spread(w_c, m_c), None, *coarse_inv, out_shape=os_c)
+    # bilinear upsample (recon frame pooled by 2): fine voxel p reads coarse
+    # (p - 0.5) / 2, edge-clamped
+    for ax in range(3):
+        up = interp_matrix_1d((torch.arange(out_shape[ax], dtype=F32, device=dev) - 0.5) / 2.0, os_c[ax])
+        w_c = axis_mm(w_c, up, ax)
+    return v_s, w_c
 
 
 def _finalize(value, weight, volume_gt, smooth_on, merge_on, merge_weight):
@@ -401,25 +564,35 @@ def _axis_affine(R_xyz: np.ndarray, t_xyz: np.ndarray, in_center, out_center):
     return M.astype(np.float32), t.astype(np.float32)
 
 
-def _stack_geometry(Rb, mats_vox, shape, ns, cube, ns_grid):
+def _stack_geometry(Rb, mats_vox, shape, ns, cube, ns_grid, fs: float = 1.0):
     """Host geometry for one stack: frame map, warp split, slice table.
     ``Rb``: the stack-init rotation (xyz space); ``mats_vox``: per-slice
-    trans-first rigids with voxel-unit translations."""
+    trans-first rigids with voxel-unit translations. ``fs != 1`` (the
+    stream's small frame): frame units of ``fs`` voxels on a ``cube``
+    buffer, an isotropic scale ``fs`` in the forward map and rescaled slice
+    translations; ``fs == 1`` is the host path's geometry."""
     c_vol = (np.asarray(shape) - 1) / 2.0
     c_stack = np.full(3, (cube - 1) / 2.0)
     M = _FLIP @ Rb @ _FLIP
-    t_stack = c_vol - M @ c_stack
-    # forward map on the zero-padded cube: p_pad = M q + t_stack + off
+    A = fs * M if fs != 1.0 else M
+    t_stack = c_vol - A @ c_stack
+    # forward map on the zero-padded cube: p_pad = A q + t_stack + off
     off = np.array([(cube - s) // 2 for s in shape], np.float64)
-    fwd = decompose_affine_paeth_host(M, t_stack + off, cube)
+    fwd = decompose_affine_paeth_host(A, t_stack + off, cube)
     Minv = np.linalg.inv(M)
-    G = _slice_affine_table(mats_vox, Minv, t_stack, c_vol, ns, ns_grid)
+    if fs == 1.0:
+        G = _slice_affine_table(mats_vox, Minv, t_stack, c_vol, ns, ns_grid)
+    else:
+        G = _slice_affine_table(mats_vox, Minv, c_vol, c_vol, ns, ns_grid, fs=fs, c_frame=(cube - 1) / 2.0)
     return dict(M=M, t_stack=t_stack, Minv=Minv, G=G, fwd=fwd)
 
 
-def _slice_affine_table(mats_vox, Minv_np, t_stack, c_vol, ns, ns_grid):
+def _slice_affine_table(mats_vox, Minv_np, t_stack, c_vol, ns, ns_grid, fs=1.0, c_frame=0.0):
     """(ns_grid, 3, 4) axis-space affines: slice-local coords -> stack frame
-    (rows past ``ns`` repeat the last slice)."""
+    (rows past ``ns`` repeat the last slice). ``fs``/``c_frame`` (the
+    stream's small frame, with ``t_stack = c_vol``): translations in a frame
+    of ``fs``-voxel units about ``c_frame``; the defaults leave them as they
+    are (``+ 0.0``: no -0.0 translations, as in the JAX package)."""
     idx = np.minimum(np.arange(ns_grid), ns - 1)
     Rn = mats_vox[idx, :, :3].astype(np.float64)
     tn = mats_vox[idx, :, 3].astype(np.float64)
@@ -428,8 +601,7 @@ def _slice_affine_table(mats_vox, Minv_np, t_stack, c_vol, ns, ns_grid):
     ta = c_vol + np.einsum("ij,njk,nk->ni", F64, Rn, tn)
     G = np.empty((ns_grid, 3, 4), np.float32)
     G[:, :, :3] = np.einsum("ij,njk->nik", Minv_np, Ma)
-    # + 0.0 as in the JAX package's frame offset: no -0.0 translations
-    G[:, :, 3] = np.einsum("ij,nj->ni", Minv_np, ta - t_stack) + 0.0
+    G[:, :, 3] = np.einsum("ij,nj->ni", Minv_np, ta - t_stack) / fs + c_frame
     return G
 
 

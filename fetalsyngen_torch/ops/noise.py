@@ -21,6 +21,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .numerics import device_const
+
 
 @lru_cache(maxsize=64)
 def _perlin_axis_mats(s: int, r: int) -> tuple[np.ndarray, np.ndarray]:
@@ -58,7 +60,7 @@ def perlin_noise_3d(shape, res, uniforms) -> torch.Tensor:
     gy = torch.sin(phi) * torch.sin(theta)
     gz = torch.cos(phi)
     mats = [
-        tuple(torch.from_numpy(m).to(dev) for m in _perlin_axis_mats(shape[d], res[d]))
+        tuple(device_const(m, torch.float32, dev) for m in _perlin_axis_mats(shape[d], res[d]))
         for d in range(3)
     ]
 

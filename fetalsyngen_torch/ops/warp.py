@@ -396,6 +396,64 @@ def warp_rigid_pair_traced(
     return a, b
 
 
+def _rot_axis(axis: int, th: torch.Tensor) -> torch.Tensor:
+    """(3, 3) rotation by the 0-d ``th`` in the plane of ``axis`` (``_PLANE``)."""
+    u_ax, v_ax = _PLANE[axis]
+    c, s = torch.cos(th), torch.sin(th)
+    one, zero = torch.ones_like(th), torch.zeros_like(th)
+    m = [[one if i == j else zero for j in range(3)] for i in range(3)]
+    m[u_ax][u_ax] = m[v_ax][v_ax] = c
+    m[u_ax][v_ax], m[v_ax][u_ax] = -s, s
+    return torch.stack([torch.stack(r) for r in m])
+
+
+def warp_rigid_zoom_first(v, q_idx, angles, scale, delta, out_size=None, post=None, out_perm=None):
+    """The map of :func:`warp_rigid_pair_traced` (``out[q] = V[A q + t]``,
+    rotation times isotropic scale) for one cube volume, with the zoom
+    applied before the rotation's shears, onto an ``out_size`` cube.
+
+    For a downsampling map (``scale > 1``: the scanner's small frame in
+    slice-pixel units) every shear then runs on the small output buffer, and
+    the rotated content fits it by the caller's eligibility rule. With
+    ``R`` the residual rotation and ``c_in``/``c_out`` the buffer centres:
+    ``Z[p] = quarter(V)[s p + d]``, ``out[q] = Z[R (q - c_out) + c_out]``,
+    ``d = R (delta - c_in + s c_out) + c_in - s c_out``. The rotation is the
+    same six unit shears with deferred diagonals, applied last as three
+    interpolation matmuls into which the ``post`` operators compose;
+    ``out_perm=(1, 2, 0)`` emits (axis1, axis2, axis0). Interpolation order
+    differs from the zoom-last warp: equal up to interpolation error.
+    """
+    cube = v.shape[0]
+    S = int(out_size) if out_size is not None else cube
+    c_in = (cube - 1) / 2.0
+    c_out = (S - 1) / 2.0
+    dev = v.device
+    a = apply_quarter_turn(v.to(torch.float32), q_idx)
+    R_res = _rot_axis(0, angles[0]) @ _rot_axis(1, angles[1]) @ _rot_axis(2, angles[2])
+    d = R_res @ (delta - c_in + scale * c_out) + c_in - scale * c_out
+    lanes = torch.arange(S, dtype=torch.float32, device=dev)
+    for axis in range(3):
+        a = axis_mm(a, interp_matrix_1d(scale * lanes + d[axis], cube), axis)
+    C = [torch.ones((), dtype=torch.float32, device=dev)] * 3
+    for axis in range(3):
+        u_ax, v_ax = _PLANE[axis]
+        c = torch.cos(angles[axis])
+        s = torch.sin(angles[axis])
+        C[u_ax] = C[u_ax] / c
+        C[v_ax] = C[v_ax] * c
+        amt_u = (-s * c) * C[u_ax] / C[v_ax]
+        amt_v = (s / c) * C[v_ax] / C[u_ax]
+        a, _ = _shear_pass_pair_mm(a, None, u_ax, v_ax, amt_u)
+        a, _ = _shear_pass_pair_mm(a, None, v_ax, u_ax, amt_v)
+    last_spec = {None: None, (1, 2, 0): "oi,jki->koj"}[out_perm]
+    for axis in range(3):
+        M = interp_matrix_1d(C[axis] * (lanes - c_out) + c_out, S)
+        if post is not None and post[axis] is not None:
+            M = post[axis] @ M
+        a = torch.einsum(last_spec, M, a) if axis == 2 and last_spec is not None else axis_mm(a, M, axis)
+    return a
+
+
 def warp_affine_field_pair_pre(va, vb, A, t, gyT, gz, gxT):
     """Affine + field warp of a (linear, nearest) pair of (B, D, H, W) volumes
     from pre-combined, pre-laid-out displacement fields:

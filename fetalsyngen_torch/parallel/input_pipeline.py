@@ -1,6 +1,6 @@
-"""The artifact-free input stream: seed banks in device memory, seed
-composition on the device, side-stream prefetch (port of the artifact-free
-part of ``fetalsyngen_tpu.parallel.input_pipeline``).
+"""The input stream: seed banks in device memory, seed composition on the
+device, the SR-artifact chain, side-stream prefetch (port of
+``fetalsyngen_tpu.parallel.input_pipeline``).
 
 The dataset path decodes four seed NIfTIs on the host for every sample. The
 stream instead decodes every (subcluster count, meta-label) seed volume of a
@@ -8,24 +8,26 @@ subject once, natively (:mod:`fetalsyngen_torch.io.native`), and keeps it as
 an int8 bank ``(n_options, 4, D, H, W)`` in device memory. Each batch element
 draws its subject and its four subcluster counts, gathers the four chosen
 int8 volumes and sums them on the device, and the batch runs through
-:func:`~fetalsyngen_torch.generator.pipeline.synth_core`. With ``prefetch``
-the next batch is generated on a side CUDA stream while the caller holds the
-current one.
-
-The stream's SR-artifact chain is not ported yet: a generator that
-configures an artifact raises unless the stream is built with
-``artifacts=False``.
+:func:`~fetalsyngen_torch.generator.pipeline.synth_core`. The generator's SR
+artifacts then run per element, in the reference's order (blur_cortex ->
+struct_noise -> simulate_motion -> boundaries,
+:func:`~fetalsyngen_torch.generator.artifacts.batched.apply_chain`), before
+each image is divided by its peak. With ``prefetch`` the next batch is
+generated on a side CUDA stream while the caller holds the current one.
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import threading
 import time
 
 import numpy as np
 import torch
 
+from ..generator.artifacts.batched import ChainSpec, QualityArtifacts, apply_chain, chain_draws, pack_motion
+from ..generator.artifacts.scanner import slice_grid
 from ..generator.pipeline import draw_fields, make_generators, synth_core
 from ..generator.params import sample_params
 from ..io import native, nifti
@@ -108,8 +110,8 @@ def _take_rows(t: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int64)[rows].view(t.dtype)
 
 
-def batch_program(mega, segs, hi, subj, u, p, fields, cfg, lo: int):
-    """One artifact-free batch (the body of the JAX stream's batch program).
+def batch_program(mega, segs, hi, subj, u, p, fields, cfg, lo: int, chain=None):
+    """One batch (the body of the JAX stream's batch program).
 
     Args:
         mega: (S, n_options, 4, D, H, W) int8 seed banks of the S resident
@@ -120,6 +122,8 @@ def batch_program(mega, segs, hi, subj, u, p, fields, cfg, lo: int):
         u: (B, 4) f32 uniforms choosing the options (:func:`choose_options`).
         p, fields: the batch's ``GenParams`` and ``Fields``.
         cfg: the generator config; ``lo`` the lowest option index.
+        chain: None, or a callable ``(image, labels) -> image`` run on the
+            synthesised batch before the division (the artifact chain).
 
     Returns:
         (image, label): (B, D, H, W) f32 divided by each sample's peak where
@@ -134,6 +138,8 @@ def batch_program(mega, segs, hi, subj, u, p, fields, cfg, lo: int):
     del picked
     seg = _take_rows(segs.reshape(S, -1), subj).reshape(-1, *vol).to(torch.int32)
     out, seg, _ = synth_core(p, fields, seeds, seg, cfg)
+    if chain is not None:
+        out = chain(out, seg)
     peak = out.amax(dim=(1, 2, 3), keepdim=True)
     return out / torch.where(peak > 0, peak, 1.0), seg
 
@@ -262,25 +268,44 @@ class SyntheticStream:
     keep their order and prefetch on and off give the same batches.
 
     Host draws: the subject of each element comes from
-    ``np.random.default_rng(seed)`` as in the JAX stream (the same residents
-    and subjects per batch for one seed); each element's integer seed, which
-    seeds its ``torch.Generator`` for the parameters and voxel fields, and the
-    (B, 4) uniforms that choose its options come from a second generator
-    derived from ``seed``. Every batch carries them in ``"meta"``;
-    :meth:`replay_batch` and :meth:`replay_sample` re-create a batch or one
-    element bit for bit on the same device. ``banks`` is the stream's
-    :class:`SeedBankCache`.
+    ``np.random.default_rng(seed)`` as in the JAX stream, and so does the
+    motion artifact's geometry (:func:`pack_motion`, drawn before the
+    subjects, as the JAX stream draws it): one seed gives the JAX stream's
+    residents, subjects and pack. Each element's integer seed, which seeds
+    its ``torch.Generator`` for the parameters and voxel fields and its
+    artifact draws (:func:`chain_draws`), and the (B, 4) uniforms that
+    choose its options come from a second generator derived from ``seed``.
+    Every batch carries them in ``"meta"`` (with the pack and, when the
+    motion artifact is configured, ``"scanner"``: the effective per-sample
+    slice resolution, thickness and gap in mm); :meth:`replay_batch` and
+    :meth:`replay_sample` re-create a batch or one element bit for bit on
+    the same device. ``banks`` is the stream's :class:`SeedBankCache`.
 
     Args:
-        artifacts: the generator's SR artifacts are not ported to the stream
-            yet: with ``artifacts=True`` a generator that configures any
-            raises ``NotImplementedError``; ``artifacts=False`` runs without.
+        artifacts: run the generator's configured SR artifacts (default).
         mix_subjects: subjects resident at once (elements draw uniformly
             among them); the resident set rotates by one subject per batch
             when the dataset has more.
-        genparams: pins for the stream's artifact chain, read under
-            ``"artifacts"`` or ``"artifact_params"``; the artifact-free
-            batch has nothing they pin.
+        cube: the motion engine's static cube tiers (an int or a tuple);
+            by default every tier of the motion artifact's ``tiers`` that
+            the configured slice-resolution range can need
+            (``scanner.slice_grid``), so no draw is clamped.
+        ns_grid: the slice grid; by default the smallest multiple of 32
+            covering ``max(shape) * res / gap_min + 2`` (at least 64, at most
+            the artifact's ``ns_grid``).
+        small_tier: samples whose slice FOV fits the smallest 128-multiple
+            buffer holding the volume run the motion engine there, in px
+            units (``FSG_SMALL_TIER=0`` turns it off).
+        dz_split: the dz-split on the stacks that allow it
+            (``FSG_DZ_SPLIT=1/0`` forces it).
+        coarse_w: the recon weight on pooled grids (``FSG_COARSE_W=1/0``
+            forces it).
+        genparams: pins, read under ``"artifacts"`` or ``"artifact_params"``:
+            ``simulate_motion: {resolution_slice | resolution_slice_fac (mm),
+            slice_thickness, gap, apply}`` pins the scanner's draws and its
+            gate; a non-empty ``blur_cortex`` / ``struct_noise`` /
+            ``boundaries`` dict forces that artifact on, ``{"apply": False}``
+            off, for every sample.
     """
 
     def __init__(
@@ -291,6 +316,11 @@ class SyntheticStream:
         prefetch: bool = True,
         artifacts: bool = True,
         mix_subjects: int = 2,
+        cube: int | tuple | None = None,
+        ns_grid: int | None = None,
+        small_tier: bool = True,
+        dz_split: bool = True,
+        coarse_w: bool = True,
         genparams: dict | None = None,
     ):
         gen = dataset.generator
@@ -299,13 +329,6 @@ class SyntheticStream:
             raise RuntimeError(
                 f"SyntheticStream: the generator's device {self.device} means CUDA, but "
                 "torch.cuda.is_available() is false; set the generator's `device: cpu`"
-            )
-        configured = sorted(k for k, v in (getattr(gen, "artifacts", None) or {}).items() if v is not None)
-        if artifacts and configured:
-            raise NotImplementedError(
-                f"SyntheticStream: the generator configures the SR artifacts {configured}, whose "
-                "stream chain is not ported yet (ROADMAP item 7); pass artifacts=False to stream "
-                "without them"
             )
         self.dataset = dataset
         self.cfg = gen.cfg
@@ -316,6 +339,60 @@ class SyntheticStream:
         self.artifact_pins = {
             k: v for k, v in (gp.get("artifacts", gp.get("artifact_params")) or {}).items() if v is not None
         }
+        self._sm_gp = dict(self.artifact_pins.get("simulate_motion") or {}) or None
+
+        def gate_of(name: str) -> int:
+            sub = {k: v for k, v in (self.artifact_pins.get(name) or {}).items() if v is not None}
+            return -1 if not sub else 0 if sub.get("apply") is False else 1
+
+        g = [gate_of(n) for n in ("blur_cortex", "struct_noise", "boundaries")]
+        self._gates = np.asarray(g, np.int32) if any(x >= 0 for x in g) else None
+
+        arts = (getattr(gen, "artifacts", None) or {}) if artifacts else {}
+        self._sm = arts.get("simulate_motion")
+        qa = QualityArtifacts.from_generator(gen) if artifacts else QualityArtifacts()
+        has_quality = any(a is not None for a in (qa.blur_cortex, qa.struct_noise, qa.boundaries))
+        shape = tuple(self.cfg.shape)
+        res0 = float(self.cfg.resolution[0])
+        tiers = tuple(self._sm.tiers) if self._sm is not None else (384, 512, 640)
+        if cube is None:
+            if self._sm is not None:
+                # every tier the configured res_slice range can need
+                sp = self._sm.scanner_args
+                rs_lo = float(sp.resolution_slice_fac_min)
+                rs_hi = min(float(sp.resolution_slice_fac_max), float(sp.resolution_slice_max) / res0)
+                t_small = slice_grid(shape, rs_hi, sp.slice_size, tiers)
+                t_big = slice_grid(shape, rs_lo, sp.slice_size, tiers)
+                cubes = tuple(t for t in sorted(tiers) if t_small <= t <= t_big)
+            else:
+                cubes = (int(min((c for c in tiers if c >= max(shape)), default=max(tiers))),)
+        else:
+            cubes = tuple(int(c) for c in cube) if isinstance(cube, (tuple, list)) else (int(cube),)
+        self.cubes = cubes
+        self.cube = cubes[0] if len(cubes) == 1 else cubes
+        if ns_grid is None:
+            # the scanner never makes more than max(shape) * res / gap_min + 2
+            # slices a stack: the smallest multiple of 32 covering that
+            ns_grid = getattr(self._sm, "ns_grid", 128)
+            if self._sm is not None:
+                need = int(max(shape) * res0 / float(self._sm.scanner_args.gap_min)) + 2
+                ns_grid = min(ns_grid, max(64, -(-need // 32) * 32))
+        self.ns_grid = int(ns_grid)
+        sc = ((max(shape) + 127) // 128) * 128
+        if os.environ.get("FSG_SMALL_TIER", "1") == "0":
+            small_tier = False
+        self.small_cube = sc if (small_tier and sc < self.cubes[0]) else None
+        env = os.environ.get("FSG_DZ_SPLIT")
+        self.dz_split = env == "1" if env in ("0", "1") else bool(dz_split)
+        env = os.environ.get("FSG_COARSE_W")
+        self.coarse_w = env == "1" if env in ("0", "1") else bool(coarse_w)
+        self.chain = None
+        if has_quality or self._sm is not None:
+            self.chain = ChainSpec(
+                qa if has_quality else None, self._sm, shape, self.cube, self.ns_grid, self.small_cube,
+                self.dz_split, self.coarse_w,
+            )
+
         self._rng = np.random.default_rng(seed)
         self._draws = np.random.default_rng([seed, 1])
         self.banks = SeedBankCache(dataset.seed_paths, device=self.device)
@@ -366,14 +443,27 @@ class SyntheticStream:
         self._resident = want
         self._mega = _Ready(*self._stack_banks(want))
 
-    def _run(self, meta: dict, mega, segs, hi):
+    def make_chain(self, meta: dict, draws=None, events=None, traces=None):
+        """The batch program's artifact chain for ``meta`` (None without
+        artifacts): :func:`apply_chain` with the batch's pack and the
+        elements' :func:`chain_draws` (or ``draws``, a list of ``Draws``);
+        ``events`` and ``traces`` as :func:`apply_chain` takes them."""
+        if self.chain is None:
+            return None
+        if draws is None:
+            draws = chain_draws(meta["seeds"], self.device)
+        pack = meta.get("pack", {})
+        return lambda out, seg: apply_chain(out, seg, self.chain, pack, draws, events, traces)
+
+    def _run(self, meta: dict, mega, segs, hi, **chain_kw):
         dev = self.device
         gens = make_generators(meta["seeds"], dev)
         p = sample_params(gens, self.cfg)
         fields = draw_fields(gens, self.cfg, dev)
         subj = device_const(meta["subj"], torch.int64, dev)
         u = device_const(meta["u"], torch.float32, dev)
-        images, labels = batch_program(mega, segs, hi, subj, u, p, fields, self.cfg, self._lo)
+        images, labels = batch_program(mega, segs, hi, subj, u, p, fields, self.cfg, self._lo,
+                                       self.make_chain(meta, **chain_kw))
         return {
             "image": images,
             "label": labels,
@@ -381,7 +471,8 @@ class SyntheticStream:
             "meta": meta,
         }
 
-    def _generate(self) -> dict:
+    def _generate(self, **chain_kw) -> dict:
+        """The next batch; ``chain_kw`` as :meth:`make_chain` takes them."""
         B = self.batch_size
         with self._lock:
             if self._mega is None or len(self._names) > self.mix_subjects:
@@ -390,11 +481,24 @@ class SyntheticStream:
                 "seeds": self._draws.integers(0, 2**31 - 1, B),
                 "u": self._draws.random((B, 4), dtype=np.float32),
                 "resident": tuple(self._resident),
-                # subject per element, the JAX stream's only draw from this rng
-                "subj": self._rng.integers(0, len(self._resident), B),
                 "batch_size": B,
             }
-            return self._run(meta, *self._mega.get())
+            pack = {}
+            if self._sm is not None:
+                # the motion geometry first, then the subjects: the JAX
+                # stream's order of draws from this rng
+                pack = pack_motion(
+                    self._rng, B, tuple(self.cfg.shape), float(self.cfg.resolution[0]), self._sm, self.cube,
+                    self.ns_grid, small_cube=self.small_cube, genparams=self._sm_gp, with_record=True,
+                )
+                meta["scanner"] = pack.pop("_record")
+            if self._gates is not None:
+                pack["gates"] = np.broadcast_to(self._gates, (B, 3)).copy()
+            if self.chain is not None:
+                meta["pack"] = pack
+            # subject per element, drawn as the JAX stream draws it
+            meta["subj"] = self._rng.integers(0, len(self._resident), B)
+            return self._run(meta, *self._mega.get(), **chain_kw)
 
     def replay_batch(self, meta: dict) -> dict:
         """Re-generate a batch bit for bit from its ``meta`` record, on this

@@ -632,3 +632,167 @@ def test_many_prefetching_iterators_share_one_side_stream(stream_ds):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(batch["image"]).all())
     assert list(ip._SIDE_STREAMS) == [stream.device.index]
+
+
+# ---------------------------------------------------------------------------
+# the stream's artifact chain on the card
+# ---------------------------------------------------------------------------
+
+# (D, H, S) of the stream's K2 forms, at partial tiles: the lane-affine
+# extraction and recon value passes, the pooled weight pass, the per-slice
+# passes on (ns_grid, cube, cube)
+STREAM_K2 = {"lane": [(37, 41, 256), (33, 128, 128), (5, 7, 384)], "slice": [(96, 45, 256), (96, 7, 384)]}
+
+
+@pytest.mark.parametrize("kind, shape", [(k, s) for k, ss in STREAM_K2.items() for s in ss])
+def test_stream_k2_forms_bits(dev, kind, shape):
+    from fetalsyngen_torch.generator.artifacts import scanner as sc
+
+    D, H, S = shape
+    g = torch.Generator(device=dev).manual_seed(D * H + S)
+    x = 100.0 * torch.rand((1, D, H, S), generator=g, device=dev)
+    if kind == "lane":
+        coefs = sc._unit_coefs(dev)[None]
+        disp = (torch.rand((1, 3, S), generator=g, device=dev) - 0.5) * torch.tensor([[[0.4], [0.4], [9.0]]], device=dev)
+        disp[..., ::7] = torch.round(disp[..., ::7]) + 0.5
+    else:
+        coefs = torch.rand((1, D, 4), generator=g, device=dev) - 0.5
+        coefs[..., 0] = 0.0
+        coefs[..., 2] += 1.0
+        coefs[..., 3] *= S / 8
+        disp = None
+    got = hat.hat_pass(x, coefs, disp)
+    want = hat.hat_pass_ref(x, coefs, disp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_acceptance_one_read_equals_sequential(dev):
+    """The stream's acceptance from one read of the (Kb, ns) validity
+    equals the sequential rule that reads each stack's count as it goes."""
+    from fetalsyngen_torch.generator.artifacts import batched as tba
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    for trial in range(60):
+        valid = (torch.rand((6, 96), generator=g, device=dev) < 0.3 * (trial % 4)).float()
+        valid[trial % 6] = 0.0
+        num_stacks, max_slices = 2 + trial % 5, 40.0 + 10 * (trial % 7)
+        got = tba.accept_stacks(valid.cpu().numpy().sum(1), num_stacks, max_slices)
+        count, total, want = 0, 0.0, []
+        for k in range(valid.shape[0]):
+            if count >= num_stacks:
+                break
+            nv = valid[k].sum().item()
+            if nv > 0 and total + nv >= max_slices:
+                break
+            if nv > 0:
+                want.append(k)
+                count += 1
+                total += nv
+        assert got == want, (trial, got, want)
+
+
+@pytest.fixture
+def artifact_ds(dev, tmp_path):
+    from fetalsyngen_torch.data.datasets import FetalSynthDataset
+    from fetalsyngen_torch.generator import model as m
+    from fetalsyngen_torch.generator.artifacts import quality as q
+    from fetalsyngen_torch.generator.artifacts import scanner as sc
+    from fetalsyngen_torch.testing import build_bids_tree
+
+    root = build_bids_tree(tmp_path / "bids", shape=STREAM_SHAPE)
+    labels = [0] + list(range(10, 50))
+    classes = [0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50))
+    perlin = dict(perlin_res_list=[1, 2], perlin_octaves_list=[1, 2], perlin_persistence=0.5, perlin_lacunarity=2)
+    motion = sc.SimulateMotion(
+        1.0, sc.ScannerParams(0.5, 2, 1.5, 1.5, 3.5, 1.5, 5.5, 2, 4, 250, 0, 0.1, 1, 2, 0.2, 0.1, 0.05),
+        sc.ReconParams(0.1, 0.1, 0.1, 3.0, 0.2, 0.3, 0.1, 0.4, 1.0,
+                       q.ReconMergeParams("perlin", perlin_increase_size=0.25, **perlin)),
+        tiers=(128, 256), ns_grid=64,
+    )
+    gen = m.FetalSynthGen(
+        shape=STREAM_SHAPE, resolution=(0.5, 0.5, 0.5),
+        intensity_generator=m.ImageFromSeeds(1, 2, labels, classes),
+        spatial_deform=m.SpatialDeformation(20, 0.02, 0.1, STREAM_SHAPE, 0.9, True, 0.03, 0.06, 4.0, 0.5),
+        resampler=m.RandResample(0.9, 0.5, 1.5), bias_field=m.RandBiasField(0.9, 0.004, 0.02, 0.01, 0.3),
+        noise=m.RandNoise(0.9, 5, 15), gamma=m.RandGamma(0.9, 0.1), device=dev, seed=0,
+        blur_cortex=q.BlurCortex(1.0, 2, 10, 40),
+        struct_noise=q.StructNoise(1.0, 3, 0.2, 0.4, q.StructNoiseMergeParams("perlin", perlin_increase_size=0.1,
+                                                                            **perlin)),
+        simulate_motion=motion, boundaries=q.SimulatedBoundaries(0.0, 1.0, 1.0),
+    )
+    return FetalSynthDataset(str(root), gen, str(root / "derivatives" / "seeds"))
+
+
+def test_stream_artifacts_card_vs_cpu(artifact_ds):
+    """A B=2 batch with the four artifacts on the card against the port's
+    CPU path: the core's labels within 1e-5 of voxels (nearest-label ties may
+    flip); the chain on the CPU from the card's core output with the card's
+    recorded draws: the same validity flags, within 1e-4 of its scale
+    outside the voxels whose recon weight crosses 1e-2 between the two
+    (grown by one voxel where the box smooth ran) or whose boundaries mask
+    differs; the recorded rerun bit-identical to the batch."""
+    from fetalsyngen_torch.generator.artifacts import batched as tba
+    from fetalsyngen_torch.ops.morphology import box_sum
+    from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream, batch_program
+
+    stream = SyntheticStream(artifact_ds, batch_size=2, seed=1, prefetch=False)
+    batch = _take(stream, 1)[0]
+    meta = batch["meta"]
+    assert stream.cubes == (128, 256) and meta["pack"]["motion_on"].all()
+    rec = tba.chain_draws(meta["seeds"], stream.device, record=True)
+    tr_gpu, tr_cpu, core = [], [], {}
+    chain_gpu = stream.make_chain(meta, draws=rec, traces=tr_gpu)
+
+    def chain(out, seg):
+        core.update(out=out.cpu(), seg=seg.cpu())
+        core["chain"] = chain_gpu(out, seg).cpu()
+        return core["chain"].to(out.device)
+
+    gens = tpipe.make_generators(meta["seeds"], stream.device)
+    p = sample_params(gens, stream.cfg)
+    f = tpipe.draw_fields(gens, stream.cfg, stream.device)
+    mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+    args = (torch.from_numpy(meta["subj"]), torch.from_numpy(meta["u"]))
+    img, _ = batch_program(mega, segs, hi, *(a.to(stream.device) for a in args), p, f, stream.cfg, stream._lo, chain)
+    assert torch.equal(img, batch["image"])
+    _, seg = batch_program(mega.cpu(), segs.cpu(), hi.cpu(), *args, p.to("cpu"), f.to("cpu"), stream.cfg, stream._lo)
+    assert (core["seg"] != seg).sum().item() <= 1e-5 * seg.numel()
+    chain_cpu = stream.make_chain(meta, draws=[tba.Draws(d.seed, "cpu", given=d.recorded) for d in rec],
+                                  traces=tr_cpu)
+    out = chain_cpu(core["out"], core["seg"])
+    for b in range(2):
+        assert tr_gpu[b]["accepted"] == tr_cpu[b]["accepted"]
+        assert np.array_equal(tr_gpu[b]["valid"], tr_cpu[b]["valid"])
+        flips = (tr_gpu[b]["weight"].cpu() > 1e-2) != (tr_cpu[b]["weight"] > 1e-2)
+        if meta["pack"]["smooth_on"][b]:
+            flips = box_sum(flips.float(), 3) > 0
+        flips |= tr_gpu[b]["mask"].cpu() != tr_cpu[b]["mask"]
+        assert flips.float().mean() < 1e-3
+        d = (core["chain"][b] - out[b]).abs()
+        assert float(torch.where(flips, 0.0, d).max()) <= 1e-4 * float(core["chain"][b].abs().max())
+
+
+def test_stream_artifacts_replay_prefetch_and_one_read(artifact_ds):
+    """Prefetch on and off give the same batches; a batch replays on a fresh
+    stream; a batch under sync debug mode "error" makes one planned read."""
+    from fetalsyngen_torch.generator.artifacts import batched as tba
+    from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream
+
+    on = _take(SyntheticStream(artifact_ds, batch_size=2, seed=4, prefetch=True), 2)
+    off = _take(SyntheticStream(artifact_ds, batch_size=2, seed=4, prefetch=False), 2)
+    for a, b in zip(on, off):
+        assert torch.equal(a["image"], b["image"]) and torch.equal(a["label"], b["label"])
+    r = SyntheticStream(artifact_ds, batch_size=2, seed=0, prefetch=False).replay_batch(off[1]["meta"])
+    assert torch.equal(r["image"], off[1]["image"])
+    stream = SyntheticStream(artifact_ds, batch_size=2, seed=5, prefetch=False)
+    _take(stream, 1)
+    torch.cuda.synchronize()
+    before = tba.COUNTS["transfers"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch = stream._generate()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tba.COUNTS["transfers"] - before == 1
+    assert bool(torch.isfinite(batch["image"]).all())

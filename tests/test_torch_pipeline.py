@@ -221,7 +221,8 @@ def test_off_slice_configs_raise(volumes):
 
 def test_port_imports_no_jax():
     """Every port module and ``chip_smoke.py`` import neither JAX nor the JAX
-    package, and import without PyYAML."""
+    package, and import without PyYAML; with all three blocked, a tiny
+    stream with the four SR artifacts runs on the CPU."""
     mods = [
         m.name
         for m in pkgutil.walk_packages(fetalsyngen_torch.__path__, "fetalsyngen_torch.")
@@ -232,17 +233,43 @@ def test_port_imports_no_jax():
               "generator.artifacts.psf", "generator.artifacts.quality", "generator.artifacts.scanner",
               "kernels.probes", "probes.timing", "probes.microbench_warp", "probes.probe_blocktp",
               "probes.profile_kernel_variants", "probes.ring_profile", "io.native",
-              "parallel.input_pipeline"):
+              "parallel.input_pipeline", "ops.rand", "generator.artifacts.batched"):
         assert f"fetalsyngen_torch.{m}" in mods
     # PyYAML is blocked too: only ``config.load_yaml`` may need it. The
     # recorded trajectories are the port's own file.
     code = (
-        "import importlib, sys\n"
-        "sys.modules['yaml'] = None\n"
+        "import importlib, sys, tempfile\n"
+        "for m in ('yaml', 'jax', 'jaxlib', 'fetalsyngen_tpu'): sys.modules[m] = None\n"
         f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
         "from fetalsyngen_torch.generator.artifacts import motion\n"
         "assert 'fetalsyngen_torch' in motion._TRAJ_PATH and motion.get_trajectory()['dT'] > 0\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'fetalsyngen_tpu'))\n"
+        "import torch\n"
+        "from pathlib import Path\n"
+        "from fetalsyngen_torch.data.datasets import FetalSynthDataset\n"
+        "from fetalsyngen_torch.generator.artifacts import quality as q, scanner as sc\n"
+        "from fetalsyngen_torch.generator.model import *\n"
+        "from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream\n"
+        "from fetalsyngen_torch.testing import build_bids_tree\n"
+        "S = (32, 32, 32)\n"
+        "mp = q.StructNoiseMergeParams('perlin', perlin_res_list=[1], perlin_octaves_list=[1], "
+        "perlin_persistence=0.5, perlin_lacunarity=2, perlin_increase_size=0.1)\n"
+        "rp = q.ReconMergeParams('perlin', perlin_res_list=[1], perlin_octaves_list=[1], "
+        "perlin_persistence=0.5, perlin_lacunarity=2, perlin_increase_size=0.25)\n"
+        "sm = sc.SimulateMotion(1.0, sc.ScannerParams(1.0, 1.5, 2.0, 1.0, 1.5, 1.0, 1.5, 1, 2, 200, 0, 0.05, 1, 1, "
+        "0.2, 0.5, 0.05), sc.ReconParams(0.5, 0.1, 0.5, 1.0, 0.5, 0.5, 0.1, 0.4, 1.0, rp), tiers=(64,), ns_grid=32)\n"
+        "gen = FetalSynthGen(S, (0.5,) * 3, ImageFromSeeds(1, 2, [0] + list(range(10, 50)), "
+        "[0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50))), "
+        "SpatialDeformation(20, 0.02, 0.1, S, 0.9, True, 0.03, 0.06, 4.0, 0.5), RandResample(0.9, 0.5, 1.5), "
+        "RandBiasField(0.9, 0.004, 0.02, 0.01, 0.3), RandNoise(0.9, 5, 15), RandGamma(0.9, 0.1), "
+        "blur_cortex=q.BlurCortex(1.0, 2, 5, 20), struct_noise=q.StructNoise(1.0, 3, 0.2, 0.4, mp), "
+        "simulate_motion=sm, boundaries=q.SimulatedBoundaries(0.0, 1.0, 1.0), device='cpu', seed=0)\n"
+        "root = build_bids_tree(Path(tempfile.mkdtemp()), shape=S)\n"
+        "ds = FetalSynthDataset(str(root), gen, str(root / 'derivatives' / 'seeds'))\n"
+        "b = next(iter(SyntheticStream(ds, batch_size=1, seed=2, prefetch=False)))\n"
+        "assert b['image'].shape == (1, *S) and bool(torch.isfinite(b['image']).all())\n"
+        "assert b['meta']['pack']['motion_on'].all()\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'fetalsyngen_tpu') "
+        "and sys.modules[k] is not None)\n"
         "assert not bad, bad[:5]\n"
     )
     r = subprocess.run(

@@ -8,7 +8,8 @@ whole batch is held against the JAX stream's (f32 contract,
 per-sample keys' ``GenParams`` and voxel fields, and the uniforms that
 choose the options) and must give the image within 1e-4 (values in [0, 1])
 and the same labels. The rest holds the port's stream to its own contract:
-names, replay, prefetch, the refusals.
+names, replay, prefetch, the refusal without a card, and that a generator's
+SR artifacts run in the stream.
 """
 
 import dataclasses
@@ -371,14 +372,19 @@ def test_concurrent_iterators_keep_the_draws_whole(ds):
         assert _equal(stream.replay_batch(b["meta"]), b)
 
 
-def test_artifacts_refused_until_ported(root):
+def test_artifacts_run_and_differ_from_artifact_free(root):
+    """A generator with an SR artifact streams it: the same seed gives the
+    same subjects, labels and core, and images that differ from the stream
+    built with ``artifacts=False``."""
     gen = _port_generator(blur_cortex=tq.BlurCortex(1.0, 2, 5, 20))
     ads = FetalSynthDataset(str(root), gen, str(root / "derivatives" / "seeds"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tstream.SyntheticStream(ads, batch_size=B)
-    stream = tstream.SyntheticStream(ads, batch_size=B, artifacts=False, prefetch=False)
-    batch = next(iter(stream))
-    assert batch["image"].shape == (B, *SHAPE)
+    got = next(iter(tstream.SyntheticStream(ads, batch_size=B, seed=4, prefetch=False)))
+    plain = next(iter(tstream.SyntheticStream(ads, batch_size=B, seed=4, prefetch=False, artifacts=False)))
+    assert got["image"].shape == plain["image"].shape == (B, *SHAPE)
+    assert got["name"] == plain["name"] and torch.equal(got["label"], plain["label"])
+    assert float(got["image"].min()) >= 0.0 and float(got["image"].max()) <= 1.0
+    assert not torch.allclose(got["image"], plain["image"])
+    assert "pack" in got["meta"] and "pack" not in plain["meta"]
 
 
 def test_genparams_pins_read_under_both_keys(ds):
