@@ -121,6 +121,24 @@ operations over 67 TFLOP/s.
     shape the stream gave it is then timed against its plain version, its
     bound and ``grid_sample``: the kernel entries ``stream:<form>``.
 
+13. the segmentation trainer (``fetalsyngen_torch.train``): the default
+    ``UNet3D`` (channels 16, 32, 64; 8 classes; bf16 compute) on phase 5's
+    generator config at 256^3, B=1: 2 warm-up and 20 timed
+    ``generate_and_train_step``s, steps/s and vol/s from the host clock
+    around a read of each loss, each step's generation against the UNet's
+    forward + backward + update (CUDA events), peak memory, K1's launches
+    (3 a step); every loss finite and the last third's mean below the
+    first's; each timed step's generation replayed bit for bit; one step's
+    generation replayed with every K1 launch held against its plain
+    version, then K1 at that shape timed (the kernel entry
+    ``train:hat_pass_pair``); one step through ``make_sharded_train_step``
+    under an NCCL group of world size 1 against the plain step (loss within
+    1e-5 relative, gradients within 1e-5 of each leaf's max |g|, each
+    weight AdamW's step of its gradient within 1e-6); one step at 64^3 of the f32 model on the card and on the
+    CPU from the same weights and batch, TF32 off (loss within 1e-4
+    relative, each gradient within 1e-3 of its leaf's max |g|); the kernels
+    of two steps by device time (``torch.profiler``).
+
 Phase 3 also holds K1's form without a displacement (the probes'
 ``pair_l_nodisp`` and ``pair_u`` coefficients, and crafted half-integers)
 and K2's lane-affine form (K7's inputs, and a wide table at 256^3) against
@@ -180,11 +198,14 @@ from fetalsyngen_torch.kernels import build, hat, probes
 from fetalsyngen_torch.ops.affine import make_affine_matrix
 from fetalsyngen_torch.ops.morphology import box_sum
 from fetalsyngen_torch.ops.numerics import device_const
+from fetalsyngen_torch.ops import warp
 from fetalsyngen_torch.ops.warp import FIELD_LIM, ul_decompose
 from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream, batch_program, compose_seeds
 from fetalsyngen_torch.probes import microbench_warp, probe_blocktp, profile_kernel_variants, ring_profile
 from fetalsyngen_torch.probes.timing import bound, hat_bound
 from fetalsyngen_torch.testing import phantom_seeds_and_seg, run_scanner_ab, scanner_ab_case
+from fetalsyngen_torch.train import step as tstep
+from fetalsyngen_torch.train.unet import UNet3D
 
 REPO = Path(__file__).resolve().parent
 DATA = REPO / "data"
@@ -222,6 +243,8 @@ KERNELS = {
 STREAM_FORMS = ("hat_pass_lane", "hat_pass_slice", "hat_pass_pair_lane")
 for _form in STREAM_FORMS:
     KERNELS[f"stream:{_form}"] = KERNELS[_form]
+# phase 13: K1's main form at the trainer's shape (B=1 256^3)
+KERNELS["train:hat_pass_pair"] = KERNELS["hat_pass_pair"]
 # (engine, pinned slice resolution in mm) of phase 12's per-engine batches
 STREAM_ENGINES = (("small", 0.7), ("384", 0.5), ("512", 0.35), ("640", 0.25))
 # every artifact's gate forced on (the motion artifact's by any pin)
@@ -1619,13 +1642,15 @@ class StreamHatCheck:
             self.kept[key, shape] = tuple(None if t is None else t.clone() for t in inputs)
 
     @contextlib.contextmanager
-    def on(self):
-        saved = sc.hat_pass, sc.hat_pass_pair
-        sc.hat_pass, sc.hat_pass_pair = self.single, self.pair
+    def on(self, module=sc):
+        """The check in place of ``module``'s entry points (the scanner's,
+        or ``ops.warp``'s for the core's passes)."""
+        saved = module.hat_pass, module.hat_pass_pair
+        module.hat_pass, module.hat_pass_pair = self.single, self.pair
         try:
             yield self
         finally:
-            sc.hat_pass, sc.hat_pass_pair = saved
+            module.hat_pass, module.hat_pass_pair = saved
 
 
 def stream_ds(dev):
@@ -1957,6 +1982,258 @@ def stream_artifacts_path(dev, t_start):
     return {f"stream:{k}": launches[k] for k in STREAM_FORMS}, checks
 
 
+TRAIN_STEPS = 20  # phase 13's timed steps, after 2 warm-up steps
+TRAIN_CPU_SHAPE = (64, 64, 64)  # phase 13's card-against-CPU step
+TRAIN_LOSS_RTOL = 1e-4  # |card - CPU| / |CPU| of that step's loss
+TRAIN_GRAD_TOL = 1e-3  # |card - CPU| of each gradient over the leaf's max |g|
+DDP_LOSS_RTOL = 1e-5  # the world-1 NCCL step's loss against the plain step's
+DDP_GRAD_TOL = 1e-5  # its gradients against the plain step's, over each leaf's max |g|
+ADAMW_STEP_TOL = 1e-6  # its weights against AdamW's first step of its own gradients
+
+
+def train_inputs(dev, shape):
+    """Phase 13's B=1 phantom seeds and segmentation on ``dev`` and the
+    benchmark's generator config at ``shape``."""
+    seeds_np, seg_np = phantom_seeds_and_seg(shape)
+    seeds = torch.from_numpy(seeds_np.astype(np.int32))[None].to(dev)
+    segs = torch.from_numpy(seg_np.astype(np.int32))[None].to(dev)
+    cfg = dataclasses.replace(bench_cfg(), shape=tuple(shape))
+    return seeds, segs, cfg
+
+
+def drive_trainer(dev, cfg, seeds, segs):
+    """Phase 13's drive: 2 warm-up steps, then TRAIN_STEPS timed fused steps
+    of the default ``UNet3D``, the host clock around a read of each loss, a
+    CUDA event at each step's start, at ``train_on``'s entry (the end of the
+    generation) and at its end. Returns the numbers, the losses, and each
+    timed step's sample seeds and its images and labels."""
+    state = tstep.create_train_state(0, UNet3D(), SHAPE, device=dev)
+    marks, kept = [], []
+
+    def train_on(state, images, labels):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        kept.append((images, labels))
+        return train_on_plain(state, images, labels)
+
+    train_on_plain = tstep.train_on
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tstep.train_on = train_on
+    try:
+        for i in range(2):
+            state, loss = tstep.generate_and_train_step(state, [90 + i], seeds, segs, cfg)
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated(dev)
+        marks.clear()
+        kept.clear()
+        reset_counts()
+        starts, ends = [], []
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            state, loss = tstep.generate_and_train_step(state, [100 + i], seeds, segs, cfg)
+            ev1.record()
+            losses.append(float(loss))
+            starts.append(ev0)
+            ends.append(ev1)
+        dt = time.perf_counter() - t0
+        launches = dict(hat.LAUNCHES)
+    finally:
+        tstep.train_on = train_on_plain
+    gen_ms = [a.elapsed_time(m) for a, m in zip(starts, marks)]
+    fit_ms = [m.elapsed_time(b) for m, b in zip(marks, ends)]
+    numbers = {
+        "steps_per_s": TRAIN_STEPS / dt,
+        "vol_per_s": TRAIN_STEPS * seeds.shape[0] / dt,
+        "generate_ms_p50": statistics.median(gen_ms),
+        "train_ms_p50": statistics.median(fit_ms),
+        "generate_ms": gen_ms,
+        "train_ms": fit_ms,
+        "peak_mem_bytes": peak,
+        "launches": launches,
+        "core_vol_per_s": MEASURED.get("core"),
+    }
+    return numbers, losses, [[100 + i] for i in range(TRAIN_STEPS)], kept
+
+
+def train_profile(dev, cfg, seeds, segs, n: int = 2):
+    """Phase 13: the kernels of ``n`` fused steps (``torch.profiler``, after
+    one warm-up step): kernel time against the host clock, then the
+    operators and kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state = tstep.create_train_state(0, UNet3D(), SHAPE, device=dev)
+    tstep.generate_and_train_step(state, [500], seeds, segs, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            tstep.generate_and_train_step(state, [501 + i], seeds, segs, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = prof.key_averages()
+    kernels = [e for e in stats if e.device_type == DeviceType.CUDA]
+    total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if total_ms <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    log(f"train profiler, {n} steps: kernel time {total_ms:.3f} ms, wall {wall_ms:.3f} ms (profiler on)")
+    ops = [e for e in stats if e.device_type != DeviceType.CUDA and e.self_device_time_total > 0]
+    for title, rows in (("operator", ops), ("kernel", kernels)):
+        for e in sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+            ms = e.self_device_time_total / 1e3
+            log(f"  train {title} {100 * ms / total_ms:5.1f}% {ms / n:8.3f} ms/step "
+                f"{e.count / n:6.1f} calls/step  {e.key[:160]}")
+    # the convolutions' and the GroupNorms' device time by their inputs' shapes
+    by_shape = [e for e in prof.key_averages(group_by_input_shape=True)
+                if e.key in ("aten::convolution_backward", "aten::cudnn_convolution", "aten::native_group_norm",
+                             "aten::native_group_norm_backward")]
+    for e in sorted(by_shape, key=lambda e: e.device_time_total, reverse=True)[:8]:
+        log(f"  train by shape {e.device_time_total / 1e3 / n:8.3f} ms/step {e.count / n:4.1f} calls/step "
+            f"{e.key} {str(e.input_shapes)[:120]}")
+
+
+def train_step_record(dev, cfg, seeds, segs, ddp):
+    """One fused step of the default ``UNet3D`` from seed 7's weights on
+    seed 300's batch: the plain step, or through ``make_sharded_train_step``
+    under an NCCL group of world size 1. Returns the loss, the module the
+    step ran, the step count and each parameter's (initial weight,
+    gradient, weight after the step)."""
+    import torch.distributed as dist
+
+    from fetalsyngen_torch.parallel.sharding import data_group
+
+    state = tstep.create_train_state(7, UNet3D(), SHAPE, device=dev)
+    init = {k: p.detach().clone() for k, p in state.model.named_parameters()}
+    if not ddp:
+        _, loss = tstep.generate_and_train_step(state, [300], seeds, segs, cfg)
+        module = state.model
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1)
+            try:
+                step = tstep.make_sharded_train_step(state, cfg, data_group(dev))
+                loss, module = step([300], seeds, segs), step.module
+                torch.cuda.synchronize(dev)
+            finally:
+                dist.destroy_process_group()
+    leaves = {k: (init[k], p.grad.detach().clone(), p.detach().clone()) for k, p in state.model.named_parameters()}
+    return float(loss), type(module).__name__, state.step, leaves
+
+
+def train_ddp_check(dev, cfg, seeds, segs):
+    """Phase 13: one step through ``make_sharded_train_step`` under an NCCL
+    group of world size 1 against the plain step from the same weights and
+    seeds, cuDNN deterministic for both: the losses within DDP_LOSS_RTOL;
+    each gradient DDP left on the model within DDP_GRAD_TOL of the plain
+    step's leaf's max |g| (DDP's hooks and all-reduce); each weight after
+    the step within ADAMW_STEP_TOL of AdamW's first step of its own
+    gradient from the initial weight (the update ran on those gradients)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want, _, _, plain = train_step_record(dev, cfg, seeds, segs, ddp=False)
+        got, wrapped, steps, leaves = train_step_record(dev, cfg, seeds, segs, ddp=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rel = abs(got - want) / abs(want)
+    lr, wd = 1e-3, tstep.ADAMW["weight_decay"]  # create_train_state's default lr
+    grad_err, step_err, grads_equal = (0.0, ""), (0.0, ""), True
+    for k, (p0, g, p1) in leaves.items():
+        g_plain = plain[k][1]
+        scale = float(g_plain.abs().max()) or 1.0
+        grad_err = max(grad_err, (float((g - g_plain).abs().max()) / scale, k))
+        grads_equal &= torch.equal(g, g_plain)
+        adamw = p0 * (1 - lr * wd) - lr * g / (g.abs() + 1e-8)
+        step_err = max(step_err, (float((p1 - adamw).abs().max()), k))
+    log(f"train: world-1 NCCL step ({wrapped}, {steps} step) loss {got:.7f}, plain step {want:.7f}, rel diff "
+        f"{rel:.3e} (bar {DDP_LOSS_RTOL}); gradients bit-identical: {grads_equal}, worst leaf {grad_err[1]} "
+        f"{grad_err[0]:.3e} of its max |g| (bar {DDP_GRAD_TOL}); weights against AdamW's step of their "
+        f"gradients: worst leaf {step_err[1]} {step_err[0]:.3e} (bar {ADAMW_STEP_TOL})")
+    if (wrapped != "DistributedDataParallel" or steps != 1 or not rel <= DDP_LOSS_RTOL
+            or not grad_err[0] <= DDP_GRAD_TOL or not step_err[0] <= ADAMW_STEP_TOL):
+        raise RuntimeError(f"train: the world-1 DDP step disagrees with the plain step "
+                           f"({wrapped}, {steps}, {rel}, {grad_err}, {step_err})")
+
+
+def train_cpu_check(dev):
+    """Phase 13: one step at 64^3 of the f32 ``UNet3D`` on the card and on
+    the CPU from the same weights, on the card's generated batch (TF32 off):
+    the loss within TRAIN_LOSS_RTOL, each gradient within TRAIN_GRAD_TOL of
+    its leaf's max |g|."""
+    seeds, segs, cfg = train_inputs(dev, TRAIN_CPU_SHAPE)
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("train: TF32 is on; the card-against-CPU step needs it off")
+    images, labels = tstep.generate([400], seeds, segs, cfg, dev)
+    states = [tstep.create_train_state(3, UNet3D(dtype=torch.float32), TRAIN_CPU_SHAPE, device=d)
+              for d in (dev, "cpu")]
+    t0 = time.perf_counter()
+    (_, l_card), (_, l_cpu) = (tstep.train_on(st, images.to(st_dev), labels.to(st_dev))
+                               for st, st_dev in zip(states, (dev, "cpu")))
+    cpu_s = time.perf_counter() - t0
+    rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    worst = max(
+        (float((a.grad.cpu() - b.grad).abs().max()) / float(b.grad.abs().max()), name)
+        for (name, a), b in zip(states[0].model.named_parameters(), states[1].model.parameters())
+    )
+    log(f"train: card vs CPU at {TRAIN_CPU_SHAPE} (f32 UNet3D, TF32 off, {cpu_s:.1f} s): loss {float(l_card):.7f} "
+        f"vs {float(l_cpu):.7f}, rel diff {rel:.3e} (bar {TRAIN_LOSS_RTOL}); worst gradient leaf {worst[1]} "
+        f"{worst[0]:.3e} of its max |g| (bar {TRAIN_GRAD_TOL})")
+    if not rel <= TRAIN_LOSS_RTOL or not worst[0] <= TRAIN_GRAD_TOL:
+        raise RuntimeError("train: the card and the CPU disagree beyond the bars")
+
+
+def train_phase(dev, t_start):
+    """Phase 13: the segmentation trainer on the card at full width (the
+    default ``UNet3D``, bf16 compute) on the benchmark's generator config at
+    256^3, B=1. Returns K1's launches over the timed steps and its kernel
+    check at the trainer's shape."""
+    seeds, segs, cfg = train_inputs(dev, SHAPE)
+    numbers, losses, step_seeds, kept = drive_trainer(dev, cfg, seeds, segs)
+    launches = numbers["launches"]
+    head = statistics.mean(losses[: len(losses) // 3])
+    tail = statistics.mean(losses[-(len(losses) // 3):])
+    log(json.dumps({"train": f"UNet3D(16, 32, 64) bf16, {SHAPE[0]}^3 x 1", **numbers, "losses": losses,
+                    "loss_first_third": head, "loss_last_third": tail}))
+    if launches != counts(hat_pass_pair=3 * TRAIN_STEPS):
+        raise RuntimeError(f"train: expected {3 * TRAIN_STEPS} hat_pass_pair launches and no other, got {launches}")
+    if not all(np.isfinite(losses)) or not tail < head:
+        raise RuntimeError(f"train: losses not finite or not trending down ({head} -> {tail})")
+    for sps, (images, labels) in zip(step_seeds, kept):
+        again = tstep.generate(sps, seeds, segs, cfg, dev)
+        if not (torch.equal(again[0], images) and torch.equal(again[1], labels)):
+            raise RuntimeError(f"train: the generation of step {sps} does not replay bit for bit")
+    kept.clear()
+    log(f"phase 13 steps done, {TRAIN_STEPS} generations replayed bit for bit, at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    check = StreamHatCheck()
+    with check.on(warp):
+        again = tstep.generate(step_seeds[0], seeds, segs, cfg, dev)
+    torch.cuda.synchronize()
+    log(json.dumps({"train_launch_check": {k: {"calls": check.calls[k], "max_abs_err": check.err[k],
+                                                 "elements_differing": check.differ[k]} for k in check.calls}}))
+    if dict(check.calls) != {"hat_pass_pair": 3} or any(check.differ.values()) or any(check.err.values()):
+        raise RuntimeError(f"train: a K1 launch differs from its plain version: {dict(check.differ)}")
+    (xa, xb, coefs, disp), = (v for (k, _), v in check.kept.items() if k == "hat_pass_pair")
+    B, D, H, S = xa.shape
+    pos = hat._positions_of(coefs, B, D, H, S, disp)
+    n_half, n_out = count_positions(pos, S)
+    result = compare(
+        "train:hat_pass_pair", f"trainer {tuple(xa.shape)}", lambda: hat.hat_pass_pair(xa, xb, coefs, disp),
+        lambda: hat.hat_pass_pair_ref(xa, xb, coefs, disp), hat_bound(True, B, D, H, S, S, disp, nearest=True),
+        lib=lambda: grid_sample_ms([xa, xb], pos), note=f" half-integer positions={n_half} saturated={n_out}",
+    )
+    del pos, xa, xb, coefs, disp, again, check
+    train_profile(dev, cfg, seeds, segs)
+    train_ddp_check(dev, cfg, seeds, segs)
+    train_cpu_check(dev)
+    return launches["hat_pass_pair"], [result]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU")
@@ -2011,6 +2288,10 @@ def main() -> int:
     launches.update(stream_launches)
     checks += stream_checks
     log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
+    t13 = time.perf_counter()
+    launches["train:hat_pass_pair"], train_checks = train_phase(dev, t_start)
+    checks += train_checks
+    log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t13:.1f} s)")
     missing = [k for k in KERNELS if not launches.get(k)]
     if missing:
         raise RuntimeError(f"kernel forms never launched on the main paths: {missing}")

@@ -1,10 +1,12 @@
-"""Carry the JAX package's sampled state into the port.
+"""Carry the JAX package's sampled state and weights into the port.
 
 The generator has no weights; its state is the per-sample ``GenParams`` and
 the four standard-normal voxel fields. Given them as numpy arrays (for
 example ``{f.name: np.asarray(getattr(p, f.name))}`` of a JAX ``GenParams``,
 and the JAX-drawn fields), these build the port's tensors, so that both
-packages compute the same volume. Numpy in, torch out; no JAX import.
+packages compute the same volume. The trainer's UNet has weights: a flax
+parameter tree becomes the port's ``state_dict``. Numpy in, torch out; no
+JAX import.
 """
 
 from __future__ import annotations
@@ -45,3 +47,44 @@ def fields_from_numpy(intensity, nonlin, bias, noise) -> Fields:
     return Fields(
         intensity=t(intensity, 3), nonlin=t(nonlin, 4), bias=t(bias, 3), noise=t(noise, 3)
     )
+
+
+def unet_state_from_flax(params) -> dict[str, torch.Tensor]:
+    """A flax ``UNet3D`` parameter tree (numpy leaves, with or without the
+    outer ``"params"`` key) -> the ``state_dict`` of the port's ``UNet3D``.
+
+    Flax names its modules ``ConvBlock_i`` (each ``Conv_0``,
+    ``GroupNorm_0``, ``Conv_1``, ``GroupNorm_1``), ``ConvTranspose_j`` and
+    ``Conv_0`` (the head); the port's are ``blocks.i``, ``ups.j`` and
+    ``head``, in the same order. A conv kernel (kd, kh, kw, I, O) becomes
+    (O, I, kd, kh, kw). Flax's ``ConvTranspose`` (``transpose_kernel=False``)
+    correlates its stride-dilated input with the kernel as it is, where
+    ``conv_transpose3d`` scatters with it: the kernel is flipped in each
+    spatial axis as well, (kd, kh, kw, I, O) -> (I, O, kd, kh, kw).
+    """
+    tree = params.get("params", params)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32, order="C"))
+
+    def conv(p):
+        return t(np.transpose(np.asarray(p["kernel"]), (4, 3, 0, 1, 2))), t(p["bias"])
+
+    state = {}
+    for name, sub in tree.items():
+        kind, _, idx = name.rpartition("_")
+        if kind == "ConvBlock":
+            for j in range(2):
+                state[f"blocks.{idx}.convs.{j}.weight"], state[f"blocks.{idx}.convs.{j}.bias"] = conv(
+                    sub[f"Conv_{j}"])
+                state[f"blocks.{idx}.norms.{j}.weight"] = t(sub[f"GroupNorm_{j}"]["scale"])
+                state[f"blocks.{idx}.norms.{j}.bias"] = t(sub[f"GroupNorm_{j}"]["bias"])
+        elif kind == "ConvTranspose":
+            k = np.asarray(sub["kernel"])[::-1, ::-1, ::-1]
+            state[f"ups.{idx}.weight"] = t(np.transpose(k, (3, 4, 0, 1, 2)))
+            state[f"ups.{idx}.bias"] = t(sub["bias"])
+        elif name == "Conv_0":
+            state["head.weight"], state["head.bias"] = conv(sub)
+        else:
+            raise KeyError(f"unet_state_from_flax: unknown module {name!r}")
+    return state

@@ -1,1 +1,2 @@
-"""Host-to-device input stream of the generator."""
+"""Host-to-device input stream of the generator, and batch sharding over
+processes."""

@@ -19,6 +19,7 @@ generated on a side CUDA stream while the caller holds the current one.
 from __future__ import annotations
 
 import collections
+import heapq
 import os
 import threading
 import time
@@ -265,7 +266,12 @@ class SyntheticStream:
     generator says ``device: cpu``). With ``prefetch`` a producer thread
     generates the next batch on the device's side stream while the caller
     holds the current one; one producer runs at a time, so the host draws
-    keep their order and prefetch on and off give the same batches.
+    keep their order and prefetch on and off give the same batches. An
+    iterator closed with a batch in flight hands that batch's ``meta`` back
+    to the stream, and the next batch any iterator draws is the earliest
+    handed back, so closing an iterator skips no draws and returned draws
+    come back in their order. A batch whose generation failed is not drawn
+    again.
 
     Host draws: the subject of each element comes from
     ``np.random.default_rng(seed)`` as in the JAX stream, and so does the
@@ -403,9 +409,19 @@ class SyntheticStream:
         self.mix_subjects = max(1, min(int(mix_subjects), len(self._names)))
         self._resident: list[str] = []
         self._mega: _Ready | None = None
-        # one batch (or replay) at a time: the host draws, the resident set
-        # and the bank cache are shared by producers and replays
+        self._want: tuple[str, ...] = ()
+        # (draw index, meta) of batches drawn but never yielded (their
+        # iterator was closed with them in flight), a heap: drawn again, in
+        # the order they were first drawn, before new values
+        self._returned: list[tuple[int, dict]] = []
+        self._n_drawn = 0
+        # one batch (or replay) at a time: the resident set and the bank
+        # cache are shared by producers and replays
         self._lock = threading.RLock()
+        # the host draws and the returned metas: a closing iterator takes
+        # only this lock, so it hands its batch back without waiting for
+        # another iterator's batch to be generated
+        self._meta_lock = threading.Lock()
 
     def _seg(self, name: str) -> torch.Tensor:
         if name not in self._segs:
@@ -433,15 +449,14 @@ class SyntheticStream:
             device_const(hi, torch.int32, self.device),
         )
 
-    def _rotate_residents(self):
-        """Advance the resident subjects by one (round-robin) and restack
-        their banks; host I/O only on a bank cache miss."""
-        want = [self._names[(self._i + j) % len(self._names)] for j in range(self.mix_subjects)]
-        self._i += 1
-        if want == self._resident:
-            return
-        self._resident = want
-        self._mega = _Ready(*self._stack_banks(want))
+    def _banks_for(self, resident) -> tuple:
+        """The batch program's (mega, segs, hi) for the ``resident`` names of
+        a meta, restacked only when they differ from the last batch's; host
+        I/O only on a bank cache miss."""
+        if list(resident) != self._resident:
+            self._resident = list(resident)
+            self._mega = _Ready(*self._stack_banks(self._resident))
+        return self._mega.get()
 
     def make_chain(self, meta: dict, draws=None, events=None, traces=None):
         """The batch program's artifact chain for ``meta`` (None without
@@ -471,34 +486,62 @@ class SyntheticStream:
             "meta": meta,
         }
 
-    def _generate(self, **chain_kw) -> dict:
-        """The next batch; ``chain_kw`` as :meth:`make_chain` takes them."""
+    def _draw(self) -> tuple[int, dict]:
+        """The next batch's draw index and host draws (under the meta lock):
+        the earliest meta handed back by a closed iterator first, else new
+        draws. The residents advance by one subject a draw (round-robin)
+        when the dataset has more subjects than ``mix_subjects``."""
+        if self._returned:
+            return heapq.heappop(self._returned)
+        index, self._n_drawn = self._n_drawn, self._n_drawn + 1
         B = self.batch_size
+        if not self._want or len(self._names) > self.mix_subjects:
+            self._want = tuple(self._names[(self._i + j) % len(self._names)] for j in range(self.mix_subjects))
+            self._i += 1
+        meta = {
+            "seeds": self._draws.integers(0, 2**31 - 1, B),
+            "u": self._draws.random((B, 4), dtype=np.float32),
+            "resident": self._want,
+            "batch_size": B,
+        }
+        pack = {}
+        if self._sm is not None:
+            # the motion geometry first, then the subjects: the JAX stream's
+            # order of draws from this rng
+            pack = pack_motion(
+                self._rng, B, tuple(self.cfg.shape), float(self.cfg.resolution[0]), self._sm, self.cube,
+                self.ns_grid, small_cube=self.small_cube, genparams=self._sm_gp, with_record=True,
+            )
+            meta["scanner"] = pack.pop("_record")
+        if self._gates is not None:
+            pack["gates"] = np.broadcast_to(self._gates, (B, 3)).copy()
+        if self.chain is not None:
+            meta["pack"] = pack
+        # subject per element, drawn as the JAX stream draws it
+        meta["subj"] = self._rng.integers(0, len(self._want), B)
+        return index, meta
+
+    def _generate(self, box: dict | None = None, **chain_kw) -> dict | None:
+        """The next batch; ``chain_kw`` as :meth:`make_chain` takes them.
+        For a producer, ``box`` receives the batch's draw index and meta as
+        they are drawn. A box whose iterator closed before the draw draws
+        nothing (None); one closed while its batch ran hands the meta back
+        when the batch is done. A batch that fails hands nothing back: its
+        draws are dropped."""
         with self._lock:
-            if self._mega is None or len(self._names) > self.mix_subjects:
-                self._rotate_residents()
-            meta = {
-                "seeds": self._draws.integers(0, 2**31 - 1, B),
-                "u": self._draws.random((B, 4), dtype=np.float32),
-                "resident": tuple(self._resident),
-                "batch_size": B,
-            }
-            pack = {}
-            if self._sm is not None:
-                # the motion geometry first, then the subjects: the JAX
-                # stream's order of draws from this rng
-                pack = pack_motion(
-                    self._rng, B, tuple(self.cfg.shape), float(self.cfg.resolution[0]), self._sm, self.cube,
-                    self.ns_grid, small_cube=self.small_cube, genparams=self._sm_gp, with_record=True,
-                )
-                meta["scanner"] = pack.pop("_record")
-            if self._gates is not None:
-                pack["gates"] = np.broadcast_to(self._gates, (B, 3)).copy()
-            if self.chain is not None:
-                meta["pack"] = pack
-            # subject per element, drawn as the JAX stream draws it
-            meta["subj"] = self._rng.integers(0, len(self._resident), B)
-            return self._run(meta, *self._mega.get(), **chain_kw)
+            with self._meta_lock:
+                if box is not None and box.get("closed"):
+                    return None
+                index, meta = self._draw()
+                if box is not None:
+                    box["index"], box["meta"] = index, meta
+            batch = self._run(meta, *self._banks_for(meta["resident"]), **chain_kw)
+            if box is not None:
+                with self._meta_lock:
+                    box["ran"] = True
+                    if box.get("closed"):
+                        heapq.heappush(self._returned, (box["index"], meta))
+            return batch
 
     def replay_batch(self, meta: dict) -> dict:
         """Re-generate a batch bit for bit from its ``meta`` record, on this
@@ -524,11 +567,11 @@ class SyntheticStream:
             if self.device.type == "cuda":
                 stream = _side_stream(self.device)
                 with torch.cuda.device(self.device), torch.cuda.stream(stream):
-                    box["batch"] = self._generate()
+                    box["batch"] = self._generate(box)
                     box["event"] = torch.cuda.Event()
                     box["event"].record(stream)
             else:
-                box["batch"] = self._generate()
+                box["batch"] = self._generate(box)
         except Exception as e:  # noqa: BLE001 - re-raised in the consumer
             box["error"] = e
 
@@ -562,4 +605,12 @@ class SyntheticStream:
                 t, box = self._start()
                 yield batch
         finally:
+            # closed with a batch in flight: its draws go back to the stream
+            # (here if the batch is done, else by its producer when it is),
+            # so that no consumer skips them; a producer that has not drawn
+            # yet draws nothing, and a failed batch goes back to no one
+            with self._meta_lock:
+                box["closed"] = True
+                if box.get("ran") and "error" not in box:
+                    heapq.heappush(self._returned, (box["index"], box["meta"]))
             t.join()

@@ -796,3 +796,87 @@ def test_stream_artifacts_replay_prefetch_and_one_read(artifact_ds):
         torch.cuda.set_sync_debug_mode(0)
     assert tba.COUNTS["transfers"] - before == 1
     assert bool(torch.isfinite(batch["image"]).all())
+
+
+# ---------------------------------------------------------------------------
+# the segmentation trainer
+# ---------------------------------------------------------------------------
+
+
+def _train_inputs(dev, shape=(32, 32, 32)):
+    from fetalsyngen_torch.train.segmentation import example_cfg
+
+    seeds, seg = phantom_seeds_and_seg(shape, seed=0)
+    seeds = torch.from_numpy(seeds.astype(np.int32))[None].to(dev)
+    segs = torch.from_numpy(seg.astype(np.int32))[None].to(dev)
+    return seeds, segs, example_cfg(shape)
+
+
+def test_train_step_card_vs_cpu(dev):
+    """One fused step of the f32 UNet (TF32 off) on the card's generated
+    batch, on the card and on the CPU from the same weights: the loss within
+    1e-4 relative, each gradient within 1e-3 of its leaf's max |g|; the
+    step launches K1 three times. (16, 32) channels: at most 8 channels a
+    GroupNorm has one channel per group, and the conv bias before it a zero
+    gradient in exact arithmetic, rounding noise on both sides.)"""
+    from fetalsyngen_torch.train import step as tstep
+    from fetalsyngen_torch.train.unet import UNet3D
+
+    seeds, segs, cfg = _train_inputs(dev)
+    states = [tstep.create_train_state(3, UNet3D((16, 32), dtype=torch.float32), cfg.shape, device=d)
+              for d in (dev, "cpu")]
+    for k in hat.LAUNCHES:
+        hat.LAUNCHES[k] = 0
+    images, labels = tstep.generate([5], seeds, segs, cfg, dev)
+    assert hat.LAUNCHES["hat_pass_pair"] == 3
+    (_, l_card), (_, l_cpu) = (tstep.train_on(st, images.to(d), labels.to(d)) for st, d in zip(states, (dev, "cpu")))
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-4 * abs(float(l_cpu))
+    for (name, a), b in zip(states[0].model.named_parameters(), states[1].model.parameters()):
+        assert float((a.grad.cpu() - b.grad).abs().max()) <= 1e-3 * float(b.grad.abs().max()), name
+
+
+def test_train_bf16_steps_are_finite_and_replay(dev):
+    """The default bf16 UNet3D at 32^3: three steps with finite losses; the
+    same seeds from the same weights give the same first loss."""
+    from fetalsyngen_torch.train import step as tstep
+    from fetalsyngen_torch.train.unet import UNet3D
+
+    seeds, segs, cfg = _train_inputs(dev)
+    firsts = []
+    for _ in range(2):
+        state = tstep.create_train_state(0, UNet3D(), cfg.shape, device=dev)
+        losses = [float(tstep.generate_and_train_step(state, [i], seeds, segs, cfg)[1]) for i in range(3)]
+        assert all(np.isfinite(losses)) and state.step == 3
+        firsts.append(losses[0])
+    assert firsts[0] == firsts[1]
+
+
+def test_train_step_through_ddp_world_one(dev, tmp_path, monkeypatch):
+    """``make_sharded_train_step`` under an NCCL group of world size 1 wraps
+    the model in DDP and, cuDNN deterministic, gives the plain step's loss
+    (1e-5 relative) and gradients (1e-5 of each leaf's max |g|), and each
+    weight is AdamW's first step of its gradient (1e-6)."""
+    import torch.distributed as dist
+
+    from fetalsyngen_torch.parallel.sharding import data_group
+    from fetalsyngen_torch.train import step as tstep
+    from fetalsyngen_torch.train.unet import UNet3D
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    seeds, segs, cfg = _train_inputs(dev)
+    plain = tstep.create_train_state(1, UNet3D(), cfg.shape, device=dev)
+    want = float(tstep.generate_and_train_step(plain, [7], seeds, segs, cfg)[1])
+    state = tstep.create_train_state(1, UNet3D(), cfg.shape, device=dev)
+    init = [p.detach().clone() for p in state.model.parameters()]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        step = tstep.make_sharded_train_step(state, cfg, data_group(dev))
+        assert isinstance(step.module, torch.nn.parallel.DistributedDataParallel)
+        got = float(step([7], seeds, segs))
+    finally:
+        dist.destroy_process_group()
+    assert state.step == 1 and abs(got - want) <= 1e-5 * abs(want)
+    for p0, p, q in zip(init, state.model.parameters(), plain.model.parameters()):
+        assert float((p.grad - q.grad).abs().max()) <= 1e-5 * float(q.grad.abs().max())
+        adamw = p0 * (1 - 1e-3 * tstep.ADAMW["weight_decay"]) - 1e-3 * p.grad / (p.grad.abs() + 1e-8)
+        assert float((p.detach() - adamw).abs().max()) <= 1e-6

@@ -233,7 +233,8 @@ def test_port_imports_no_jax():
               "generator.artifacts.psf", "generator.artifacts.quality", "generator.artifacts.scanner",
               "kernels.probes", "probes.timing", "probes.microbench_warp", "probes.probe_blocktp",
               "probes.profile_kernel_variants", "probes.ring_profile", "io.native",
-              "parallel.input_pipeline", "ops.rand", "generator.artifacts.batched"):
+              "parallel.input_pipeline", "ops.rand", "generator.artifacts.batched", "train.unet", "train.step",
+              "train.segmentation", "parallel.sharding"):
         assert f"fetalsyngen_torch.{m}" in mods
     # PyYAML is blocked too: only ``config.load_yaml`` may need it. The
     # recorded trajectories are the port's own file.

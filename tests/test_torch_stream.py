@@ -15,6 +15,7 @@ SR artifacts run in the stream.
 import dataclasses
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -370,6 +371,108 @@ def test_concurrent_iterators_keep_the_draws_whole(ds):
     assert sorted(map(key, got)) == sorted(map(key, seq))
     for b in got:
         assert _equal(stream.replay_batch(b["meta"]), b)
+
+
+def _count_draws(stream):
+    """Counts the stream's host draws. Returns ``wait(n)``, which returns
+    once ``n`` batches have been drawn."""
+    cond, n, draw = threading.Condition(), [0], stream._draw
+
+    def counted():
+        out = draw()
+        with cond:
+            n[0] += 1
+            cond.notify_all()
+        return out
+
+    stream._draw = counted
+
+    def wait(k):
+        with cond:
+            assert cond.wait_for(lambda: n[0] >= k, timeout=120), f"{n[0]} of {k} batches drawn"
+
+    return wait
+
+
+def test_closed_iterator_hands_its_batch_in_flight_back(ds):
+    """A prefetching iterator closed after one batch, once the second is
+    drawn: its draws go back to the stream, so a new iterator's first
+    batch is the sequential stream's second, bit for bit."""
+    stream = tstream.SyntheticStream(ds, batch_size=B, seed=23, prefetch=True)
+    drawn = _count_draws(stream)
+    it = iter(stream)
+    first = next(it)
+    drawn(2)
+    it.close()
+    assert [i for i, _ in stream._returned] == [1]
+    second = _batches(stream, 1)[0]
+    seq = _batches(tstream.SyntheticStream(ds, batch_size=B, seed=23, prefetch=False), 2)
+    assert _equal(first, seq[0]) and _equal(second, seq[1])
+    assert all(np.array_equal(second["meta"][k], seq[1]["meta"][k]) for k in ("seeds", "u", "subj"))
+
+
+def test_iterator_closed_before_its_producer_draws_draws_nothing(ds, monkeypatch):
+    """The producer of the second batch waits until its iterator is closed:
+    it then draws nothing, and a new iterator's first batch is the
+    sequential stream's second."""
+    stream = tstream.SyntheticStream(ds, batch_size=B, seed=23, prefetch=True)
+    generate, boxes = stream._generate, []
+
+    def gated(box=None, **kw):
+        boxes.append(box)
+        deadline = time.monotonic() + 120
+        while len(boxes) == 2 and not box.get("closed") and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return generate(box, **kw)
+
+    monkeypatch.setattr(stream, "_generate", gated)
+    first = _batches(stream, 1)[0]
+    assert boxes[1]["closed"] and "meta" not in boxes[1] and boxes[1]["batch"] is None
+    assert stream._n_drawn == 1 and not stream._returned
+    second = _batches(stream, 1)[0]
+    seq = _batches(tstream.SyntheticStream(ds, batch_size=B, seed=23, prefetch=False), 2)
+    assert _equal(first, seq[0]) and _equal(second, seq[1])
+
+
+def test_failed_batch_is_not_handed_back(ds, monkeypatch):
+    """A batch whose generation failed raises in the consumer and its draws
+    are dropped: the next batch is the sequential stream's second."""
+    stream = tstream.SyntheticStream(ds, batch_size=B, seed=23, prefetch=True)
+    run, calls = stream._run, []
+
+    def fail_first(*a, **kw):
+        calls.append(1)
+        if len(calls) == 1:
+            raise ValueError("producer failed")
+        return run(*a, **kw)
+
+    monkeypatch.setattr(stream, "_run", fail_first)
+    with pytest.raises(ValueError, match="producer failed"):
+        next(iter(stream))
+    assert not stream._returned
+    got = _batches(stream, 1)[0]
+    seq = _batches(tstream.SyntheticStream(ds, batch_size=B, seed=23, prefetch=False), 2)
+    assert _equal(got, seq[1])
+
+
+def test_handed_back_draws_come_back_in_draw_order(ds):
+    """Two iterators closed in the reverse of their draws' order: the
+    batches they hand back are drawn again in the order they were first
+    drawn, then new draws follow."""
+    stream = tstream.SyntheticStream(ds, batch_size=1, seed=23, prefetch=True)
+    drawn = _count_draws(stream)
+    a = iter(stream)
+    next(a)
+    drawn(2)  # a holds batch 0, batch 1 in flight
+    b = iter(stream)
+    next(b)
+    drawn(4)  # b holds batch 2, batch 3 in flight
+    b.close()
+    a.close()
+    assert sorted(i for i, _ in stream._returned) == [1, 3]
+    got = _batches(stream, 3)
+    seq = _batches(tstream.SyntheticStream(ds, batch_size=1, seed=23, prefetch=False), 5)
+    assert all(_equal(g, s) for g, s in zip(got, (seq[1], seq[3], seq[4])))
 
 
 def test_artifacts_run_and_differ_from_artifact_free(root):
