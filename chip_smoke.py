@@ -151,6 +151,26 @@ end partial, and every K1 form there, at an odd S above 3630, at OW != S,
 on operands 4 and 12 bytes off 16 and (its main form) at B=1 256^3, with
 each form's launch geometry (tile rows, ring stages, grid, shared memory).
 
+The stream's bf16 production mode (its default) and the f32
+mode (``FSG_STREAM_BF16=0``) both run in one call: phase 3 also holds the
+bf16 forms of K1 (main form, B=4 256^3) and K2 (per-sample without a
+displacement) bit for bit, with bounds for bf16 rows and ``grid_sample`` on
+bf16 inputs; phase 4b runs ``synth_batch`` in the production mode (three
+K1 bf16 launches, host syncs made errors, replay bit-identical) against the
+f32 mode at the JAX package's bars (labels within LABEL_TOL, correlation >
+0.995, relative L2 < 3e-2) and the production mode at 64^3 on the card
+against the CPU (labels within LABEL_TOL; the image within BF16_ULPS bf16
+ulps of its scale, at most BF16_SHARE_MAX of the voxels beyond IMAGE_TOL);
+phases 5 and 6 time and trace the core in each mode; phases 11 and 12 drive
+the streams in the production mode (every check as before) and again in
+the f32 mode (24 batches, prefetch on), phase 11 also without the nonlinear
+field (K2's bf16 per-sample forms), phase 12 its forced and per-engine
+batches in both modes (every K1/K2 launch of either dtype held against its
+plain version, the stream's bf16 forms timed as ``stream:<form>_bf16``),
+its profile in both, and one motion call in the production mode against
+the f32 mode (relative L2 < 2e-2, correlation > 0.999); the card-against-CPU
+checks of phases 11 and 12 run in the f32 mode, whose bars they are.
+
 Each phase prints its elapsed time. The line before the last is the
 kernels' JSON record, one entry per kernel form and probe mode; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -162,6 +182,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -200,7 +221,7 @@ from fetalsyngen_torch.ops.morphology import box_sum
 from fetalsyngen_torch.ops.numerics import device_const
 from fetalsyngen_torch.ops import warp
 from fetalsyngen_torch.ops.warp import FIELD_LIM, ul_decompose
-from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream, batch_program, compose_seeds
+from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream, _production_scopes, batch_program, compose_seeds
 from fetalsyngen_torch.probes import microbench_warp, probe_blocktp, profile_kernel_variants, ring_profile
 from fetalsyngen_torch.probes.timing import bound, hat_bound
 from fetalsyngen_torch.testing import phantom_seeds_and_seg, run_scanner_ab, scanner_ab_case
@@ -227,6 +248,10 @@ KERNELS = {
     "hat_pass": ("fetalsyngen_torch/csrc/hat_single.cu", "fetalsyngen_tpu/ops/warp.py:150"),
     "hat_pass_lane": ("fetalsyngen_torch/csrc/hat_single.cu", "fetalsyngen_tpu/ops/warp.py:150"),
     "hat_pass_slice": ("fetalsyngen_torch/csrc/hat_single.cu", "fetalsyngen_tpu/ops/warp.py:150"),
+    # the bf16 forms (the stream's production mode); the scanner's are
+    # checked and counted at the stream's shapes ("stream:<form>", phase 12)
+    "hat_pass_pair_bf16": ("fetalsyngen_torch/csrc/hat_pass.cu", "fetalsyngen_tpu/ops/warp.py:1217"),
+    "hat_pass_bf16": ("fetalsyngen_torch/csrc/hat_single.cu", "fetalsyngen_tpu/ops/warp.py:150"),
     "pair_copy": ("fetalsyngen_torch/csrc/probes.cu", "scripts/probe_blocktp.py:30"),
     "pair_transpose": ("fetalsyngen_torch/csrc/probes.cu", "scripts/probe_blocktp.py:35"),
     **{f"probe2_{m}": ("fetalsyngen_torch/csrc/probes.cu", "scripts/microbench_warp.py:198")
@@ -240,9 +265,10 @@ KERNELS = {
 
 # phase 12: the stream's K1/K2 forms, held and timed at the stream's own
 # shapes; their kernel entries are named "stream:<form>"
-STREAM_FORMS = ("hat_pass_lane", "hat_pass_slice", "hat_pass_pair_lane")
+STREAM_FORMS = ("hat_pass_lane", "hat_pass_slice", "hat_pass_pair_lane", "hat_pass_lane_bf16", "hat_pass_slice_bf16",
+                "hat_pass_pair_lane_bf16")
 for _form in STREAM_FORMS:
-    KERNELS[f"stream:{_form}"] = KERNELS[_form]
+    KERNELS[f"stream:{_form}"] = KERNELS[_form.removesuffix("_bf16")]
 # phase 13: K1's main form at the trainer's shape (B=1 256^3)
 KERNELS["train:hat_pass_pair"] = KERNELS["hat_pass_pair"]
 # (engine, pinned slice resolution in mm) of phase 12's per-engine batches
@@ -250,6 +276,46 @@ STREAM_ENGINES = (("small", 0.7), ("384", 0.5), ("512", 0.35), ("640", 0.25))
 # every artifact's gate forced on (the motion artifact's by any pin)
 FORCED_GATES = {"blur_cortex": {"apply": True}, "struct_noise": {"apply": True}, "boundaries": {"apply": True}}
 FLIP_SHARE_MAX = 1e-3  # GPU vs CPU: the share of voxels whose recon weight crosses 1e-2
+BF16 = torch.bfloat16
+# the stream's two modes: "production" (its default, FSG_STREAM_BF16 unset)
+# and "f32" (FSG_STREAM_BF16=0, the rollback); K1's form in each
+MODES = ("production", "f32")
+K1_FORM = {"production": "hat_pass_pair_bf16", "f32": "hat_pass_pair"}
+# the production mode against the f32 mode on the card: JAX's own bars, the
+# core's (tests/test_pipeline.py:108-128) and one motion call's
+# (tests/test_batched_artifacts.py:341-371)
+CORE_CORR_MIN, CORE_REL_MAX = 0.995, 3e-2
+MOTION_CORR_MIN, MOTION_REL_MAX = 0.999, 2e-2
+# the production mode on the card against the CPU at 64^3: phase 11's label
+# bar; the image's bf16 roundings fall the other way where the card sums in
+# another order, so at most BF16_SHARE_MAX of the voxels may differ by more
+# than IMAGE_TOL of the scale, none by more than BF16_ULPS bf16 ulps of it
+BF16_CPU_SHAPE = (64, 64, 64)
+BF16_SHARE_MAX = 1e-3
+BF16_ULPS = 2
+
+
+@contextlib.contextmanager
+def stream_mode(mode: str):
+    """The stream's ``mode`` for the block: ``FSG_STREAM_BF16`` unset
+    (production) or ``0`` (f32); restored after."""
+    saved = os.environ.pop("FSG_STREAM_BF16", None)
+    if mode == "f32":
+        os.environ["FSG_STREAM_BF16"] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop("FSG_STREAM_BF16", None)
+        if saved is not None:
+            os.environ["FSG_STREAM_BF16"] = saved
+
+
+@contextlib.contextmanager
+def core_mode(mode: str):
+    """``synth_core`` in ``mode``: the stream's scopes (``_production_scopes``)
+    under :func:`stream_mode`."""
+    with stream_mode(mode), _production_scopes():
+        yield
 
 
 def log(msg: str) -> None:
@@ -289,9 +355,17 @@ def grid_sample_ms(vols, pos, n: int = 20) -> float:
     inp = torch.stack(vols, 2).reshape(B * D, len(vols), H, S)
     x = pos.reshape(B * D, H, OW) * (2.0 / (S - 1)) - 1.0
     y = torch.arange(H, dtype=torch.float32, device=pos.device) * (2.0 / max(H - 1, 1)) - 1.0
-    grid = torch.stack([x, y[None, :, None].expand(B * D, H, OW)], -1)
+    grid = torch.stack([x, y[None, :, None].expand(B * D, H, OW)], -1).to(inp.dtype)
     del x
-    return cuda_ms(lambda: F.grid_sample(inp, grid, "bilinear", "border", align_corners=True), n)
+    if inp.dtype == torch.float32:
+        return cuda_ms(lambda: F.grid_sample(inp, grid, "bilinear", "border", align_corners=True), n)
+    # bf16 rows (grid in bf16 too, as grid_sample wants): the yardstick is
+    # "none" where the card's torch does not take them
+    try:
+        return cuda_ms(lambda: F.grid_sample(inp, grid, "bilinear", "border", align_corners=True), n)
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"grid_sample on {inp.dtype}: none ({str(e).splitlines()[0][:160]})")
+        return None
 
 
 def bench_cfg():
@@ -544,6 +618,65 @@ def check_new_hat_forms(dev):
     return results
 
 
+def check_bf16_kernels(dev, cfg):
+    """Phase 3: the bf16 forms against their plain versions on bf16 rows,
+    bit-identical: K1's main form at the main path's three passes (B=4
+    256^3, crafted half-integer and edge positions), K2's per-sample forms
+    without a displacement (the affine warp's, under the production mode
+    when the generator has no nonlinear field) at the stream's B=4 256^3
+    in both modes; each with its bound (bf16 rows and outputs) and
+    ``grid_sample`` on bf16 inputs."""
+    p = sample_params(tpipe.make_generators(range(BATCH), dev), cfg)
+    A = make_affine_matrix(p.rotations, p.shears, p.scalings)
+    U, L = ul_decompose(A)
+    g = torch.Generator(device=dev).manual_seed(5678)
+    D = H = S = SHAPE[0]
+    R = D * H
+    xa = (100.0 * torch.rand((BATCH, D, H, S), generator=g, device=dev)).to(BF16)
+    xb = torch.randint(0, 50, (BATCH, D, H, S), generator=g, device=dev).to(BF16)
+    zero = torch.zeros(BATCH, device=dev)
+    results = []
+    for name, ci in (("L-y", L[:, 1, 0]), ("L-z", L[:, 2, 0]), ("x", zero)):
+        coefs = torch.stack([ci, zero, zero + 1, zero], 1).contiguous()
+        disp = (torch.rand((BATCH, R, S), generator=g, device=dev) * 2 - 1) * FIELD_LIM
+        disp = craft_disp(disp, hat.positions(coefs, R, H, S, None), S).reshape(BATCH, D, H, S).contiguous()
+        pos = hat.positions(coefs, R, H, S, disp.reshape(BATCH, R, S))
+        n_half, n_out = count_positions(pos, S)
+        if n_half == 0 or n_out == 0:
+            raise RuntimeError(f"bf16 {name}: the crafted half-integer/edge positions did not occur")
+        results.append(compare(
+            "hat_pass_pair_bf16", name, lambda: hat.hat_pass_pair(xa, xb, coefs, disp),
+            lambda: hat.hat_pass_pair_ref(xa, xb, coefs, disp),
+            hat_bound(True, BATCH, D, H, S, S, disp, nearest=True, esize=2), lib=lambda: grid_sample_ms([xa, xb], pos),
+            note=f" B={BATCH} R={R} S=OW={S} bf16 half-integer positions={n_half} saturated={n_out}",
+        ))
+        del pos
+    del xa, xb
+    c = torch.full((BATCH, 3), (S - 1) / 2.0, device=dev)
+    t = c - torch.einsum("bij,bj->bi", A, c)
+    z = zero
+    one = z + 1
+    volumes = {
+        False: (100.0 * torch.rand((BATCH, D, H, S), generator=g, device=dev)).to(BF16),
+        True: torch.randint(0, 50, (BATCH, D, H, S), generator=g, device=dev).to(BF16),
+    }
+    for name, cs in (("U-z", (z, z, U[:, 2, 2], t[:, 2])), ("U-x", (U[:, 0, 1], U[:, 0, 2], U[:, 0, 0], t[:, 0])),
+                     ("L-z", (L[:, 2, 0], L[:, 2, 1], one, z)), ("crafted", (z + 0.25, z - 0.5, one, z + 0.5))):
+        coefs = torch.stack(cs, 1).contiguous()
+        pos = hat.positions(coefs, R, H, S, None)
+        n_half, n_out = count_positions(pos, S)
+        for nearest in (False, True):
+            x = volumes[nearest]
+            results.append(compare(
+                "hat_pass_bf16", f"{name} {'nearest' if nearest else 'linear'}",
+                lambda: hat.hat_pass(x, coefs, None, nearest), lambda: hat.hat_pass_ref(x, coefs, None, nearest),
+                hat_bound(False, BATCH, D, H, S, S, None, nearest, esize=2), lib=lambda: grid_sample_ms([x], pos),
+                note=f" B={BATCH} R={R} S=OW={S} bf16 half-integer positions={n_half} saturated={n_out}",
+            ))
+        del pos
+    return results
+
+
 def check_hat_tiles(dev):
     """Phase 3: every K2 form against its plain version, untimed, at B=3
     (3, 100, 101, 301): rows of 301 lanes start off 16 bytes, 12-row tiles
@@ -670,7 +803,8 @@ def probe_path():
     log(json.dumps({"probe_path": {"microbench_ms_per_vol": per_vol, "probe_blocktp_ms_per_vol": blocktp,
                                    "profile_kernel_variants_ms": variants},
                     "launches": {k: v for k, v in launches.items() if v}}))
-    missing = [k for k in [*probes.LAUNCHES, "hat_pass_pair_nodisp", "hat_pass_lane"] if not launches[k]]
+    missing = [k for k in [*probes.LAUNCHES, "hat_pass_pair_nodisp", "hat_pass_lane", "hat_pass_pair_bf16"]
+               if not launches[k]]
     if missing:
         raise RuntimeError(f"probe path: kernels never launched: {missing}")
     return launches
@@ -861,39 +995,111 @@ def run_slice(dev, cfg, seeds_np, seg_np):
     return launches, seeds, segs
 
 
-def time_slice(dev, cfg, seeds, segs):
-    """Phase 5: throughput, peak memory, single-volume latency."""
-    iters = 24
-    for i in range(2):
-        tpipe.synth_batch(seeds, segs, cfg, [100 + BATCH * i + b for b in range(BATCH)], dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    for i in range(iters):
-        tpipe.synth_batch(seeds, segs, cfg, [1000 + BATCH * i + b for b in range(BATCH)], dev)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev)
-    vols = BATCH * iters / dt
-    MEASURED["core"] = vols
+def _corr_rel(got: torch.Tensor, ref: torch.Tensor):
+    """(correlation, relative L2) of ``got`` against ``ref``, in f64."""
+    a, b = got.double().flatten(), ref.double().flatten()
+    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    return corr, float((a - b).norm() / b.norm())
 
-    rounds, enqueue = [], []
-    for r in range(3):
-        lats = []
-        for i in range(2 + 15):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tpipe.synth_sample(seeds[0], segs[0], cfg, 5000 + 100 * r + i, dev)
-            t_host = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            if i >= 2:
-                lats.append(time.perf_counter() - t0)
-                enqueue.append(t_host)
-        rounds.append(statistics.median(lats))
-        log(f"latency round {r}: p50 {rounds[-1] * 1e3:.3f} ms, min {min(lats) * 1e3:.3f} ms, "
-            f"max {max(lats) * 1e3:.3f} ms over 15 draws")
+
+def production_core(dev, cfg, seeds, segs):
+    """Phase 4b: ``synth_batch`` (B=4 256^3) in the production mode with
+    host syncs made errors: K1's bf16 form three times and no other kernel;
+    replayed bit for bit; against the f32 mode on the same seeds at JAX's
+    bars (labels equal but for the card's ties, LABEL_TOL; correlation and
+    relative L2); then the production mode at 64^3 on the card against the
+    port's production mode on the CPU with the card's parameters and
+    fields. Returns the launches."""
+    sps = list(range(BATCH))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    reset_counts()
+    with core_mode("production"):
+        out, seg, _ = tpipe.synth_batch(seeds, segs, cfg, sps, dev)
+    launches = dict(hat.LAUNCHES)
+    torch.cuda.set_sync_debug_mode(0)
+    if launches != counts(hat_pass_pair_bf16=3):
+        raise RuntimeError(f"production core: expected 3 hat_pass_pair_bf16 launches and no other, got {launches}")
+    with core_mode("production"):
+        again, seg_again, _ = tpipe.synth_batch(seeds, segs, cfg, sps, dev)
+    if not (torch.equal(again, out) and torch.equal(seg_again, seg)):
+        raise RuntimeError("production core: the replay is not bit-identical")
+    del again, seg_again
+    ref, ref_seg, _ = tpipe.synth_batch(seeds, segs, cfg, sps, dev)
+    torch.cuda.synchronize()
+    if out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"production core: output {out.dtype}, finite {bool(torch.isfinite(out).all())}")
+    rows = []
+    for b in range(BATCH):
+        corr, rel = _corr_rel(out[b], ref[b])
+        frac = float((seg[b] != ref_seg[b]).float().mean())
+        rows.append({"sample": b, "corr": corr, "rel_l2": rel, "labels_differing": frac})
+    log(json.dumps({"production_vs_f32_core": rows, "bars": {"corr_min": CORE_CORR_MIN, "rel_max": CORE_REL_MAX,
+                                                             "labels_differing_max": LABEL_TOL}}))
+    if any(r["corr"] <= CORE_CORR_MIN or r["rel_l2"] >= CORE_REL_MAX or r["labels_differing"] > LABEL_TOL
+           for r in rows):
+        raise RuntimeError("production core: beyond JAX's bf16-against-f32 bars")
+    del out, seg, ref, ref_seg
+
+    small = dataclasses.replace(cfg, shape=BF16_CPU_SHAPE, deform=dataclasses.replace(cfg.deform, size=BF16_CPU_SHAPE))
+    s_np, g_np = phantom_seeds_and_seg(BF16_CPU_SHAPE, seed=1)
+    sd = torch.from_numpy(np.stack([s_np, s_np]).astype(np.int32))
+    sg = torch.from_numpy(np.stack([g_np, g_np]).astype(np.int32))
+    gens = tpipe.make_generators([11, 12], dev)
+    p = sample_params(gens, small)
+    f = tpipe.draw_fields(gens, small, dev)
+    with core_mode("production"):
+        o_gpu, l_gpu, _ = tpipe.synth_core(p, f, sd.to(dev), sg.to(dev), small)
+        o_cpu, l_cpu, _ = tpipe.synth_core(p.to("cpu"), f.to("cpu"), sd, sg, small)
+    o_gpu, l_gpu = o_gpu.cpu(), l_gpu.cpu()
+    scale = float(o_cpu.abs().max())
+    d = (o_gpu - o_cpu).abs() / scale
+    frac = float((l_gpu != l_cpu).float().mean())
+    share = float((d > IMAGE_TOL).float().mean())
+    log(f"production core GPU vs CPU port, B=2 {BF16_CPU_SHAPE}: image max|d|/scale={float(d.max()):.3e} (bar "
+        f"{BF16_ULPS} bf16 ulps = {BF16_ULPS * 2.0 ** -8:.3e}), share above {IMAGE_TOL}={share:.3e} (bar "
+        f"{BF16_SHARE_MAX}), label mismatch fraction={frac:.3e} (bar {LABEL_TOL})")
+    if float(d.max()) > BF16_ULPS * 2.0**-8 or share > BF16_SHARE_MAX or frac > LABEL_TOL:
+        raise RuntimeError("production core: GPU and CPU paths of the port disagree beyond the bars")
+    return launches
+
+
+def time_slice(dev, cfg, seeds, segs, mode="f32"):
+    """Phase 5: throughput, peak memory, single-volume latency, in ``mode``
+    (the core under the stream's scopes: "production" or "f32")."""
+    iters = 24
+    with core_mode(mode):
+        for i in range(2):
+            tpipe.synth_batch(seeds, segs, cfg, [100 + BATCH * i + b for b in range(BATCH)], dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for i in range(iters):
+            tpipe.synth_batch(seeds, segs, cfg, [1000 + BATCH * i + b for b in range(BATCH)], dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        vols = BATCH * iters / dt
+        MEASURED["core" if mode == "f32" else f"core_{mode}"] = vols
+
+        rounds, enqueue = [], []
+        for r in range(3):
+            lats = []
+            for i in range(2 + 15):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tpipe.synth_sample(seeds[0], segs[0], cfg, 5000 + 100 * r + i, dev)
+                t_host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                if i >= 2:
+                    lats.append(time.perf_counter() - t0)
+                    enqueue.append(t_host)
+            rounds.append(statistics.median(lats))
+            log(f"latency round {r} ({mode}): p50 {rounds[-1] * 1e3:.3f} ms, min {min(lats) * 1e3:.3f} ms, "
+                f"max {max(lats) * 1e3:.3f} ms over 15 draws")
     log(json.dumps({
         "metric": "randomized 256^3 volumes/sec",
+        "mode": mode,
         "value": vols,
         "unit": "vol/s",
         "batch": BATCH,
@@ -907,10 +1113,8 @@ def time_slice(dev, cfg, seeds, segs):
 
 def where_time_goes(dev, cfg, seeds, segs):
     """Phase 6: device time per stage (CUDA events between the stages of
-    ``synth_core``), then the operators and kernels with the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    ``synth_core``, f32), then the operators and kernels with the most device
+    time in each mode (:func:`core_profile`)."""
     names = ("sample_params", "draw_fields", "intensity_stage", "deform_stage", "gamma_stage",
              "bias_stage", "resample_noise_stage")
     events = [[torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)] for _ in range(10)]
@@ -939,9 +1143,19 @@ def where_time_goes(dev, cfg, seeds, segs):
     spans = [ev[0].elapsed_time(ev[-1]) for ev in events]
     log(f"stages together {statistics.median(spans):.3f} ms per batch (median of 10); "
         f"10 batches {events[0][0].elapsed_time(events[-1][-1]):.3f} ms")
+    for mode in MODES:
+        core_profile(dev, cfg, seeds, segs, mode)
+
+
+def core_profile(dev, cfg, seeds, segs, mode):
+    """Phase 6's trace of the core in ``mode``: ``torch.profiler`` over 3
+    batches: the kernel time against the host clock, then the operators and
+    kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with core_mode(mode), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(3):
             tpipe.synth_batch(seeds, segs, cfg, [8000 + BATCH * i + b for b in range(BATCH)], dev)
@@ -952,7 +1166,8 @@ def where_time_goes(dev, cfg, seeds, segs):
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if total_ms <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    log(f"profiler, 3 batches: kernel time {total_ms:.3f} ms, wall {wall_ms:.3f} ms (profiler on)")
+    log(f"profiler ({mode}), 3 batches: kernel time {total_ms:.3f} ms, wall {wall_ms:.3f} ms, kernel time / host "
+        f"clock {total_ms / wall_ms:.3f} (profiler on)")
     # operators by the device time of the kernels they launch themselves,
     # then the kernels
     ops = [e for e in stats if e.device_type != DeviceType.CUDA and e.self_device_time_total > 0]
@@ -1412,11 +1627,16 @@ def digest(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32).sum(dim=(2, 3), dtype=torch.int64)
 
 
-def drive_stream(dev, ds, prefetch: bool, iters: int = 24):
-    """Phase 11's drive of one stream: 2 warm-up batches, then ``iters``
-    timed, the host clock around a read of each batch (as ``bench.py
-    --stream``). Returns the stream, its numbers, every batch's digests and
-    the last batch."""
+def drive_stream(dev, ds, prefetch: bool, iters: int = 24, mode: str = "production"):
+    """Phase 11's drive of one stream in ``mode``: 2 warm-up batches, then
+    ``iters`` timed, the host clock around a read of each batch (as
+    ``bench.py --stream``). Returns the stream, its numbers, every batch's
+    digests and the last batch."""
+    with stream_mode(mode):
+        return _drive_stream(dev, ds, prefetch, iters, mode)
+
+
+def _drive_stream(dev, ds, prefetch, iters, mode):
     stream = SyntheticStream(ds, batch_size=BATCH, seed=0, prefetch=prefetch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1440,12 +1660,14 @@ def drive_stream(dev, ds, prefetch: bool, iters: int = 24):
     launches = dict(hat.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     generated = 2 + iters + (1 if prefetch else 0)
-    if launches != counts(hat_pass_pair=3 * generated):
-        raise RuntimeError(f"stream: expected {3 * generated} hat_pass_pair launches and no other, got {launches}")
+    k1 = K1_FORM[mode]
+    if launches != counts(**{k1: 3 * generated}):
+        raise RuntimeError(f"stream ({mode}): expected {3 * generated} {k1} launches and no other, got {launches}")
     name = next(iter(stream.banks.records))  # the first bank built
     rec = stream.banks.records[name]
     start, end = rec["upload"]
     numbers = {
+        "mode": mode,
         "prefetch": prefetch,
         "vol_per_s": BATCH * iters / dt,
         "batches": iters,
@@ -1456,18 +1678,20 @@ def drive_stream(dev, ds, prefetch: bool, iters: int = 24):
             "bytes": rec["bytes"],
         },
         "peak_mem_bytes": peak,
-        "k1_launches": launches["hat_pass_pair"],
+        "k1_launches": launches[k1],
     }
     return stream, numbers, torch.stack(digests).cpu(), b
 
 
-def stream_phase(dev, tree: str, ds) -> int:
-    """Phase 11 for one tree: the stream with prefetch on, a recorded batch
-    replayed bit for bit on the same stream and on a fresh one,
-    ``compose_seeds`` on the card against a host sum; then the stream with
-    prefetch off, bit-identical to prefetch on (every batch's digests). For
-    each run: vol/s beside phase 5's core vol/s, the first bank's build
-    split, the reader, peak memory, K1 launches. Returns K1's launches."""
+def stream_phase(dev, tree: str, ds) -> collections.Counter:
+    """Phase 11 for one tree, in the production mode (the stream's default):
+    the stream with prefetch on, a recorded batch replayed bit for bit on
+    the same stream and on a fresh one, ``compose_seeds`` on the card
+    against a host sum; then the stream with prefetch off, bit-identical to
+    prefetch on (every batch's digests); then the f32 mode with prefetch on
+    over the same 24 batches' draws. For each run: vol/s beside phase 5's
+    core vol/s in its mode, the first bank's build split, the reader, peak
+    memory, K1 launches. Returns the launches by form."""
     stream, n_on, d_on, last = drive_stream(dev, ds, True)
     for where, st in (("same", stream), ("fresh", SyntheticStream(ds, batch_size=BATCH, seed=123, prefetch=False))):
         again = st.replay_batch(last["meta"])
@@ -1488,26 +1712,79 @@ def stream_phase(dev, tree: str, ds) -> int:
     if not torch.equal(d_on, d_off):
         differ = (d_on != d_off).flatten(1).any(1).nonzero().flatten().tolist()
         raise RuntimeError(f"stream {tree}: prefetch on and off differ in batches {differ}")
-    core = MEASURED.get("core")
+    _, n_f32, _, _ = drive_stream(dev, ds, True, mode="f32")
     MEASURED[f"stream_{tree}"] = n_on["vol_per_s"]
-    for n in (n_on, n_off):
+    MEASURED[f"stream_{tree}_f32"] = n_f32["vol_per_s"]
+    for n in (n_on, n_off, n_f32):
+        core = MEASURED.get("core" if n["mode"] == "f32" else f"core_{n['mode']}")
         n["core_vol_per_s"] = core
         n["of_core"] = n["vol_per_s"] / core if core else None
         if tree == "tree_b" and MEASURED.get("synth_train"):
             n["of_api_synth_train"] = n["vol_per_s"] / MEASURED["synth_train"]
-        log(json.dumps({"stream": tree, **n, "prefetch_bit_identical": True, "replay_bit_identical": True,
-                        "compose_seeds_equal_host": True}))
-    return n_on["k1_launches"] + n_off["k1_launches"]
+        checked = {} if n is n_f32 else {"prefetch_bit_identical": True, "replay_bit_identical": True,
+                                          "compose_seeds_equal_host": True}
+        log(json.dumps({"stream": tree, **n, **checked}))
+    return collections.Counter({"hat_pass_pair_bf16": n_on["k1_launches"] + n_off["k1_launches"],
+                                "hat_pass_pair": n_f32["k1_launches"]})
 
 
-def stream_profile(dev, ds, n: int = 12):
-    """Phase 11's trace of the stream (tree A). Prefetch off: each batch's
+def stream_affine_drive(dev, root) -> collections.Counter:
+    """Phase 11: tree A's stream in the production mode with a generator
+    without the nonlinear field, prefetch off, 1 + 3 batches: the affine
+    warp's ten K2 passes a batch (five linear, five nearest) in their bf16
+    forms and no other kernel; then one more batch with every K2 launch also
+    run through its plain version on the same inputs (:class:`StreamHatCheck`
+    on ``ops.warp``), bit for bit; finite images, labels among the input's."""
+    cfg = bench_cfg()
+    cfg = dataclasses.replace(cfg, deform=dataclasses.replace(cfg.deform, nonlinear_transform=False))
+    gen = types.SimpleNamespace(cfg=cfg, device=dev, artifacts={})
+    ds = FetalSynthDataset(str(root), gen, str(root / "derivatives" / "seeds"))
+    stream = SyntheticStream(ds, batch_size=BATCH, seed=2, prefetch=False)
+    with stream_mode("production"):
+        it = iter(stream)
+        next(it)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        batches = [next(it) for _ in range(3)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check = StreamHatCheck()
+        with check.on(warp):
+            batches.append(next(it))
+        it.close()
+    launches = dict(hat.LAUNCHES)
+    if launches != counts(hat_pass_bf16=40):
+        raise RuntimeError(f"stream without the field: expected 40 hat_pass_bf16 launches and no other, got {launches}")
+    if set(check.calls) != {"hat_pass_bf16"} or check.calls["hat_pass_bf16"] != 10:
+        raise RuntimeError(f"stream without the field: the checked batch made {dict(check.calls)}")
+    if check.differ["hat_pass_bf16"] or check.err["hat_pass_bf16"]:
+        raise RuntimeError(f"stream without the field: a K2 launch differs from its plain version "
+                           f"({check.differ['hat_pass_bf16']}, {check.err['hat_pass_bf16']})")
+    shapes = sorted({shape for _, shape in check.kept})
+    in_labels = set(torch.unique(torch.stack([stream._seg(n) for n in stream._names])).tolist())
+    for b in batches:
+        if not bool(torch.isfinite(b["image"]).all()) or not set(torch.unique(b["label"]).tolist()) <= in_labels:
+            raise RuntimeError("stream without the field: non-finite image or labels not in the input")
+    log(json.dumps({"stream": "tree_a affine (no nonlinear field)", "mode": "production", "batches": 3,
+                    "vol_per_s": 3 * BATCH / dt, "launches": {k: v for k, v in launches.items() if v},
+                    "checked_batch": {"launches": 10, "max_abs_err": 0.0, "shapes": shapes}}))
+    return collections.Counter({"hat_pass_bf16": launches["hat_pass_bf16"]})
+
+
+def stream_profile(dev, ds, n: int = 12, mode: str = "production"):
+    """Phase 11's trace of the stream (tree A) in ``mode``. Prefetch off: each batch's
     host time until ``next`` returns (the enqueue) against its CUDA-event
     time (median of 3 after a warm-up). Prefetch on: ``torch.profiler`` over
     ``n`` batches read after 2 warm-ups: the device's kernel time against the
     host clock (batches generated in the window counted by K1's launches,
     3 a batch), and the kernels with the most device time (the producer
     thread's operators are not traced)."""
+    with stream_mode(mode):
+        _stream_profile(dev, ds, n, mode)
+
+
+def _stream_profile(dev, ds, n, mode):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1526,7 +1803,7 @@ def stream_profile(dev, ds, n: int = 12):
             host.append(t_host * 1e3)
             card.append(start.elapsed_time(end))
     it.close()
-    log(f"stream, prefetch off: host enqueue {statistics.median(host):.3f} ms, card "
+    log(f"stream ({mode}), prefetch off: host enqueue {statistics.median(host):.3f} ms, card "
         f"{statistics.median(card):.3f} ms per batch (medians of 3)")
 
     it = iter(SyntheticStream(ds, batch_size=BATCH, seed=5, prefetch=True))
@@ -1546,7 +1823,7 @@ def stream_profile(dev, ds, n: int = 12):
     batches = sum(e.count for e in kernels if "hat_ring_kernel" in e.key) / 3
     if total_ms <= 0 or not batches:
         raise RuntimeError("torch.profiler recorded no device time or no K1 launch in the stream")
-    log(f"stream profile, prefetch on, {n} batches read, {batches:g} generated in the window: kernel time "
+    log(f"stream profile ({mode}), prefetch on, {n} batches read, {batches:g} generated in the window: kernel time "
         f"{total_ms / batches:.3f} ms per batch generated, host clock {wall_ms / n:.3f} ms per batch read, "
         f"kernel time / host clock {total_ms / wall_ms:.3f} (profiler on)")
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
@@ -1559,9 +1836,15 @@ def stream_profile(dev, ds, n: int = 12):
 
 
 def stream_cpu_check(dev, ds):
-    """Phase 11's GPU-vs-CPU check: one B=1 batch on the card, then the same
-    batch through the port's batch program on the CPU, with the card's
-    parameters and fields (torch's CUDA and CPU generators differ)."""
+    """Phase 11's GPU-vs-CPU check, in the f32 mode (its bars are f32 bars;
+    phase 4b holds the production mode's): one B=1 batch on the card, then
+    the same batch through the port's batch program on the CPU, with the
+    card's parameters and fields (torch's CUDA and CPU generators differ)."""
+    with stream_mode("f32"):
+        _stream_cpu_check(dev, ds)
+
+
+def _stream_cpu_check(dev, ds):
     stream = SyntheticStream(ds, batch_size=1, seed=7, prefetch=False)
     it = iter(stream)
     batch = next(it)
@@ -1586,15 +1869,16 @@ def stream_cpu_check(dev, ds):
         raise RuntimeError("stream: GPU and CPU paths of the port disagree beyond the bars")
 
 
-def stream_path(dev, t_start) -> int:
+def stream_path(dev, t_start) -> collections.Counter:
     """Phase 11: the artifact-free stream on tree A (two 256^3 phantom
-    subjects, phase 5's generator config) and tree B (``data/sub-sta21``,
-    phase 7's ``synth_train`` generator). Returns K1's launches."""
+    subjects, phase 5's generator config; and without the nonlinear field)
+    and tree B (``data/sub-sta21``, phase 7's ``synth_train`` generator), in
+    both modes. Returns the launches by form."""
     t0 = time.perf_counter()
     reader = "native" if native.available() else "python"
     log(f"phase 11 native loader: {reader} (built and loaded in {time.perf_counter() - t0:.2f} s), "
         f"build error: {native.build_error()}")
-    launches = 0
+    launches = collections.Counter()
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         root = write_tree_a(Path(tmp))
@@ -1602,7 +1886,10 @@ def stream_path(dev, t_start) -> int:
         gen = types.SimpleNamespace(cfg=bench_cfg(), device=dev, artifacts={})
         ds = FetalSynthDataset(str(root), gen, str(root / "derivatives" / "seeds"))
         launches += stream_phase(dev, "tree_a", ds)
-        stream_profile(dev, ds)
+        for mode in MODES:
+            stream_profile(dev, ds, mode=mode)
+        del ds
+        launches += stream_affine_drive(dev, root)
     log(f"phase 11 tree A done at {time.perf_counter() - t_start:.1f} s")
     ds = FetalSynthDataset(str(DATA), api_generator(dev), seed_path=str(DATA / "derivatives" / "seeds"))
     launches += stream_phase(dev, "tree_b", ds)
@@ -1623,13 +1910,13 @@ class StreamHatCheck:
 
     def single(self, x, coefs, disp=None, nearest=False):
         out = hat.hat_pass(x, coefs, disp, nearest)
-        key = hat._SINGLE_FORMS[hat._form(nearest, coefs, disp, hat._SINGLE_FORMS, "hat_pass")]
+        key = hat.launch_key(False, nearest, coefs, disp, x.dtype)
         self._note(key, (out,), (hat.hat_pass_ref(x, coefs, disp, nearest),), (x, None, coefs, disp))
         return out
 
     def pair(self, va, vb, coefs, disp, nearest_b=True):
         got = hat.hat_pass_pair(va, vb, coefs, disp, nearest_b)
-        key = hat._PAIR_FORMS[hat._form(nearest_b, coefs, disp, hat._PAIR_FORMS, "hat_pass_pair")]
+        key = hat.launch_key(True, nearest_b, coefs, disp, va.dtype)
         self._note(key, got, hat.hat_pass_pair_ref(va, vb, coefs, disp, nearest_b), (va, vb, coefs, disp))
         return got
 
@@ -1669,10 +1956,18 @@ def engine_of(pack, b, stream) -> str:
     return "small" if small else str(cube)
 
 
-def drive_artifact_stream(dev, ds, prefetch: bool, iters: int = 24):
-    """Phase 12's drive: ``SyntheticStream`` with the artifacts, 2 warm-up
-    batches then ``iters`` read, the host clock around a read of each batch.
-    Returns its numbers, every batch's digests, its metas and launches."""
+def drive_artifact_stream(dev, ds, prefetch: bool, iters: int = 24, mode: str = "production"):
+    """Phase 12's drive in ``mode``: ``SyntheticStream`` with the artifacts,
+    2 warm-up batches then ``iters`` read, the host clock around a read of
+    each batch. Returns the stream, its numbers, every batch's digests and
+    its launches."""
+    with stream_mode(mode):
+        stream, numbers, digests, launches = _drive_artifact_stream(dev, ds, prefetch, iters)
+    numbers["mode"] = mode
+    return stream, numbers, digests, launches
+
+
+def _drive_artifact_stream(dev, ds, prefetch, iters):
     stream = SyntheticStream(ds, batch_size=BATCH, seed=0, prefetch=prefetch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1802,15 +2097,16 @@ def stream_sync_check(stream):
     log(f"stream sync check: one forced B={BATCH} batch under sync debug mode 'error', {reads} planned read")
 
 
-def stream_profile_artifacts(stream, n: int = 2):
-    """Phase 12's trace: ``torch.profiler`` over ``n`` forced batches,
-    prefetch off: the card's kernel time against the host clock, the kernels
-    with the most device time, and the copy kernels (the contiguous copies
-    before the hat passes, einsum's permuted operands) per batch."""
+def stream_profile_artifacts(stream, n: int = 2, mode: str = "production"):
+    """Phase 12's trace in ``mode``: ``torch.profiler`` over ``n`` forced
+    batches, prefetch off: the card's kernel time against the host clock,
+    the kernels with the most device time, and the copy kernels (the
+    contiguous copies before the hat passes, einsum's permuted operands) per
+    batch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with pinned(stream, BATCH, {"apply": True}, np.ones(3, np.int32)):
+    with stream_mode(mode), pinned(stream, BATCH, {"apply": True}, np.ones(3, np.int32)):
         stream._generate()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1824,7 +2120,8 @@ def stream_profile_artifacts(stream, n: int = 2):
     if busy_ms <= 0:
         raise RuntimeError("torch.profiler recorded no device time in the stream with artifacts")
     copies = [e for e in kernels if "copy" in e.key.lower()]
-    log(f"stream artifacts profile, {n} forced B={BATCH} batches, prefetch off: kernel time {busy_ms / n:.3f} ms "
+    log(f"stream artifacts profile ({mode}), {n} forced B={BATCH} batches, prefetch off: kernel time "
+        f"{busy_ms / n:.3f} ms "
         f"a batch, host clock {wall_ms / n:.3f} ms a batch, kernel time / host clock {busy_ms / wall_ms:.3f} "
         f"(profiler on); copy kernels {sum(e.count for e in copies) / n:.1f} a batch, "
         f"{sum(e.self_device_time_total for e in copies) / 1e3 / n:.3f} ms a batch")
@@ -1842,8 +2139,8 @@ def stream_artifacts_cpu_check(dev, stream):
     the same validity flags, the image within 1e-4 of its scale outside the
     voxels whose recon weight crosses 1e-2 between the two (grown by one
     voxel where the box smooth ran) or whose boundaries mask differs, whose
-    share is printed and bounded."""
-    with pinned(stream, 1, {"resolution_slice": 0.7}, np.ones(3, np.int32)):
+    share is printed and bounded. In the f32 mode: its bars are f32 bars."""
+    with stream_mode("f32"), pinned(stream, 1, {"resolution_slice": 0.7}, np.ones(3, np.int32)):
         batch = stream._generate()
         meta = batch["meta"]
         rec = tba.chain_draws(meta["seeds"], dev, record=True)
@@ -1897,6 +2194,39 @@ def stream_artifacts_cpu_check(dev, stream):
         raise RuntimeError("stream with artifacts: GPU and CPU paths of the port disagree beyond the bars")
 
 
+def motion_mode_check(dev, stream):
+    """Phase 12: one motion call (``motion_t``, the 384 engine, a forced B=1
+    batch's pack) in the production mode against the f32 mode, on the same
+    f32 core output and the same draws: JAX's bars (relative L2 and
+    correlation, ``tests/test_batched_artifacts.py:341-371``)."""
+    with stream_mode("f32"), pinned(stream, 1, {"resolution_slice": 0.5}, np.zeros(3, np.int32)):
+        meta = stream._generate()["meta"]
+        gens = tpipe.make_generators(meta["seeds"], dev)
+        p = sample_params(gens, stream.cfg)
+        f = tpipe.draw_fields(gens, stream.cfg, dev)
+        mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+        args = (torch.from_numpy(meta["subj"]).to(dev), torch.from_numpy(meta["u"]).to(dev))
+        core, seg = batch_program(mega, segs, hi, *args, p, f, stream.cfg, stream._lo,
+                                  chain=lambda out, seg: out.clone())
+    row = tba.row_of(meta["pack"], 0)
+    outs, traces = {}, {}
+    draws = tba.chain_draws(meta["seeds"], dev, record=True)[0]
+    for mode in ("f32", "production"):
+        traces[mode] = {}
+        with core_mode(mode):
+            outs[mode] = tba.motion_t(core[0], seg[0], row, stream._sm, SHAPE, stream.cube, stream.ns_grid, draws,
+                                      stream.small_cube, stream.dz_split, stream.coarse_w, trace=traces[mode])
+        draws = tba.Draws(draws.seed, dev, given=draws.recorded)
+    torch.cuda.synchronize()
+    corr, rel = _corr_rel(outs["production"], outs["f32"])
+    log(json.dumps({"production_vs_f32_motion": {"engine": engine_of(meta["pack"], 0, stream), "corr": corr,
+                                                  "rel_l2": rel, "accepted": {m: traces[m]["accepted"] for m in traces},
+                                                  "dtype": str(outs["production"].dtype)},
+                    "bars": {"corr_min": MOTION_CORR_MIN, "rel_max": MOTION_REL_MAX}}))
+    if outs["production"].dtype != torch.float32 or corr <= MOTION_CORR_MIN or rel >= MOTION_REL_MAX:
+        raise RuntimeError("production motion: beyond JAX's bf16-against-f32 bars")
+
+
 def stream_kernel_checks(dev, check):
     """Phase 12: each K1/K2 form the stream launched, at each of its shapes
     (the inputs the check kept), against its plain version: bit-identical,
@@ -1915,8 +2245,9 @@ def stream_kernel_checks(dev, check):
         pos = hat._positions_of(coefs, B, D, H, OW, disp)
         n_half, n_out = count_positions(pos, S)
         n = 20 if B * D * H * S <= 2**26 else 5
+        esize = xa.element_size()
         results.append(compare(
-            f"stream:{key}", f"stream {tuple(shape)}", run, plain, hat_bound(pair, B, D, H, S, OW, disp),
+            f"stream:{key}", f"stream {tuple(shape)}", run, plain, hat_bound(pair, B, D, H, S, OW, disp, esize=esize),
             lib=lambda: grid_sample_ms([xa] + ([xb] if pair else []), pos, n), n=n,
             note=f" half-integer positions={n_half} saturated={n_out}",
         ))
@@ -1935,6 +2266,7 @@ def stream_artifacts_path(dev, t_start):
     if not torch.equal(d_on, d_off):
         differ = (d_on != d_off).flatten(1).any(1).nonzero().flatten().tolist()
         raise RuntimeError(f"stream with artifacts: prefetch on and off differ in batches {differ}")
+    _, n_f32, _, l_f32 = drive_artifact_stream(dev, ds, True, mode="f32")
     it = iter(stream)
     b = next(it)
     it.close()
@@ -1950,32 +2282,36 @@ def stream_artifacts_path(dev, t_start):
         tba.pack_motion(np.random.default_rng(i), BATCH, SHAPE, 0.5, sm, stream.cube, stream.ns_grid,
                         small_cube=stream.small_cube)
         pack_ms.append(1e3 * (time.perf_counter() - t0))
-    for n in (n_on, n_off):
+    for n in (n_on, n_off, n_f32):
+        f32 = n["mode"] == "f32"
         n.update(api_artifacts_samples_per_s=MEASURED.get("synth_train_artifacts"),
-                 artifact_free_stream_vol_per_s=MEASURED.get("stream_tree_b"),
+                 artifact_free_stream_vol_per_s=MEASURED.get("stream_tree_b_f32" if f32 else "stream_tree_b"),
                  pack_motion_ms_per_batch=statistics.mean(pack_ms), cubes=list(stream.cubes),
                  ns_grid=stream.ns_grid, small_cube=stream.small_cube)
-        log(json.dumps({"stream_artifacts": "tree_b", **n, "prefetch_bit_identical": True,
-                        "replay_bit_identical": True}))
+        checked = {} if f32 else {"prefetch_bit_identical": True, "replay_bit_identical": True}
+        log(json.dumps({"stream_artifacts": "tree_b", **n, **checked}))
     log(f"phase 12 drives done at {time.perf_counter() - t_start:.1f} s")
     launches = collections.Counter()
-    for lc in (l_on, l_off):
+    for lc in (l_on, l_off, l_f32):
         launches.update(lc)
     check = StreamHatCheck()
-    launches.update(stream_forced_batch(dev, stream, check))
-    for name, rs in STREAM_ENGINES:
-        for split, coarse in ((True, True), (False, True), (True, False)):
-            launches.update(engine_batch(dev, stream, name, rs, split, coarse, check))
+    for mode in MODES:
+        with stream_mode(mode):
+            launches.update(stream_forced_batch(dev, stream, check))
+            for name, rs in STREAM_ENGINES:
+                for split, coarse in ((True, True), (False, True), (True, False)):
+                    launches.update(engine_batch(dev, stream, name, rs, split, coarse, check))
     log(f"phase 12 engine batches done at {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"stream_launch_check": {k: {"calls": check.calls[k], "max_abs_err": check.err[k],
                                                   "elements_differing": check.differ[k]} for k in check.calls}}))
     if any(check.differ.values()) or any(check.err.values()):
         raise RuntimeError(f"stream: a K1/K2 launch differs from its plain version: {dict(check.differ)}")
-    if not (launches["hat_pass_pair"] and launches["hat_pass_lane"] and launches["hat_pass_slice"]
-            and launches["hat_pass_pair_lane"]):
+    if not all(launches[k] for k in ("hat_pass_pair", "hat_pass_pair_bf16", *STREAM_FORMS)):
         raise RuntimeError(f"stream: a K1/K2 form of the stream was never launched: {dict(launches)}")
     stream_sync_check(stream)
-    stream_profile_artifacts(stream)
+    for mode in MODES:
+        stream_profile_artifacts(stream, mode=mode)
+    motion_mode_check(dev, stream)
     stream_artifacts_cpu_check(dev, stream)
     log(f"phase 12 checks done at {time.perf_counter() - t_start:.1f} s")
     checks = stream_kernel_checks(dev, check)
@@ -2241,12 +2577,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    # the production mode's bf16 GEMMs then sum in f32 with a bf16 result
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}; "
+        f"bf16 bmm with an f32 result (aten::bmm.dtype): {'dtype' in torch.ops.aten.bmm.overloads()}")
 
     t_start = time.perf_counter()
     libs = build.build()
@@ -2256,12 +2595,17 @@ def main() -> int:
     checks = check_kernel(dev, cfg) + check_single_kernel(dev, cfg)
     checks += check_scanner_kernels(dev)
     checks += check_new_hat_forms(dev)
+    checks += check_bf16_kernels(dev, cfg)
     check_hat_tiles(dev)
     check_pair_tiles(dev)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     seeds_np, seg_np = phantom_seeds_and_seg(SHAPE)
     launches, seeds, segs = run_slice(dev, cfg, seeds_np, seg_np)
-    time_slice(dev, cfg, seeds, segs)
+    for k, v in production_core(dev, cfg, seeds, segs).items():
+        launches[k] += v
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+    for mode in MODES:
+        time_slice(dev, cfg, seeds, segs, mode)
     where_time_goes(dev, cfg, seeds, segs)
     del seeds, segs
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
@@ -2282,7 +2626,8 @@ def main() -> int:
     checks += check_probes(dev)
     check_probe_tiles(dev)
     log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
-    launches["hat_pass_pair"] += stream_path(dev, t_start)
+    for k, v in stream_path(dev, t_start).items():
+        launches[k] += v
     log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
     stream_launches, stream_checks = stream_artifacts_path(dev, t_start)
     launches.update(stream_launches)

@@ -12,12 +12,20 @@
 // FMAs. An FMA would move positions by an ulp and flip nearest-mode labels
 // that sit at half-voxel positions. Nearest mode rounds half to even (rintf,
 // as torch.round).
+//
+// The operand rows and outputs are f32 or bf16 (T, the stream's production
+// mode); positions, coefficients, displacements and tables are f32. A bf16
+// row's taps widen to f32 (exactly), the linear sample is computed in f32 as
+// for f32 rows and rounded once to bf16 (__float2bfloat16_rn, as torch's
+// .to(bfloat16)); a nearest or edge sample is the row's value as it is.
 
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "ring.cuh"
@@ -71,11 +79,25 @@ __device__ __forceinline__ const float* hat_disp_row(const float* disp, int b, i
   return nullptr;
 }
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// an f32 result in T, rounded to nearest even for bf16
+template <typename T>
+__device__ __forceinline__ T narrow(float v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
 // Sample of the staged row (length S) at pos: row[0] where pos <= 0,
-// row[S-1] where pos >= S-1, else linear (two taps) or nearest. Between the
-// edges the clamps are the identity; they keep a NaN position in bounds.
-template <bool kNearest>
-__device__ __forceinline__ float hat_sample(const float* row, float pos, int S) {
+// row[S-1] where pos >= S-1, else linear (two taps, in f32) or nearest.
+// Between the edges the clamps are the identity; they keep a NaN position in
+// bounds.
+template <bool kNearest, typename T>
+__device__ __forceinline__ T hat_sample(const T* row, float pos, int S) {
   const float last = static_cast<float>(S - 1);
   if (pos <= 0.0f) return row[0];
   if (pos >= last) return row[S - 1];
@@ -84,7 +106,7 @@ __device__ __forceinline__ float hat_sample(const float* row, float pos, int S) 
   const float f = fminf(floorf(c), static_cast<float>(S - 2));
   const float w = __fsub_rn(c, f);
   const int fi = static_cast<int>(f);
-  return __fadd_rn(__fmul_rn(row[fi], __fsub_rn(1.0f, w)), __fmul_rn(row[fi + 1], w));
+  return narrow<T>(__fadd_rn(__fmul_rn(widen(row[fi]), __fsub_rn(1.0f, w)), __fmul_rn(widen(row[fi + 1]), w)));
 }
 
 }  // namespace fsg
@@ -107,7 +129,10 @@ __device__ __forceinline__ float hat_sample(const float* row, float pos, int S) 
 // add a tile to every stage; read once and coalesced, it gains nothing from
 // shared memory. The lane-affine table is read the same way, from the caches
 // (3 OW floats a sample, shared by all its rows). Outputs, the displacement
-// volume and the table have rows of OW lanes, the staged rows S.
+// volume and the table have rows of OW lanes, the staged rows S. The
+// kernel's element type T (float or __nv_bfloat16) is that of the staged
+// rows and the outputs: a bf16 tile holds twice the rows of an f32 one in
+// the same kTileBytes, and four bf16 outputs go out as one 8-byte store.
 namespace {
 
 using namespace fsg;
@@ -134,19 +159,35 @@ __device__ __forceinline__ void load_lanes(const float* __restrict__ p, int l, i
   }
 }
 
-// kOps operands xa (linear) and xb, the last sampled nearest if kNearestLast;
-// nrows rows of S lanes in, of OW lanes out
-template <int kOps, bool kNearestLast, int kCoef, int kDisp>
+// out[l + k] = v[k] for the bf16 lanes l + k < S: one 8-byte streaming store
+// where all four lie in the row on 8 bytes, else lane by lane
+__device__ __forceinline__ void store4(__nv_bfloat16* out, int l, int S, const __nv_bfloat16* v) {
+  if (l + 3 < S && (reinterpret_cast<uintptr_t>(out + l) & 7) == 0) {
+    uint2 u;
+    u.x = static_cast<uint32_t>(__bfloat16_as_ushort(v[0])) | (static_cast<uint32_t>(__bfloat16_as_ushort(v[1])) << 16);
+    u.y = static_cast<uint32_t>(__bfloat16_as_ushort(v[2])) | (static_cast<uint32_t>(__bfloat16_as_ushort(v[3])) << 16);
+    __stcs(reinterpret_cast<uint2*>(out + l), u);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (l + k < S) out[l + k] = v[k];
+    }
+  }
+}
+
+// kOps operands xa (linear) and xb of T elements, the last sampled nearest if
+// kNearestLast; nrows rows of S lanes in, of OW lanes out
+template <typename T, int kOps, bool kNearestLast, int kCoef, int kDisp>
 __global__ void __launch_bounds__(kRingThreads, 2) hat_ring_kernel(
-    const float* __restrict__ xa, const float* __restrict__ xb, const float* __restrict__ disp,
-    const float* __restrict__ coefs, float* __restrict__ oa, float* __restrict__ ob, long long nrows, int R,
+    const T* __restrict__ xa, const T* __restrict__ xb, const float* __restrict__ disp,
+    const float* __restrict__ coefs, T* __restrict__ oa, T* __restrict__ ob, long long nrows, int R,
     int H, int S, int OW, int tile_rows, int pitch, int stages, TileCounter* counter) {
   // groups of four lanes a thread takes at once: the displacement volume's
   // loads of all of them go out before the first group is computed (four
   // groups of one operand, two of a pair: a pair's registers for four spill)
   constexpr int kGroups = kDisp == kDispVolume ? 4 / kOps : 1;
   extern __shared__ __align__(128) unsigned char smem[];
-  Ring<kOps> ring;
+  Ring<kOps, T> ring;
   ring.smem = smem;
   ring.x[0] = xa;
   if constexpr (kOps == 2) ring.x[1] = xb;
@@ -161,7 +202,7 @@ __global__ void __launch_bounds__(kRingThreads, 2) hat_ring_kernel(
     const int rows = static_cast<int>(min(static_cast<long long>(tile_rows), nrows - n0));
     const int b0 = static_cast<int>(n0 / R);
     const int r0 = static_cast<int>(n0 - static_cast<long long>(b0) * R);
-    const float* src[kOps];
+    const T* src[kOps];
 #pragma unroll
     for (int op = 0; op < kOps; ++op) src[op] = ring.data(s, op, t);
     const int groups = rows * G;
@@ -214,7 +255,7 @@ __global__ void __launch_bounds__(kRingThreads, 2) hat_ring_kernel(
           }
         }
         const size_t out = static_cast<size_t>(n0 + row) * OW;
-        float v[4];
+        T v[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) v[k] = hat_sample<kOps == 1 && kNearestLast>(src[0] + row * S, pos[k], S);
         store4(oa + out, l, OW, v);
@@ -228,28 +269,28 @@ __global__ void __launch_bounds__(kRingThreads, 2) hat_ring_kernel(
   });
 }
 
-// Plans the launch of a hat form on nrows rows into g (tiles of
-// kTileBytes per operand), and launches it if `launch`. K1's ring is loose
-// (tiles of any row count, operands at any float offset: with two operands,
-// 4-row tiles of odd S would not fit two stages above S = 3630); K2's tiles
-// are whole 16-byte units of an x on 16 bytes, cudaErrorMisalignedAddress
-// for an x that is not.
-template <int kOps, bool kNearestLast, int kCoef, int kDisp>
-cudaError_t hat_ring_run(const float* xa, const float* xb, const float* disp, const float* coefs, float* oa,
-                         float* ob, long long nrows, int R, int H, int S, int OW, bool launch, cudaStream_t st,
-                         Geometry* g) {
+// Plans the launch of a hat form on nrows rows of T elements into g (tiles
+// of kTileBytes per operand), and launches it if `launch`. K1's ring is
+// loose (tiles of any row count, operands at any element offset: with two
+// operands, 4-row tiles of odd f32 S would not fit two stages above
+// S = 3630); K2's tiles are whole 16-byte units of an x on 16 bytes,
+// cudaErrorMisalignedAddress for an x that is not.
+template <typename T, int kOps, bool kNearestLast, int kCoef, int kDisp>
+cudaError_t hat_ring_run(const T* xa, const T* xb, const float* disp, const float* coefs, T* oa, T* ob,
+                         long long nrows, int R, int H, int S, int OW, bool launch, cudaStream_t st, Geometry* g) {
   constexpr bool kLoose = kOps == 2;
-  const void* fn = reinterpret_cast<const void*>(&hat_ring_kernel<kOps, kNearestLast, kCoef, kDisp>);
+  constexpr int kVec = Ring<kOps, T>::kVec;
+  const void* fn = reinterpret_cast<const void*>(&hat_ring_kernel<T, kOps, kNearestLast, kCoef, kDisp>);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = plan(fn, dev, kOps, nrows, S, kTileBytes, g, kLoose);
+  if (e == cudaSuccess) e = plan(fn, dev, kOps, nrows, S, kTileBytes, g, kLoose, static_cast<int>(sizeof(T)));
   if (e != cudaSuccess || !launch) return e;
   if (!kLoose && !aligned16(xa)) return cudaErrorMisalignedAddress;
   TileCounter* counter = nullptr;
   e = tile_counter(dev, st, &counter);
   if (e != cudaSuccess) return e;
-  hat_ring_kernel<kOps, kNearestLast, kCoef, kDisp><<<g->grid, kRingThreads, g->smem, st>>>(
-      xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW, g->tile_rows, ring_pitch(g->tile_rows * S, kLoose),
+  hat_ring_kernel<T, kOps, kNearestLast, kCoef, kDisp><<<g->grid, kRingThreads, g->smem, st>>>(
+      xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW, g->tile_rows, ring_pitch(g->tile_rows * S, kLoose, kVec),
       g->stages, counter);
   return cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// Paired hat pass: resampling of the last axis of two f32 volumes at shared,
+// Paired hat pass: resampling of the last axis of two f32 (or bf16) volumes at shared,
 // edge-clamped positions, the first operand linearly, the second nearest (an
 // image and its labels) or linearly (the scanner's value and weight, or slice
 // and mask, chains).
@@ -23,12 +23,15 @@
 // the z-extraction and slice-placement passes; linear pair, per-slice
 // coefficients, no displacement: the in-plane motion passes) and the kernel
 // probes' plain passes (nearest labels, per-sample coefficients, no
-// displacement).
+// displacement). The element type of the rows and outputs is a template
+// parameter too: the bf16 forms are the two the stream's production mode
+// launches, the generator's and the scanner's lane-affine pair.
 //
 // Bound: device memory. Per output element it reads (amortised over the row)
 // one source value per operand, a displacement when the form has a volume,
-// and writes two outputs: 16 to 20 bytes per element, two taps of
-// arithmetic.
+// and writes two outputs: 16 to 20 bytes per element in f32, 8 to 12 in the
+// bf16 forms (the stream's production mode: bf16 rows and outputs, f32
+// displacement), two taps of arithmetic.
 //
 // Design: K2's ring kernel (hat_ring_kernel in hat_common.cuh) with two
 // operands: a persistent grid draws tiles of consecutive rows, about 16 KB
@@ -50,24 +53,30 @@
 
 namespace {
 
-cudaError_t pair_run(const float* xa, const float* xb, const float* disp, const float* coefs, float* oa,
-                     float* ob, long long nrows, int R, int H, int S, int OW, int nearest_b, int coef_mode,
-                     int disp_mode, bool launch, cudaStream_t st, Geometry* g) {
+// The instantiated forms of element type T; cudaErrorInvalidValue for
+// another. f32: all four; bf16 (the production mode's): the generator's and
+// the scanner's lane-affine pair.
+template <typename T>
+cudaError_t pair_run(const T* xa, const T* xb, const float* disp, const float* coefs, T* oa, T* ob, long long nrows,
+                     int R, int H, int S, int OW, int nearest_b, int coef_mode, int disp_mode, bool launch,
+                     cudaStream_t st, Geometry* g) {
   if (nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispVolume) {
-    return hat_ring_run<2, true, kCoefPerSample, kDispVolume>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW,
-                                                              launch, st, g);
+    return hat_ring_run<T, 2, true, kCoefPerSample, kDispVolume>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW,
+                                                                 launch, st, g);
   }
   if (!nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispLaneAffine) {
-    return hat_ring_run<2, false, kCoefPerSample, kDispLaneAffine>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S,
-                                                                   OW, launch, st, g);
+    return hat_ring_run<T, 2, false, kCoefPerSample, kDispLaneAffine>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S,
+                                                                      OW, launch, st, g);
   }
-  if (nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispNone) {
-    return hat_ring_run<2, true, kCoefPerSample, kDispNone>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW, launch,
-                                                            st, g);
-  }
-  if (!nearest_b && coef_mode == kCoefPerSlice && disp_mode == kDispNone) {
-    return hat_ring_run<2, false, kCoefPerSlice, kDispNone>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW, launch,
-                                                            st, g);
+  if constexpr (std::is_same_v<T, float>) {
+    if (nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispNone) {
+      return hat_ring_run<T, 2, true, kCoefPerSample, kDispNone>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW,
+                                                                 launch, st, g);
+    }
+    if (!nearest_b && coef_mode == kCoefPerSlice && disp_mode == kDispNone) {
+      return hat_ring_run<T, 2, false, kCoefPerSlice, kDispNone>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW,
+                                                                 launch, st, g);
+    }
   }
   return cudaErrorInvalidValue;
 }
@@ -91,15 +100,31 @@ extern "C" int fsg_hat_pass_pair_f32(const float* xa, const float* xb, const flo
                                    nearest_b, coef_mode, disp_mode, true, static_cast<cudaStream_t>(stream), &g));
 }
 
-// The launch fsg_hat_pass_pair_f32 makes on the current device for (B, R, S)
-// operands in the form (nearest_b, coef_mode, disp_mode): geometry = {tile
-// rows, ring stages, grid blocks, dynamic shared-memory bytes}. Returns a
-// cudaError code.
-extern "C" int fsg_hat_pair_geometry(int B, int R, int S, int nearest_b, int coef_mode, int disp_mode,
+// fsg_hat_pass_pair_f32 with bf16 operands and outputs (xa, xb at any bf16
+// offset; coefs and disp f32), in the forms (nearest_b, kCoefPerSample,
+// kDispVolume) and (linear, kCoefPerSample, kDispLaneAffine).
+extern "C" int fsg_hat_pass_pair_bf16(const __nv_bfloat16* xa, const __nv_bfloat16* xb, const float* disp,
+                                      const float* coefs, __nv_bfloat16* oa, __nv_bfloat16* ob, int B, int R,
+                                      int H, int S, int OW, int nearest_b, int coef_mode, int disp_mode,
+                                      void* stream) {
+  Geometry g;
+  return static_cast<int>(pair_run(xa, xb, disp, coefs, oa, ob, static_cast<long long>(B) * R, R, H, S, OW,
+                                   nearest_b, coef_mode, disp_mode, true, static_cast<cudaStream_t>(stream), &g));
+}
+
+// The launch fsg_hat_pass_pair_f32 (io_bf16 0) or fsg_hat_pass_pair_bf16
+// (io_bf16 1) makes on the current device for (B, R, S) operands in the form
+// (nearest_b, coef_mode, disp_mode): geometry = {tile rows, ring stages,
+// grid blocks, dynamic shared-memory bytes}. Returns a cudaError code.
+extern "C" int fsg_hat_pair_geometry(int B, int R, int S, int nearest_b, int coef_mode, int disp_mode, int io_bf16,
                                      int* geometry) {
   Geometry g{};
-  const cudaError_t e = pair_run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, static_cast<long long>(B) * R,
-                                 R, 1, S, S, nearest_b, coef_mode, disp_mode, false, nullptr, &g);
+  const long long nrows = static_cast<long long>(B) * R;
+  const cudaError_t e =
+      io_bf16 ? pair_run<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nrows, R, 1, S, S,
+                                        nearest_b, coef_mode, disp_mode, false, nullptr, &g)
+              : pair_run<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nrows, R, 1, S, S, nearest_b,
+                                coef_mode, disp_mode, false, nullptr, &g);
   write_geometry(g, geometry);
   return static_cast<int>(e);
 }

@@ -1,4 +1,4 @@
-// Single-operand hat pass: resampling of the last axis of one f32 volume at
+// Single-operand hat pass: resampling of the last axis of one f32 (or bf16) volume at
 // edge-clamped positions, linearly (images) or nearest (labels cast to f32).
 //
 // Replaces the TPU Pallas kernel fetalsyngen_tpu/ops/warp.py::_hat_kernel
@@ -24,8 +24,9 @@
 //
 // Bound: device memory. Per element it reads one source value, one
 // displacement when present, and writes one output: 8 to 12 bytes per
-// element; the table of the lane-affine form (3 x 4 bytes a lane) is read
-// once per sample from the caches.
+// element in f32, 4 in the bf16 forms (the stream's production mode, rows
+// and output bf16, the taps' arithmetic f32, see hat_common.cuh); the table of the lane-affine form
+// (3 x 4 bytes a lane) is read once per sample from the caches.
 //
 // Design: the ring kernel of hat_common.cuh (hat_ring_kernel), which K1
 // runs with two operands: a persistent grid of 512-thread blocks draws tiles
@@ -85,38 +86,43 @@
 
 namespace {
 
-// K2's form (kNearest, kCoef, kDisp), planned into g and launched if
-// `launch`: the ring kernel with one operand, OW = S, tiles in whole
+// K2's form (kNearest, kCoef, kDisp) on T rows, planned into g and launched
+// if `launch`: the ring kernel with one operand, OW = S, tiles in whole
 // 16-byte units
-template <bool kNearest, int kCoef, int kDisp>
-cudaError_t run(const float* x, const float* disp, const float* coefs, float* out, long long nrows, int R, int H,
-                int S, bool launch, cudaStream_t st, Geometry* g) {
-  return hat_ring_run<1, kNearest, kCoef, kDisp>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S, S, launch,
-                                                 st, g);
+template <typename T, bool kNearest, int kCoef, int kDisp>
+cudaError_t run(const T* x, const float* disp, const float* coefs, T* out, long long nrows, int R, int H, int S,
+                bool launch, cudaStream_t st, Geometry* g) {
+  return hat_ring_run<T, 1, kNearest, kCoef, kDisp>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S, S,
+                                                    launch, st, g);
 }
 
-// K2's instantiated forms: cudaErrorInvalidValue for another one.
-cudaError_t hat_run(const float* x, const float* disp, const float* coefs, float* out, long long nrows, int R,
-                    int H, int S, int nearest, int coef_mode, int disp_mode, bool launch, cudaStream_t st,
-                    Geometry* g) {
+// K2's instantiated forms of element type T: cudaErrorInvalidValue for
+// another one. f32: every form; bf16 (the production mode's): the linear
+// lane-affine and per-slice forms and the per-sample forms without a
+// displacement (the affine warp without the nonlinear field).
+template <typename T>
+cudaError_t hat_run(const T* x, const float* disp, const float* coefs, T* out, long long nrows, int R, int H, int S,
+                    int nearest, int coef_mode, int disp_mode, bool launch, cudaStream_t st, Geometry* g) {
   if (coef_mode == kCoefPerSlice) {
     if (nearest || disp_mode != kDispNone) return cudaErrorInvalidValue;
-    return run<false, kCoefPerSlice, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+    return run<T, false, kCoefPerSlice, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
   }
   if (coef_mode != kCoefPerSample) return cudaErrorInvalidValue;
-  switch (disp_mode) {
-    case kDispLaneAffine:
-      if (nearest) return cudaErrorInvalidValue;
-      return run<false, kCoefPerSample, kDispLaneAffine>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
-    case kDispVolume:
-      if (nearest) return run<true, kCoefPerSample, kDispVolume>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
-      return run<false, kCoefPerSample, kDispVolume>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
-    case kDispNone:
-      if (nearest) return run<true, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
-      return run<false, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
-    default:
-      return cudaErrorInvalidValue;
+  if (disp_mode == kDispLaneAffine) {
+    if (nearest) return cudaErrorInvalidValue;
+    return run<T, false, kCoefPerSample, kDispLaneAffine>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
   }
+  if (disp_mode == kDispNone) {
+    if (nearest) return run<T, true, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+    return run<T, false, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+  }
+  if constexpr (std::is_same_v<T, float>) {
+    if (disp_mode == kDispVolume) {
+      if (nearest) return run<T, true, kCoefPerSample, kDispVolume>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+      return run<T, false, kCoefPerSample, kDispVolume>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 constexpr int kVariantRows = 32;   // rows per block, the TPU variants' block
@@ -331,14 +337,30 @@ extern "C" int fsg_hat_pass_f32(const float* x, const float* disp, const float* 
                                   coef_mode, disp_mode, true, static_cast<cudaStream_t>(stream), &g));
 }
 
-// The launch fsg_hat_pass_f32 makes on the current device for (B, R, S) in
-// the form (nearest, coef_mode, disp_mode): geometry = {tile rows, ring
-// stages, grid blocks, dynamic shared-memory bytes}. Returns a cudaError code.
-extern "C" int fsg_hat_geometry(int B, int R, int S, int nearest, int coef_mode, int disp_mode,
+// fsg_hat_pass_f32 with bf16 x and out (x on 16 bytes; coefs and disp f32),
+// in the linear lane-affine and per-slice forms and the per-sample forms
+// without a displacement.
+extern "C" int fsg_hat_pass_bf16(const __nv_bfloat16* x, const float* disp, const float* coefs,
+                                 __nv_bfloat16* out, int B, int R, int H, int S, int nearest, int coef_mode,
+                                 int disp_mode, void* stream) {
+  Geometry g;
+  return static_cast<int>(hat_run(x, disp, coefs, out, static_cast<long long>(B) * R, R, H, S, nearest, coef_mode,
+                                  disp_mode, true, static_cast<cudaStream_t>(stream), &g));
+}
+
+// The launch fsg_hat_pass_f32 (io_bf16 0) or fsg_hat_pass_bf16 (io_bf16 1)
+// makes on the current device for (B, R, S) in the form (nearest, coef_mode,
+// disp_mode): geometry = {tile rows, ring stages, grid blocks, dynamic
+// shared-memory bytes}. Returns a cudaError code.
+extern "C" int fsg_hat_geometry(int B, int R, int S, int nearest, int coef_mode, int disp_mode, int io_bf16,
                                 int* geometry) {
   Geometry g{};
-  const cudaError_t e = hat_run(nullptr, nullptr, nullptr, nullptr, static_cast<long long>(B) * R, R, 1, S,
-                                nearest, coef_mode, disp_mode, false, nullptr, &g);
+  const long long nrows = static_cast<long long>(B) * R;
+  const cudaError_t e =
+      io_bf16 ? hat_run<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nrows, R, 1, S, nearest, coef_mode,
+                                       disp_mode, false, nullptr, &g)
+              : hat_run<float>(nullptr, nullptr, nullptr, nullptr, nrows, R, 1, S, nearest, coef_mode, disp_mode,
+                               false, nullptr, &g);
   write_geometry(g, geometry);
   return static_cast<int>(e);
 }

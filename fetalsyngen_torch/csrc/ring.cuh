@@ -3,10 +3,11 @@
 // persistent block over tiles of consecutive rows, and the host code that
 // plans and launches such a walk.
 //
-// A tile is a run of consecutive rows of a flattened (rows, S) operand, a
-// multiple of 4 / gcd(S, 4) rows so that every tile starts on 16 bytes, or,
-// for a "loose" ring (K1), any number of rows of an operand at any float
-// offset; the operand's last tile may be partial. A persistent grid (as
+// A tile is a run of consecutive rows of a flattened (rows, S) operand of
+// f32 (or, for the hat kernels' bf16 forms, bf16) elements, a multiple of
+// V / gcd(S, V) rows (V = 16 / element size: 4 floats, 8 bf16) so that every
+// tile starts on 16 bytes, or, for a "loose" ring (K1), any number of rows of
+// an operand at any element offset; the operand's last tile may be partial. A persistent grid (as
 // many blocks as fit the card, at most one per tile) draws tiles from a
 // counter in device memory: thread 0 fills a ring of three tile buffers (two
 // where three do not fit) in shared memory with TMA bulk copies
@@ -16,12 +17,13 @@
 // Drawing balances the blocks: with a fixed grid-stride share each, the
 // card's slowest blocks ran on alone at the end of a launch. A bulk copy
 // moves whole 16-byte units between 16-byte boundaries, so a tile lies in
-// its buffer at the float whose address agrees with the tile's first float
-// modulo 16 bytes (Ring::lead, 0 where tiles start on 16 bytes), the copy
-// takes the tile's whole 16-byte units, and thread 0 reads the 0-3 floats
-// before the first unit and after the last itself, before it arrives on the
-// buffer's mbarrier, whose release orders them before the other threads'
-// wait. A loose ring's buffers have room for the 3 floats of lead.
+// its buffer at the element whose address agrees with the tile's first
+// element modulo 16 bytes (Ring::lead, 0 where tiles start on 16 bytes), the
+// copy takes the tile's whole 16-byte units, and thread 0 reads the 0 to V-1
+// elements before the first unit and after the last itself, before it
+// arrives on the buffer's mbarrier, whose release orders them before the
+// other threads' wait. A loose ring's buffers have room for the V-1 elements
+// of lead.
 //
 // Everything here is in the anonymous namespace (a nested one trips nvcc's
 // registration stubs): each library that includes the header keeps its own
@@ -76,7 +78,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // TMA: `bytes` (a multiple of 16) from global `src` to shared `dst`, both on
 // 16 bytes; completion counted on `bar`.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes, uint64_t* bar) {
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
           shared_addr(dst)),
@@ -91,35 +93,39 @@ struct TileCounter {
   unsigned int done;
 };
 
-// Floats of one operand's tile buffer for tiles of tile_elems floats: as
-// many, or for a loose ring a whole number of 16-byte units with room for
-// the up to 3 floats of lead ahead of the tile.
-__host__ __device__ constexpr int ring_pitch(int tile_elems, bool loose) {
-  return loose ? (tile_elems + 6) & ~3 : tile_elems;
+// Elements of one operand's tile buffer for tiles of tile_elems elements,
+// `vec` of them to 16 bytes: as many, or for a loose ring a whole number of
+// 16-byte units with room for the up to vec - 1 elements of lead ahead of
+// the tile.
+__host__ __device__ constexpr int ring_pitch(int tile_elems, bool loose, int vec = 4) {
+  return loose ? (tile_elems + 2 * (vec - 1)) & ~(vec - 1) : tile_elems;
 }
 
-template <int kOps>
+// The ring of kOps operands of T elements (float, or __nv_bfloat16 for the
+// hat kernels' bf16 forms).
+template <int kOps, typename T = float>
 struct Ring {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements per 16 bytes
   unsigned char* smem;  // the block's dynamic shared memory
-  const float* x[kOps];
-  long long elems;   // floats per operand
+  const T* x[kOps];
+  long long elems;   // elements per operand
   long long ntiles;  // tiles per operand
-  int tile_elems;    // floats per operand and tile
-  int pitch;         // floats per operand buffer, ring_pitch(tile_elems, loose)
+  int tile_elems;    // elements per operand and tile
+  int pitch;         // elements per operand buffer, ring_pitch(tile_elems, loose, kVec)
   int stages;
 
   __device__ uint64_t* bar(int s) const { return reinterpret_cast<uint64_t*>(smem) + s; }
   // the tile in buffer s, ntiles or more once the counter has run out
   __device__ long long* tile(int s) const { return reinterpret_cast<long long*>(smem + kRingHeader / 2) + s; }
-  __device__ float* buf(int s, int op) const {
-    return reinterpret_cast<float*>(smem + kRingHeader) + (static_cast<size_t>(s) * kOps + op) * pitch;
+  __device__ T* buf(int s, int op) const {
+    return reinterpret_cast<T*>(smem + kRingHeader) + (static_cast<size_t>(s) * kOps + op) * pitch;
   }
-  // floats of tile t of operand op ahead of its first 16-byte boundary, mod 4
+  // elements of tile t of operand op ahead of its first 16-byte boundary, mod kVec
   __device__ int lead(int op, long long t) const {
-    return static_cast<int>((reinterpret_cast<uintptr_t>(x[op] + t * tile_elems) >> 2) & 3);
+    return static_cast<int>((reinterpret_cast<uintptr_t>(x[op] + t * tile_elems) & 15) / sizeof(T));
   }
   // where tile t of operand op lies in buffer s
-  __device__ const float* data(int s, int op, long long t) const { return buf(s, op) + lead(op, t); }
+  __device__ const T* data(int s, int op, long long t) const { return buf(s, op) + lead(op, t); }
   // thread 0: tile t of every operand into buffer s (none past the last tile)
   __device__ void fill(long long t, int s) const {
     *tile(s) = t;
@@ -128,19 +134,19 @@ struct Ring {
     int head[kOps], bulk[kOps];
     uint32_t bytes = 0;
     for (int op = 0; op < kOps; ++op) {
-      const float* src = x[op] + e0;
-      float* dst = buf(s, op) + lead(op, t);
-      head[op] = min(len, (4 - lead(op, t)) & 3);
-      bulk[op] = (len - head[op]) & ~3;
+      const T* src = x[op] + e0;
+      T* dst = buf(s, op) + lead(op, t);
+      head[op] = min(len, (kVec - lead(op, t)) & (kVec - 1));
+      bulk[op] = (len - head[op]) & ~(kVec - 1);
       for (int i = 0; i < head[op]; ++i) dst[i] = src[i];
       for (int i = head[op] + bulk[op]; i < len; ++i) dst[i] = src[i];
-      bytes += static_cast<uint32_t>(bulk[op] * sizeof(float));
+      bytes += static_cast<uint32_t>(bulk[op] * sizeof(T));
     }
     mbar_arrive_expect(bar(s), bytes);
     for (int op = 0; op < kOps; ++op) {
       if (bulk[op] > 0) {
         bulk_load(buf(s, op) + lead(op, t) + head[op], x[op] + e0 + head[op],
-                  static_cast<uint32_t>(bulk[op] * sizeof(float)), bar(s));
+                  static_cast<uint32_t>(bulk[op] * sizeof(T)), bar(s));
       }
     }
   }
@@ -189,8 +195,8 @@ struct RingClock {  // records nothing
 // each, runs body(t, s) on it and, once every thread has left the buffer,
 // refills it with the next tile drawn. The draws of one block rise, so the
 // first buffer past the last tile ends the walk with no copy in flight.
-template <int kOps, typename Body>
-__device__ __forceinline__ void ring_walk(const Ring<kOps>& ring, TileCounter* counter, Body&& body) {
+template <int kOps, typename T, typename Body>
+__device__ __forceinline__ void ring_walk(const Ring<kOps, T>& ring, TileCounter* counter, Body&& body) {
   RingClock clock;
   clock.start();
   if (threadIdx.x == 0) {
@@ -320,17 +326,21 @@ cudaError_t tile_counter(int dev, cudaStream_t st, TileCounter** counter) {
   return e;
 }
 
-// The launch of a kernel on nrows rows of S lanes of `ops` operands: tiles of
-// as many rows as fit `target` bytes per operand, in units of 4 / gcd(S, 4)
-// rows (whole 16-byte units), or of one row for a `loose` ring. No ring
-// (`fn` null): one tile per block, placed by the card's block scheduler.
-// The ring kernel `fn`: three stages, two where three do not fit kSmemMax,
-// and as many blocks as fit the card (at most one per tile).
+// The launch of a kernel on nrows rows of S lanes of `ops` operands of
+// `esize`-byte elements (4: f32, 2: bf16): tiles of as many rows as fit
+// `target` bytes per operand, in units of V / gcd(S, V) rows (whole 16-byte
+// units, V = 16 / esize), or of one row for a `loose` ring. No ring (`fn`
+// null): one tile per block, placed by the card's block scheduler. The ring
+// kernel `fn`: three stages, two where three do not fit kSmemMax, and as
+// many blocks as fit the card (at most one per tile).
 cudaError_t plan(const void* fn, int dev, int ops, long long nrows, int S, int target, Geometry* g,
-                 bool loose = false) {
-  if (nrows < 1 || S < 1) return cudaErrorInvalidValue;
-  const int unit = loose || S % 4 == 0 ? 1 : (S % 2 == 0 ? 2 : 4);
-  g->tile_rows = target / (4 * S) / unit * unit;
+                 bool loose = false, int esize = 4) {
+  if (nrows < 1 || S < 1 || (esize != 2 && esize != 4)) return cudaErrorInvalidValue;
+  const int vec = 16 / esize;
+  int common = vec;  // gcd(S, vec), vec a power of two
+  while (S % common) common /= 2;
+  const int unit = loose ? 1 : vec / common;
+  g->tile_rows = target / (esize * S) / unit * unit;
   if (g->tile_rows < unit) g->tile_rows = unit;
   const long long ntiles = (nrows + g->tile_rows - 1) / g->tile_rows;
   g->stages = 0;
@@ -340,7 +350,7 @@ cudaError_t plan(const void* fn, int dev, int ops, long long nrows, int S, int t
     g->grid = static_cast<int>(ntiles);
     return cudaSuccess;
   }
-  const long long stage = static_cast<long long>(ops) * ring_pitch(g->tile_rows * S, loose) * sizeof(float);
+  const long long stage = static_cast<long long>(ops) * ring_pitch(g->tile_rows * S, loose, vec) * esize;
   g->stages = kRingHeader + 3 * stage <= kSmemMax ? 3 : 2;
   if (kRingHeader + g->stages * stage > kSmemMax) return cudaErrorInvalidValue;
   g->smem = static_cast<int>(kRingHeader + g->stages * stage);

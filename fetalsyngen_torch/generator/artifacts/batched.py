@@ -349,7 +349,7 @@ def _acquire_one_small(vol_p, fwd, G, gap_px, z0, sig_px, thr_frac, ns_count, ga
     """
     c_s = (S - 1) / 2.0
     post = tuple(toeplitz_blur_matrix(sig_px[i].reshape(1), S, _BLUR_HALF)[0] for i in range(3))
-    Wv = warp_rigid_zoom_first(vol_p, *fwd, out_size=S, post=post, out_perm=(1, 2, 0))
+    Wv = warp_rigid_zoom_first(vol_p, *fwd, out_size=S, post=post, out_perm=(1, 2, 0), emit_f32=False)
     dz, dv_tab, du_tab = _slice_coef_tables(G, 1.0, c_s, z0, gap_px, ns_grid)
     slices, _ = _extract_pair(Wv, None, gap_px, z0, dz, 1.0, c_s, dv_tab, du_tab, S, ns_grid, split_dz)
     if valid is None:
@@ -745,8 +745,10 @@ def motion_t(out, seg, row, sm, shape, cube, ns_grid: int, draws: Draws, small_c
         v_s, w_s = _recon_one(slices, keep, grec, rs, gap, z0, drow["sig_rec"], inv, cube_s, ns_grid,
                               tuple(shape), split_dz=split_f, coarse_inv=cinv)
         del slices
+        # summed in f32: in the production mode the pooled weight chain
+        # hands bf16 (the JAX engine sums into f32 zeros)
         value = v_s if value is None else value + v_s
-        weight = w_s if weight is None else weight + w_s
+        weight = w_s.float() if weight is None else weight + w_s
     if trace is not None:
         trace["weight"] = weight
     mw = _merge_weight(seg, row, drow, rp.merge_params, tuple(shape), draws) if bool(row["merge_on"]) else None

@@ -35,6 +35,13 @@ these stages: the coarse validity of :func:`_valid_coarse` (no mask
 operand), the dz-split of :func:`_extract_pair` and :func:`_recon_one`, the
 fast noise mode of :func:`_slice_artifacts`, the coarse weight chain of
 :func:`_recon_one` and the small-frame (``fs != 1``) geometry.
+
+Precision: the stages read the caller's scopes (``ops.linops``), as the JAX
+package's do: in the stream's production mode the chain contractions keep
+bf16 intermediates (``einsum_store``), the hat passes read and write bf16
+rows, and the operator compositions take one bf16 pass (``prec_matmul``).
+The host path (:class:`SimulateMotion`) runs under ``f32_scope``, as the JAX
+package pins its acquisition and reconstruction programs.
 """
 
 from __future__ import annotations
@@ -47,7 +54,15 @@ import torch
 import torch.nn.functional as F
 
 from ...kernels.hat import hat_pass, hat_pass_pair
-from ...ops.linops import axis_mm, interp_matrix_1d, toeplitz_blur_matrix
+from ...ops.linops import (
+    axis_mm,
+    einsum_store,
+    f32_scope,
+    interp_matrix_1d,
+    io_dtype,
+    prec_matmul,
+    toeplitz_blur_matrix,
+)
 from ...ops.morphology import box_sum
 from ...ops.noise import draw_fractal_uniforms, fractal_noise_3d, mog_3d
 from ...ops.numerics import device_const
@@ -222,15 +237,20 @@ def _dzr_lane_table(Grec, rs, c_ss, z0, gap_vox, ns_grid, okf=None):
 
 
 def _pair(a, b, coefs, disp):
-    """One K1 pass of the linear pair (a, b) of (D, H, W) volumes."""
-    oa, ob = hat_pass_pair(a.contiguous()[None], b.contiguous()[None], coefs[None], disp, nearest_b=False)
+    """One K1 pass of the linear pair (a, b) of (D, H, W) volumes, on rows
+    of the storage scope's type (``linops.io_dtype``)."""
+    io = io_dtype()
+    oa, ob = hat_pass_pair(a.to(io).contiguous()[None], b.to(io).contiguous()[None], coefs[None], disp,
+                           nearest_b=False)
     return oa[0], ob[0]
 
 
 def _single(x, coefs, disp=None):
-    """One K2 pass of a (D, H, W) volume: a (4,) coefficient row with a
-    (3, W) lane-affine ``disp``, or (D, 4) per-slice coefficients."""
-    return hat_pass(x.contiguous()[None], coefs.contiguous()[None], None if disp is None else disp.contiguous()[None])[0]
+    """One K2 pass of a (D, H, W) volume on rows of the storage scope's
+    type: a (4,) coefficient row with a (3, W) lane-affine ``disp``, or
+    (D, 4) per-slice coefficients."""
+    return hat_pass(x.to(io_dtype()).contiguous()[None], coefs.contiguous()[None],
+                    None if disp is None else disp.contiguous()[None])[0]
 
 
 def _unit_coefs(device) -> torch.Tensor:
@@ -275,13 +295,13 @@ def _extract_pair(Wv, Wm, gap_vox, z0, dz, rs, c_ss, dv, du, cube, ns_grid, spli
     if Wm is not None:
         x, m = _pair(Wv, Wm, unit, dz_tab[None].contiguous())
         # n-extraction emitting (n, u, v)
-        m = torch.einsum("oi,jki->okj", Mzn, m)
-        x = torch.einsum("oi,jki->okj", Mzn, x)
+        m = einsum_store("oi,jki->okj", Mzn, m)
+        x = einsum_store("oi,jki->okj", Mzn, x)
         x, m = _pair(x, m, dv, None)
         x, m = _pair(x.transpose(1, 2), m.transpose(1, 2), du, None)  # (n, v, u)
         return x, m
     x = _single(Wv, unit, dz_tab)
-    x = torch.einsum("oi,jki->okj", Mzn, x)
+    x = einsum_store("oi,jki->okj", Mzn, x)
     x = _single(x, dv)
     return _single(x.transpose(1, 2), du), None
 
@@ -301,10 +321,12 @@ def _slice_artifacts(slices, valid, gamma, gamma_on, sigma, void_prob, threshold
                      fast=False):
     """Per-slice gamma, Rician noise and signal voids over the valid slices
     (reference ``simulate_reco.py:210-298``). ``fast`` (the stream's mode):
-    one normal field, the Rician partner its roll by ``(1, h // 2)``."""
+    one normal field, the Rician partner its roll by ``(1, h // 2)``.
+    Slices in bf16 (the production mode) come out f32, as the JAX package's
+    f32 draws promote them: the gamma's power is taken in f32."""
     if gamma_on:
         # normalization max over the kept slices (simulate_reco.py:210-234)
-        g = 300.0 * torch.pow(torch.clamp_min(slices, 0.0) / 300.0, gamma)
+        g = 300.0 * torch.pow((torch.clamp_min(slices, 0.0) / 300.0).float(), gamma)
         slices = g / torch.clamp_min(torch.max(g * valid[:, None, None]), 1e-6)
     if fast:
         n1 = noise.reshape(slices.shape) * sigma
@@ -369,7 +391,7 @@ def _valid_coarse(cmask, q_idx, angles, wscale, wdelta, G, thr_frac, ns_count, c
         wm, _ = warp_rigid_pair_traced(cmask, None, q_idx, angles, wscale, delta_c)
     prof = torch.sum(wm, (1, 2))  # (cube / f,) z mass profile
     pos_c = (G[:, 0, 3] - (f - 1) / 2.0) / f
-    nnz = interp_matrix_1d(pos_c, cube // f) @ prof
+    nnz = prec_matmul(interp_matrix_1d(pos_c, cube // f), prof)
     arange_n = torch.arange(ns_grid, device=G.device)
     nnz = nnz * (arange_n < ns_count)
     valid = nnz > torch.max(nnz) * thr_frac
@@ -381,7 +403,8 @@ def _valid_coarse(cmask, q_idx, angles, wscale, wdelta, G, thr_frac, ns_count, c
 def _acquire_slices(vol_p, mask_p, fwd, G, rs, gap_vox, z0, sig, cube, ns_grid, split_dz=False):
     """One stack's slices (and mask slices, unless ``mask_p`` is None) from
     the padded cube volume: the rigid warp with the acquisition PSF and xy
-    scale, then :func:`_extract_pair`."""
+    scale, then :func:`_extract_pair`. Under the storage scope the warp
+    hands the extraction bf16 (``emit_f32=False``)."""
     dev = vol_p.device
     c_ss = (cube - 1) / 2.0
     lanes = torch.arange(cube, dtype=F32, device=dev)
@@ -392,9 +415,11 @@ def _acquire_slices(vol_p, mask_p, fwd, G, rs, gap_vox, z0, sig, cube, ns_grid, 
     q_idx, angles, wscale, wdelta = fwd
     Wv, Wm = warp_rigid_pair_traced(
         vol_p, mask_p, q_idx, angles, wscale, wdelta,
-        post_a=(_toeplitz(sig[0], cube), scale_m @ _toeplitz(sig[1], cube), scale_m @ _toeplitz(sig[2], cube)),
+        post_a=(_toeplitz(sig[0], cube), prec_matmul(scale_m, _toeplitz(sig[1], cube)),
+                prec_matmul(scale_m, _toeplitz(sig[2], cube))),
         post_b=None if mask_p is None else (None, scale_m, scale_m),
         out_perm=(1, 2, 0),
+        emit_f32=False,
     )
     dz, dv_tab, du_tab = _slice_coef_tables(G, rs, c_ss, z0, gap_vox, ns_grid)
     return _extract_pair(Wv, Wm, gap_vox, z0, dz, rs, c_ss, dv_tab, du_tab, cube, ns_grid, split_dz)
@@ -468,7 +493,7 @@ def _recon_one(slices, keep_f, Grec, rs, gap_vox, z0, sig_rec, inv, cube, ns_gri
 
     inv_scale_m = interp_matrix_1d((lanes - c_ss) / rs + c_ss, cube)
     sigz_m = _toeplitz(sig_rec[0], cube)
-    inv_scale_blur_m = inv_scale_m @ _toeplitz(sig_rec[1], cube)
+    inv_scale_blur_m = prec_matmul(inv_scale_m, _toeplitz(sig_rec[1], cube))
 
     x = (slices * keep_f[:, None, None]).contiguous()
     x = _single(x, du_tab).transpose(1, 2)  # (n, u, v)
@@ -489,12 +514,12 @@ def _recon_one(slices, keep_f, Grec, rs, gap_vox, z0, sig_rec, inv, cube, ns_gri
     # einsum emits (z, v, u)
     nidx = torch.arange(ns_grid, dtype=F32, device=dev)
     if okf is None:
-        Mn2z = sigz_m @ interp_matrix_1d((lanes - z0) / gap_vox, ns_grid)
+        Mn2z = prec_matmul(sigz_m, interp_matrix_1d((lanes - z0) / gap_vox, ns_grid))
     else:
         base_z = z0 + nidx * gap_vox
         centers = base_z + (Grec[:, 0, 3] - base_z) * okf
-        Mn2z = sigz_m @ _placement(lanes, centers, z0, gap_vox, ns_grid)
-    x = torch.einsum("oi,jki->okj", Mn2z, x)
+        Mn2z = prec_matmul(sigz_m, _placement(lanes, centers, z0, gap_vox, ns_grid))
+    x = einsum_store("oi,jki->okj", Mn2z, x)
 
     def spread(y, m):
         # in-plane recon PSF (simulate_reco.py:338-344) with the inverse xy scale
@@ -502,7 +527,7 @@ def _recon_one(slices, keep_f, Grec, rs, gap_vox, z0, sig_rec, inv, cube, ns_gri
 
     q_idx, angles, scale, delta = inv
     if coarse_inv is None:
-        w = torch.einsum("oi,jki->okj", Mn2z, w)
+        w = einsum_store("oi,jki->okj", Mn2z, w)
         return warp_rigid_pair_traced(spread(x, inv_scale_blur_m), spread(w, inv_scale_blur_m), q_idx, angles,
                                       scale, delta, out_shape=out_shape)
     v_s, _ = warp_rigid_pair_traced(spread(x, inv_scale_blur_m), None, q_idx, angles, scale, delta,
@@ -522,14 +547,14 @@ def _recon_one(slices, keep_f, Grec, rs, gap_vox, z0, sig_rec, inv, cube, ns_gri
     lane_f = f * torch.arange(cc, dtype=F32, device=dev) + h
     sigz_c = _toeplitz(sig_rec[0] / f, cc)
     if okf is None:
-        Mn2z_c = sigz_c @ interp_matrix_1d((lane_f - z0) / gap_vox, ns_grid)
+        Mn2z_c = prec_matmul(sigz_c, interp_matrix_1d((lane_f - z0) / gap_vox, ns_grid))
     else:
-        Mn2z_c = sigz_c @ _placement(lane_f, centers, z0, gap_vox, ns_grid)
-    w_c = torch.einsum("oi,jki->okj", Mn2z_c, w_c)  # (z_c, v_c, u_c)
+        Mn2z_c = prec_matmul(sigz_c, _placement(lane_f, centers, z0, gap_vox, ns_grid))
+    w_c = einsum_store("oi,jki->okj", Mn2z_c, w_c)  # (z_c, v_c, u_c)
     # coarse inverse scale and in-plane PSF: coarse lane -> fine position ->
     # fine source -> coarse source
     src_c = ((lane_f - c_ss) / rs + c_ss - h) / f
-    m_c = interp_matrix_1d(src_c, cc) @ _toeplitz(sig_rec[1] / f, cc)
+    m_c = prec_matmul(interp_matrix_1d(src_c, cc), _toeplitz(sig_rec[1] / f, cc))
     os_c = tuple(s // 2 for s in out_shape)
     w_c, _ = warp_rigid_pair_traced(spread(w_c, m_c), None, *coarse_inv, out_shape=os_c)
     # bilinear upsample (recon frame pooled by 2): fine voxel p reads coarse
@@ -975,8 +1000,11 @@ class SimulateMotion:
             "mask": (seg > 0).to(F32),
             "seg": seg.to(F32),
         }
-        d_scan = scanner.scan(data, genparams, rng=rng, device_seed=seed)
-        out, _ = recon.recon_psf(d_scan, genparams, rng=rng)
+        # the host path is replay-faithful f32 whatever the caller's scopes
+        # (the JAX package pins its acquisition and recon programs so)
+        with f32_scope():
+            d_scan = scanner.scan(data, genparams, rng=rng, device_seed=seed)
+            out, _ = recon.recon_psf(d_scan, genparams, rng=rng)
         meta = {
             "rng_seed": rng_seed,
             "device_seed": seed,

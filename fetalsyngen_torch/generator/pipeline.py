@@ -14,6 +14,14 @@ tensor back to the host.
 Randomness: one ``torch.Generator`` per sample. :func:`sample_params` draws
 the scalar parameters first, then :func:`draw_fields` draws the four voxel
 fields from the same generators, so (seed, overrides) -> volume replays.
+
+Precision: f32, or the caller's scopes (``ops.linops``; the stream's bf16
+production mode), read by each contraction and hat pass as the JAX
+package's ``_synth_core`` reads them. Positions stay f32 either way: the
+nonlinear field's upsampling runs under ``f32_scope`` (a bf16 field would
+jitter every warp coordinate and flip labels at deformation-cell
+boundaries). The labels go through the warp's bf16 passes exactly (they are
+below 257).
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import torch
 
 from ..ops.affine import centered_grid, make_affine_matrix
 from ..ops.interp import nearest_interp, trilinear_interp, zoom_coords
-from ..ops.linops import apply_separable, gaussian_blur_mm, interp_matrix, zoom_mm
+from ..ops.linops import apply_separable, f32_scope, gaussian_blur_mm, interp_matrix, zoom_mm
 from ..ops.numerics import device_const
 from ..ops.warp import (
     FIELD_LIM,
@@ -107,11 +115,13 @@ def _small_field(p: GenParams, f_nonlin: torch.Tensor) -> torch.Tensor:
 
 
 def _nonlin_field(p: GenParams, f_nonlin: torch.Tensor, cfg: GeneratorCfg):
-    """Upsample the low-res displacement field to three (B, D, H, W) volumes."""
+    """Upsample the low-res displacement field to three (B, D, H, W) volumes,
+    in f32 whatever the caller's scopes (positions)."""
     shape = tuple(cfg.shape)
     f_small = _small_field(p, f_nonlin)
     factor = device_const(shape, torch.float32, f_small.device) / p.size_F_small.to(torch.float32)
-    return tuple(zoom_mm(f_small[:, c], shape, factor, in_shape=p.size_F_small) for c in range(3))
+    with f32_scope():
+        return tuple(zoom_mm(f_small[:, c], shape, factor, in_shape=p.size_F_small) for c in range(3))
 
 
 def deformation_coords(p: GenParams, f_nonlin: torch.Tensor, cfg: GeneratorCfg):
@@ -146,7 +156,8 @@ def _deform_pair_small_fields(p, f_nonlin, cfg, A, c1, c2, vol_lin, vol_near):
     The L-mixed warp displacements are upsampled straight into each hat
     pass's layout, and the A-mixed coordinate deviations ``H = A F`` give the
     composite OOB mask and the margin shift (``deform_image``'s clamp and
-    ``floor(min(coord))``, ``affine_nonrigid.py:327-366``).
+    ``floor(min(coord))``, ``affine_nonrigid.py:327-366``). Positions stay
+    f32: the upsampling runs under ``f32_scope``.
     """
     shape = tuple(cfg.shape)
     dev = vol_lin.device
@@ -172,10 +183,11 @@ def _deform_pair_small_fields(p, f_nonlin, cfg, A, c1, c2, vol_lin, vol_near):
             in_shape=torch.stack([p.size_F_small[:, q] for q in perm], 1),
         )
 
-    gyT = torch.clamp(zoomP(gy_s, (0, 2, 1)), -lim, lim)
-    gz = torch.clamp(zoomP(gz_s, (0, 1, 2)), -lim, lim)
-    gxT = torch.clamp(zoomP(gx_s, (1, 2, 0)), -lim, lim)
-    Hx, Hy, Hz = (zoomP(h_s[:, c], (0, 1, 2)) for c in range(3))
+    with f32_scope():
+        gyT = torch.clamp(zoomP(gy_s, (0, 2, 1)), -lim, lim)
+        gz = torch.clamp(zoomP(gz_s, (0, 1, 2)), -lim, lim)
+        gxT = torch.clamp(zoomP(gx_s, (1, 2, 0)), -lim, lim)
+        Hx, Hy, Hz = (zoomP(h_s[:, c], (0, 1, 2)) for c in range(3))
 
     xc, yc, zc = centered_grid(shape, dev)
     coords = []

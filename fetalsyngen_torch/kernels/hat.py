@@ -26,6 +26,16 @@ volume ``disp[b, i, j, l]``, a (B, 3, OW) lane-affine table
   displacement volume, or linearly with a (B, 3, W) lane-affine table; or
   per-slice coefficients, linearly, without a displacement.
 
+The operand rows and the outputs are f32, or bf16 (the stream's production
+mode, ``ops.linops.storage_scope``); coefficients, displacements and
+lane-affine tables are f32 either way, and so is the tap arithmetic: a linear
+sample widens its two taps to f32 and rounds its result to bf16 once, a
+nearest sample is the gathered value as it is (``_hat_pass_jnp``'s
+semantics). The bf16 kernels are instantiated for the forms the production
+mode launches: K1's main-path form and its lane-affine pair; K2's
+lane-affine and per-slice forms and its per-sample forms without a
+displacement (the affine warp of a generator without the nonlinear field).
+
 :func:`hat_pass_pair_ref` and :func:`hat_pass_ref` are the plain versions the
 kernels are held against; they take every combination. The wrappers take the
 plain version only for tensors on the CPU; on a CUDA tensor they launch the
@@ -42,10 +52,12 @@ import torch
 # Kernel launches of each instantiated form (one per wrapper call, whole
 # batch): K1's main-path form, its scanner forms and its form without a
 # displacement; K2's per-sample forms, its lane-affine form and its
-# per-slice form.
+# per-slice form; then the bf16 forms ("_bf16").
 LAUNCHES = {
     "hat_pass_pair": 0, "hat_pass_pair_lane": 0, "hat_pass_pair_slice": 0,
     "hat_pass_pair_nodisp": 0, "hat_pass": 0, "hat_pass_lane": 0, "hat_pass_slice": 0,
+    "hat_pass_pair_bf16": 0, "hat_pass_pair_lane_bf16": 0, "hat_pass_bf16": 0, "hat_pass_lane_bf16": 0,
+    "hat_pass_slice_bf16": 0,
 }
 
 # The longest row the wrappers take. On the card, the ring's plan()
@@ -72,6 +84,20 @@ _SINGLE_FORMS = {
     (False, _COEF_PER_SAMPLE, _DISP_LANE_AFFINE): "hat_pass_lane",
     (False, _COEF_PER_SLICE, _DISP_NONE): "hat_pass_slice",
 }
+# the bf16 instantiations (csrc/hat_pass.cu, csrc/hat_single.cu)
+_PAIR_FORMS_BF16 = {
+    (True, _COEF_PER_SAMPLE, _DISP_VOLUME): "hat_pass_pair_bf16",
+    (False, _COEF_PER_SAMPLE, _DISP_LANE_AFFINE): "hat_pass_pair_lane_bf16",
+}
+_SINGLE_FORMS_BF16 = {
+    **{(n, _COEF_PER_SAMPLE, _DISP_NONE): "hat_pass_bf16" for n in (False, True)},
+    (False, _COEF_PER_SAMPLE, _DISP_LANE_AFFINE): "hat_pass_lane_bf16",
+    (False, _COEF_PER_SLICE, _DISP_NONE): "hat_pass_slice_bf16",
+}
+_IO_DTYPES = (torch.float32, torch.bfloat16)
+
+# operands :func:`hat_pass` copied to 16 bytes before a launch
+COPIES = {"hat_pass": 0}
 
 
 def _disp_mode(disp) -> int:
@@ -112,7 +138,9 @@ def _positions_of(coefs, B, D, H, OW, disp):
 
 
 def _sample_ref(x: torch.Tensor, pos: torch.Tensor, nearest: bool) -> torch.Tensor:
-    """Edge-clamped sample of rows ``x`` (B, R, S) at ``pos`` (B, R, OW)."""
+    """Edge-clamped sample of rows ``x`` (B, R, S) at ``pos`` (B, R, OW), in
+    ``x``'s dtype: a linear sample of bf16 rows widens its taps to f32 and
+    rounds once."""
     S = x.shape[-1]
     sat_lo = pos <= 0.0
     sat_hi = pos >= S - 1.0
@@ -123,9 +151,9 @@ def _sample_ref(x: torch.Tensor, pos: torch.Tensor, nearest: bool) -> torch.Tens
         f = torch.clamp(torch.floor(c), 0.0, S - 2.0)
         w = c - f
         fi = f.to(torch.int64)
-        g0 = torch.take_along_dim(x, fi, dim=2)
-        g1 = torch.take_along_dim(x, fi + 1, dim=2)
-        out = g0 * (1.0 - w) + g1 * w
+        g0 = torch.take_along_dim(x, fi, dim=2).to(torch.float32)
+        g1 = torch.take_along_dim(x, fi + 1, dim=2).to(torch.float32)
+        out = (g0 * (1.0 - w) + g1 * w).to(x.dtype)
     out = torch.where(sat_lo, x[:, :, :1], out)
     return torch.where(sat_hi, x[:, :, S - 1 :], out)
 
@@ -134,7 +162,7 @@ def hat_pass_pair_ref(va, vb, coefs, disp, nearest_b=True):
     """Plain PyTorch paired hat pass (K1's reference).
 
     ``va`` (linear), ``vb`` (nearest if ``nearest_b``, else linear): (B, D,
-    H, S) f32; ``coefs``: (B, 4) or (B, D, 4); ``disp``: (B, D, H, OW),
+    H, S) f32 or bf16, outputs in their dtype; ``coefs``: (B, 4) or (B, D, 4); ``disp``: (B, D, H, OW),
     (B, 3, OW) or None (then OW = S). Returns two (B, D, H, OW) tensors.
     """
     B, D, H, S = va.shape
@@ -149,9 +177,9 @@ def hat_pass_pair_ref(va, vb, coefs, disp, nearest_b=True):
 def hat_pass_ref(x, coefs, disp=None, nearest=False):
     """Plain PyTorch single-operand hat pass (K2's reference).
 
-    ``x``: (B, D, H, S) f32; ``coefs``: (B, 4) or (B, D, 4); ``disp``:
-    (B, D, H, S), (B, 3, S) or None. Returns a (B, D, H, S) tensor, sampled
-    nearest if ``nearest``.
+    ``x``: (B, D, H, S) f32 or bf16; ``coefs``: (B, 4) or (B, D, 4); ``disp``:
+    (B, D, H, S), (B, 3, S) or None. Returns a (B, D, H, S) tensor of ``x``'s
+    dtype, sampled nearest if ``nearest``.
     """
     B, D, H, S = x.shape
     pos = _positions_of(coefs, B, D, H, S, disp)
@@ -173,9 +201,10 @@ def _bind(stem: str, symbol: str, n_ptrs: int, n_ints: int):
 def _check(x, others, coefs, disp, ow_free):
     """Validate a CUDA launch: ``x`` (B, D, H, S) and ``others`` of its shape,
     (B, 4) or (B, D, 4) ``coefs``, a (B, D, H, OW) or (B, 3, OW) ``disp``
-    (OW == S unless ``ow_free``) or None; all f32, contiguous, on ``x``'s
-    device. Reads only shapes, dtypes, devices and strides, so it runs on
-    tensors of any device."""
+    (OW == S unless ``ow_free``) or None; the volumes f32 or bf16, all of one
+    dtype, the coefficients and the displacement f32; all contiguous, on
+    ``x``'s device. Reads only shapes, dtypes, devices and strides, so it
+    runs on tensors of any device."""
     shape = x.shape
     if len(shape) != 4 or any(o.shape != shape for o in others):
         raise ValueError(
@@ -201,9 +230,12 @@ def _check(x, others, coefs, disp, ow_free):
     named = [("x", x), *((f"operand {i + 2}", o) for i, o in enumerate(others)), ("coefs", coefs)]
     if disp is not None:
         named.append(("disp", disp))
+    if x.dtype not in _IO_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        want = x.dtype if t is x or any(t is o for o in others) else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {str(want).removeprefix('torch.')}, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -227,92 +259,119 @@ def _form(nearest, coefs, disp, forms, name):
     return form
 
 
+def _instantiated(pair: bool, dtype) -> tuple[dict, str]:
+    """The instantiated forms of K1 (``pair``) or K2 on operands of
+    ``dtype``, and the wrapper's name for messages."""
+    bf16 = dtype == torch.bfloat16
+    if pair:
+        return (_PAIR_FORMS_BF16 if bf16 else _PAIR_FORMS), f"hat_pass_pair ({dtype})"
+    return (_SINGLE_FORMS_BF16 if bf16 else _SINGLE_FORMS), f"hat_pass ({dtype})"
+
+
+def launch_key(pair: bool, nearest, coefs, disp, dtype) -> str:
+    """The ``LAUNCHES`` key of the form a call of :func:`hat_pass_pair`
+    (``pair``) or :func:`hat_pass` with these arguments and operands of
+    ``dtype`` launches; raises for a form without a kernel."""
+    forms, name = _instantiated(pair, dtype)
+    return forms[_form(nearest, coefs, disp, forms, name)]
+
+
 def hat_pass_pair(va, vb, coefs, disp, nearest_b=True):
     """Paired hat pass (K1) over a batch; see the module docstring.
 
-    CPU tensors take :func:`hat_pass_pair_ref`. CUDA tensors must be f32 and
-    contiguous and form one of the instantiated combinations; the kernel
+    CPU tensors take :func:`hat_pass_pair_ref`. CUDA tensors must be
+    contiguous, the operands f32 or bf16 (the outputs take their dtype), and
+    form one of the instantiated combinations of that dtype; the kernel
     launches once for the whole batch on the current stream, without
-    synchronising. ``va`` and ``vb`` may each start at any float (views into
-    larger tensors): the kernel stages them from there.
+    synchronising. ``va`` and ``vb`` may each start at any element (views
+    into larger tensors): the kernel stages them from there.
     """
     if va.device.type == "cpu":
         return hat_pass_pair_ref(va, vb, coefs, disp, nearest_b)
     if va.device.type != "cuda":
         raise ValueError(f"hat_pass_pair runs on cpu or cuda tensors, got {va.device}")
     _check(va, (vb,), coefs, disp, ow_free=True)
-    form = _form(nearest_b, coefs, disp, _PAIR_FORMS, "hat_pass_pair")
+    bf16 = va.dtype == torch.bfloat16
+    forms, name = _instantiated(True, va.dtype)
+    form = _form(nearest_b, coefs, disp, forms, name)
     _, coef_mode, disp_mode = form
     B, D, H, S = va.shape
     OW = S if disp is None else disp.shape[-1]
-    oa = torch.empty((B, D, H, OW), dtype=torch.float32, device=va.device)
+    oa = torch.empty((B, D, H, OW), dtype=va.dtype, device=va.device)
     ob = torch.empty_like(oa)
     rc = _call(
-        _bind("hat_pass", "fsg_hat_pass_pair_f32", 6, 8), va.device,
+        _bind("hat_pass", "fsg_hat_pass_pair_bf16" if bf16 else "fsg_hat_pass_pair_f32", 6, 8), va.device,
         va.data_ptr(), vb.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(),
         oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, OW, int(nearest_b), coef_mode, disp_mode,
     )
     if rc != 0:
         raise RuntimeError(f"hat_pass_pair kernel launch failed: cudaError {rc}")
-    LAUNCHES[_PAIR_FORMS[form]] += 1
+    LAUNCHES[forms[form]] += 1
     return oa, ob
 
 
 def hat_pass(x, coefs, disp=None, nearest=False):
     """Single-operand hat pass (K2) over a batch; see the module docstring.
 
-    CPU tensors take :func:`hat_pass_ref`. CUDA tensors must be f32 and
-    contiguous and form one of the instantiated combinations; the kernel
-    launches once for the whole batch on the current stream, without
-    synchronising. TMA bulk copies stage the rows of ``x`` from 16-byte
-    boundaries, so an ``x`` off 16 bytes (a view into a larger tensor) is
-    first copied on the card.
+    CPU tensors take :func:`hat_pass_ref`. CUDA tensors must be
+    contiguous, ``x`` f32 or bf16 (the output takes its dtype), and form one
+    of the instantiated combinations of that dtype; the kernel launches once
+    for the whole batch on the current stream, without synchronising. TMA
+    bulk copies stage the rows of ``x`` from 16-byte boundaries, so an ``x``
+    off 16 bytes (a view into a larger tensor) is first copied on the card
+    (``COPIES`` counts those copies).
     """
     if x.device.type == "cpu":
         return hat_pass_ref(x, coefs, disp, nearest)
     if x.device.type != "cuda":
         raise ValueError(f"hat_pass runs on cpu or cuda tensors, got {x.device}")
     _check(x, (), coefs, disp, ow_free=False)
-    form = _form(nearest, coefs, disp, _SINGLE_FORMS, "hat_pass")
+    bf16 = x.dtype == torch.bfloat16
+    forms, name = _instantiated(False, x.dtype)
+    form = _form(nearest, coefs, disp, forms, name)
     if x.data_ptr() % 16:
         x = x.clone()
+        COPIES["hat_pass"] += 1
     B, D, H, S = x.shape
     out = torch.empty_like(x)
     rc = _call(
-        _bind("hat_single", "fsg_hat_pass_f32", 4, 7), x.device,
+        _bind("hat_single", "fsg_hat_pass_bf16" if bf16 else "fsg_hat_pass_f32", 4, 7), x.device,
         x.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(), out.data_ptr(),
         B, D * H, H, S, *form,
     )
     if rc != 0:
         raise RuntimeError(f"hat_pass kernel launch failed: cudaError {rc}")
-    LAUNCHES[_SINGLE_FORMS[form]] += 1
+    LAUNCHES[forms[form]] += 1
     return out
 
 
-def _geometry(stem, symbol, shape, nearest, coefs_per_slice, disp):
+def _geometry(stem, symbol, shape, nearest, coefs_per_slice, disp, dtype):
     from .build import load_library
 
     fn = getattr(load_library(stem), symbol)
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     B, D, H, S = shape
     mode = {"none": _DISP_NONE, "volume": _DISP_VOLUME, "lane": _DISP_LANE_AFFINE}[disp]
+    if dtype not in _IO_DTYPES:
+        raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
     out = (ctypes.c_int * 4)()
-    rc = fn(B, D * H, S, int(nearest), int(coefs_per_slice), mode, out)
+    rc = fn(B, D * H, S, int(nearest), int(coefs_per_slice), mode, int(dtype == torch.bfloat16), out)
     if rc != 0:
         raise RuntimeError(f"{symbol}: {tuple(shape)} {disp}: cudaError {rc}")
     return dict(zip(("tile_rows", "stages", "grid", "smem_bytes"), out))
 
 
-def hat_geometry(shape, nearest=False, coefs_per_slice=False, disp="none"):
+def hat_geometry(shape, nearest=False, coefs_per_slice=False, disp="none", dtype=torch.float32):
     """The launch :func:`hat_pass` makes on the current CUDA device for a
-    (B, D, H, S) ``x`` in the form (``nearest``, ``coefs_per_slice``,
-    ``disp`` "none", "volume" or "lane"): a dict of tile rows, ring stages,
-    grid blocks and dynamic shared-memory bytes."""
-    return _geometry("hat_single", "fsg_hat_geometry", shape, nearest, coefs_per_slice, disp)
+    (B, D, H, S) ``x`` of ``dtype`` in the form (``nearest``,
+    ``coefs_per_slice``, ``disp`` "none", "volume" or "lane"): a dict of
+    tile rows, ring stages, grid blocks and dynamic shared-memory bytes."""
+    return _geometry("hat_single", "fsg_hat_geometry", shape, nearest, coefs_per_slice, disp, dtype)
 
 
-def hat_pair_geometry(shape, nearest_b=True, coefs_per_slice=False, disp="volume"):
+def hat_pair_geometry(shape, nearest_b=True, coefs_per_slice=False, disp="volume", dtype=torch.float32):
     """The launch :func:`hat_pass_pair` makes on the current CUDA device for
-    (B, D, H, S) operands in the form (``nearest_b``, ``coefs_per_slice``,
-    ``disp`` "none", "volume" or "lane"), as :func:`hat_geometry` gives it."""
-    return _geometry("hat_pass", "fsg_hat_pair_geometry", shape, nearest_b, coefs_per_slice, disp)
+    (B, D, H, S) operands of ``dtype`` in the form (``nearest_b``,
+    ``coefs_per_slice``, ``disp`` "none", "volume" or "lane"), as
+    :func:`hat_geometry` gives it."""
+    return _geometry("hat_pass", "fsg_hat_pair_geometry", shape, nearest_b, coefs_per_slice, disp, dtype)

@@ -3,8 +3,34 @@
 Every separable 1-D operation of the pipeline (Gaussian blur, zoom,
 anisotropic resample) is a banded ``(out, in)`` operator along one axis,
 built per sample from tensor parameters and contracted with ``torch.einsum``.
-Operators are (B, out, in); volumes are (B, D, H, W). The contract is f32
-throughout: callers on the GPU keep TF32 off.
+Operators are (B, out, in); volumes are (B, D, H, W). The contract is f32:
+callers on the GPU keep TF32 off.
+
+The stream's bf16 production mode narrows it in two scopes, as the JAX
+package does:
+
+- :func:`precision_scope` (``DEFAULT``): a plain matmul or einsum of f32
+  operands (:func:`prec_einsum`) takes one bf16 pass, the TPU MXU's default:
+  the operands rounded to bf16, the products summed in f32;
+- :func:`storage_scope` (``torch.bfloat16``): the chain contractions
+  (:func:`einsum_store`, :func:`apply_axis_matrix` and what calls it) keep
+  their intermediates in bf16: the operands rounded to bf16, the sum in
+  f32, the result rounded to bf16 once, unless ``out_f32`` marks a segment
+  boundary whose consumer needs f32.
+
+:func:`f32_scope` suspends both. The scopes are per-thread context
+(``contextvars``): torch runs eagerly, so the stream's producer thread may
+generate in bf16 while another thread draws from the dataset in f32. A new
+thread starts outside both scopes. On the card a bf16 contraction runs as
+``torch.bmm`` on bf16 operands with f32 sums; on the CPU the rounded
+operands are contracted in f32 (the JAX package's CPU branch). Products of
+two bf16 values are exact in f32, so both compute one function up to the
+order of the sum. The scopes change no process-wide setting: callers on
+the GPU keep TF32 off, and with cuBLAS's reduced-precision bf16 reductions
+off as well (``allow_bf16_reduced_precision_reduction = False``) a bf16
+result comes straight from the GEMM; while they are allowed, cuBLAS might
+sum in bf16, so the GEMM writes an f32 result (``aten::bmm.dtype``) that is
+rounded after, one more pass over the output.
 
 Semantics match the reference kernels:
 - ``toeplitz_blur_matrix`` == truncated ``make_gaussian_kernel`` + 'same' conv
@@ -17,9 +43,139 @@ Semantics match the reference kernels:
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
+
 import torch
 
 from .interp import zoom_coords
+
+# The precision scope's one narrowed value: one bf16 pass, JAX's
+# lax.Precision.DEFAULT (None is the f32 contract, JAX's HIGHEST)
+DEFAULT = "default"
+
+_PRECISION: contextvars.ContextVar[str | None] = contextvars.ContextVar("fsg_precision", default=None)
+_STORAGE: contextvars.ContextVar[torch.dtype | None] = contextvars.ContextVar("fsg_storage", default=None)
+
+
+@contextlib.contextmanager
+def precision_scope(prec: str | None):
+    """This thread's matmul precision inside the block: ``DEFAULT`` (one
+    bf16 pass) or None (the f32 contract)."""
+    if prec not in (None, DEFAULT):
+        raise ValueError(f"precision must be None or {DEFAULT!r}, got {prec!r}")
+    token = _PRECISION.set(prec)
+    try:
+        yield
+    finally:
+        _PRECISION.reset(token)
+
+
+@contextlib.contextmanager
+def storage_scope(dtype: torch.dtype | None):
+    """This thread's storage type of the chain contractions' intermediates
+    inside the block: ``torch.bfloat16`` or None (f32)."""
+    if dtype not in (None, torch.bfloat16):
+        raise ValueError(f"storage must be None or torch.bfloat16, got {dtype}")
+    token = _STORAGE.set(dtype)
+    try:
+        yield
+    finally:
+        _STORAGE.reset(token)
+
+
+@contextlib.contextmanager
+def f32_scope():
+    """Suspend both scopes: the f32 contract inside the block (positions,
+    morphology, replay-faithful host programs)."""
+    with precision_scope(None), storage_scope(None):
+        yield
+
+
+def current_precision() -> str | None:
+    """This thread's precision scope (None outside one)."""
+    return _PRECISION.get()
+
+
+def current_storage() -> torch.dtype | None:
+    """This thread's storage scope (None outside one)."""
+    return _STORAGE.get()
+
+
+def io_dtype() -> torch.dtype:
+    """The hat passes' row type: the storage scope's, else f32 (the taps'
+    arithmetic stays f32 either way)."""
+    return _STORAGE.get() or torch.float32
+
+
+def _contract(spec: str, a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """``einsum(spec, a, b)`` of two bf16 CUDA operands as one ``bmm`` with
+    f32 sums, rounded once to ``out_dtype`` (see the module docstring). Every
+    index appears once per operand; indices of both operands kept in the
+    output are the batch, indices of both left out are summed."""
+    ins, out = spec.replace(" ", "").split("->")
+    sa, sb = ins.split(",")
+    size = {**dict(zip(sa, a.shape)), **dict(zip(sb, b.shape))}
+    batch = [c for c in out if c in sa and c in sb]
+    left = [c for c in out if c in sa and c not in sb]
+    right = [c for c in out if c in sb and c not in sa]
+    summed = [c for c in sa if c in sb and c not in out]
+    if len(batch) + len(left) + len(summed) != len(sa) or len(batch) + len(right) + len(summed) != len(sb):
+        raise ValueError(f"spec {spec!r} is not a product of two operands")
+
+    def n(idx):
+        return math.prod(size[c] for c in idx)
+
+    am = a.permute([sa.index(c) for c in batch + left + summed]).reshape(n(batch), n(left), n(summed))
+    bm = b.permute([sb.index(c) for c in batch + summed + right]).reshape(n(batch), n(summed), n(right))
+    if out_dtype == a.dtype and not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        y = torch.bmm(am, bm)
+    elif "dtype" in torch.ops.aten.bmm.overloads():
+        y = torch.bmm(am, bm, out_dtype=torch.float32).to(out_dtype)
+    else:
+        raise RuntimeError(f"torch {torch.__version__} has no bmm with an f32 result (aten::bmm.dtype)")
+    y = y.reshape([size[c] for c in batch + left + right])
+    order = batch + left + right
+    return y.permute([order.index(c) for c in out])
+
+
+def _narrow_einsum(spec: str, a, b, store: torch.dtype, out_dtype: torch.dtype) -> torch.Tensor:
+    """``einsum(spec, a, b)`` with both operands rounded to ``store``, the
+    products summed in f32 and the result in ``out_dtype``."""
+    a, b = a.to(store), b.to(store)
+    if a.is_cuda:
+        return _contract(spec, a, b, out_dtype)
+    return torch.einsum(spec, a.to(torch.float32), b.to(torch.float32)).to(out_dtype)
+
+
+def prec_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum(spec, a, b)`` of f32 operands at this thread's matmul
+    precision (the JAX package's ``precision=_prec()`` sites): f32, or
+    under ``precision_scope(DEFAULT)`` one bf16 pass with an f32 result."""
+    if _PRECISION.get() == DEFAULT:
+        return _narrow_einsum(spec, a, b, torch.bfloat16, torch.float32)
+    return torch.einsum(spec, a, b)
+
+
+def prec_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of a 2-D ``a`` and a 1-D or 2-D ``b`` at this thread's
+    matmul precision (:func:`prec_einsum`)."""
+    return prec_einsum("ij,j->i" if b.dim() == 1 else "ij,jk->ik", a, b)
+
+
+def einsum_store(spec: str, M: torch.Tensor, x: torch.Tensor, out_f32: bool = False):
+    """``einsum(spec, M, x)`` under this thread's storage scope.
+
+    Outside a storage scope: :func:`prec_einsum`. Inside: both operands
+    rounded to the storage type, the sum in f32, the result rounded to the
+    storage type once, or kept f32 where ``out_f32`` marks a segment
+    boundary.
+    """
+    d = _STORAGE.get()
+    if d is None:
+        return prec_einsum(spec, M, x)
+    return _narrow_einsum(spec, M, x, d, torch.float32 if out_f32 else d)
 
 
 def toeplitz_blur_matrix(sigma: torch.Tensor, size: int, half_len: int) -> torch.Tensor:
@@ -87,9 +243,10 @@ def interp_matrix(
 _AXIS_SPEC = {0: "boi,bijk->bojk", 1: "boi,bjik->bjok", 2: "boi,bjki->bjko"}
 
 
-def apply_axis_matrix(vol: torch.Tensor, M: torch.Tensor, axis: int) -> torch.Tensor:
-    """Contract spatial ``axis`` of ``vol`` (B, D, H, W) with ``M`` (B, out, in)."""
-    return torch.einsum(_AXIS_SPEC[axis], M, vol)
+def apply_axis_matrix(vol: torch.Tensor, M: torch.Tensor, axis: int, out_f32: bool = False) -> torch.Tensor:
+    """Contract spatial ``axis`` of ``vol`` (B, D, H, W) with ``M`` (B, out,
+    in), through :func:`einsum_store` (``out_f32`` as it takes it)."""
+    return einsum_store(_AXIS_SPEC[axis], M, vol, out_f32=out_f32)
 
 
 def interp_matrix_1d(coords: torch.Tensor, in_size: int, out_valid: int | None = None) -> torch.Tensor:
@@ -100,9 +257,10 @@ def interp_matrix_1d(coords: torch.Tensor, in_size: int, out_valid: int | None =
     return interp_matrix(coords[None], in_size, out_valid=valid)[0]
 
 
-def axis_mm(vol: torch.Tensor, M: torch.Tensor, axis: int) -> torch.Tensor:
-    """Unbatched :func:`apply_axis_matrix`: (D, H, W) ``vol``, (out, in) ``M``."""
-    return apply_axis_matrix(vol[None], M[None], axis)[0]
+def axis_mm(vol: torch.Tensor, M: torch.Tensor, axis: int, out_f32: bool = False) -> torch.Tensor:
+    """Unbatched :func:`apply_axis_matrix`: (D, H, W) ``vol``, (out, in) ``M``
+    (the JAX package's ``apply_axis_matrix``, ``out_f32`` included)."""
+    return apply_axis_matrix(vol[None], M[None], axis, out_f32=out_f32)[0]
 
 
 def apply_separable(vol: torch.Tensor, Ms) -> torch.Tensor:

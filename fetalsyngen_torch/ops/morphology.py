@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .linops import axis_mm
+from .linops import axis_mm, f32_scope
 
 _BIG = 1e9  # "no foreground within reach" in the squared distance
 
@@ -24,10 +24,13 @@ def _box_matrix(size: int, k: int, device) -> torch.Tensor:
 
 
 def box_sum(vol: torch.Tensor, kernel_size: int = 3) -> torch.Tensor:
-    """== ``apply_kernel`` (``utils.py:163-171``): cube box-sum convolution, f32."""
+    """== ``apply_kernel`` (``utils.py:163-171``): cube box-sum convolution,
+    f32 whatever the caller's scopes (``linops.f32_scope``, as the JAX
+    package pins it)."""
     vol = vol.to(torch.float32)
-    for axis in range(3):
-        vol = axis_mm(vol, _box_matrix(vol.shape[axis], kernel_size, vol.device), axis)
+    with f32_scope():
+        for axis in range(3):
+            vol = axis_mm(vol, _box_matrix(vol.shape[axis], kernel_size, vol.device), axis)
     return vol
 
 

@@ -10,7 +10,9 @@
 
 The lattice's random gradient angles are arguments: ``draw_perlin_uniforms``
 and ``draw_fractal_uniforms`` fill them from a ``torch.Generator``, and a
-test hands in the JAX package's own draws instead.
+test hands in the JAX package's own draws instead. The contractions take the
+matmul precision scope (``linops.prec_einsum``), as the JAX package's
+``precision=_prec()`` does.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .linops import prec_einsum
 from .numerics import device_const
 
 
@@ -65,9 +68,9 @@ def perlin_noise_3d(shape, res, uniforms) -> torch.Tensor:
     ]
 
     def up(g, M0, M1, M2):
-        t = torch.einsum("Ia,abc->Ibc", M0, g)
-        t = torch.einsum("Jb,Ibc->IJc", M1, t)
-        return torch.einsum("Kc,IJc->IJK", M2, t)
+        t = prec_einsum("Ia,abc->Ibc", M0, g)
+        t = prec_einsum("Jb,Ibc->IJc", M1, t)
+        return prec_einsum("Kc,IJc->IJK", M2, t)
 
     (A0, A0d), (A1, A1d), (A2, A2d) = mats
     return up(gx, A0d, A1, A2) + up(gy, A0, A1d, A2) + up(gz, A0, A1, A2d)
@@ -135,4 +138,4 @@ def mog_3d(shape, centers: torch.Tensor, sigmas: torch.Tensor, valid: torch.Tens
     if valid is not None:
         fx = fx * valid[:, None].to(torch.float32)
     t = fx[:, :, None] * axis_factor(1)[:, None, :]
-    return torch.clamp(torch.einsum("ndh,nw->dhw", t, axis_factor(2)), 0.0, 1.0)
+    return torch.clamp(prec_einsum("ndh,nw->dhw", t, axis_factor(2)), 0.0, 1.0)

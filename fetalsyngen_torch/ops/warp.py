@@ -18,6 +18,14 @@ so the warp runs as single-axis resampling passes with closed-form positions.
 The affine warps are batch-first, with per-sample scalars as (B,) tensors;
 the rigid warps take one (D, H, W) volume or pair. The pass order, layouts
 and coefficients are the JAX package's.
+
+Under :func:`~fetalsyngen_torch.ops.linops.storage_scope` (the stream's
+production mode) the matmul passes keep their intermediates in bf16
+(``linops.einsum_store``) and the hat passes read and write bf16 rows (the
+kernels' bf16 forms; positions and displacements stay f32), as the JAX
+package's ``store`` threading does. The rigid warps' ``emit_f32`` marks
+their last contraction as a segment boundary: f32 out, unless a scoped
+caller keeps bf16 for a consumer that takes it.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import numpy as np
 import torch
 
 from ..kernels.hat import hat_pass, hat_pass_pair
-from .linops import axis_mm, interp_matrix_1d
+from .linops import axis_mm, einsum_store, interp_matrix_1d, io_dtype, prec_matmul
 
 # Displacement fields are clipped to +-FIELD_LIM voxels: ~3.5 sigma of the
 # largest default nonlin_std (4.0), beyond the field's realizable range.
@@ -95,6 +103,8 @@ def _row_affine_matmul_pair(xa, xb, slope, amount, bias, out_order="ijk"):
 
     The output axes follow ``out_order``, a permutation of "ijk" (k = the
     resampled axis); it folds the caller's next transpose into the einsum.
+    Under the storage scope the operators and outputs are bf16 (the nearest
+    operator's one-hot rows and small-integer labels are exact in bf16).
     """
     B, _, J, S = xa.shape
     dev = xa.device
@@ -102,7 +112,7 @@ def _row_affine_matmul_pair(xa, xb, slope, amount, bias, out_order="ijk"):
     c_fix = (J - 1) / 2.0
     m_lin, m_near = _shear_matrices(J, S, amount, bias + amount * c_fix, c_fix, slope)
     spec = f"bjks,bijs->b{out_order}"
-    return torch.einsum(spec, m_lin, xa), torch.einsum(spec, m_near, xb)
+    return einsum_store(spec, m_lin, xa), einsum_store(spec, m_near, xb)
 
 
 def _field_combos(L, Fx, Fy, Fz):
@@ -132,9 +142,10 @@ def warp_affine_field_pair(va, vb, A, t, Fx, Fy, Fz):
 
 def _hat(x, ci, cj, ck, bias, nearest, disp=None):
     """A hat pass (K2) of one (B, D, H, W) volume with per-sample (B,)
-    coefficients ``ci, cj, ck, bias`` and an optional displacement."""
+    coefficients ``ci, cj, ck, bias`` and an optional displacement, on rows
+    of the storage scope's type (:func:`~fetalsyngen_torch.ops.linops.io_dtype`)."""
     coefs = torch.stack([ci, cj, ck, bias], dim=1).contiguous()
-    return hat_pass(x.contiguous(), coefs, None if disp is None else disp.contiguous(), nearest)
+    return hat_pass(x.to(io_dtype()).contiguous(), coefs, None if disp is None else disp.contiguous(), nearest)
 
 
 def _u_passes(x, U, t, nearest):
@@ -323,17 +334,18 @@ def _shear_matrices_jks(J, K, S, amount, c_fix):
 def _shear_pass_pair_mm(va, vb, axis_move, axis_fix, amount):
     """Shear of one volume or a pair (``vb`` may be None) as a batched matmul,
     one (K, S) operator per ``axis_fix`` row shared by both operands:
-    ``pos[axis_move] = idx + amount * centered(axis_fix)``."""
+    ``pos[axis_move] = idx + amount * centered(axis_fix)``; intermediates in
+    the storage scope's type, see ``linops.einsum_store``."""
     axis_other = next(a for a in range(3) if a not in (axis_move, axis_fix))
     perm = (axis_other, axis_fix, axis_move)
     inv = tuple(int(i) for i in np.argsort(perm))
     xa = va.permute(perm)
     J, K = xa.shape[1], xa.shape[2]
     M = _shear_matrices_jks(J, K, K, amount, (va.shape[axis_fix] - 1) / 2.0)
-    oa = torch.einsum("jks,ijs->ijk", M, xa).permute(inv)
+    oa = einsum_store("jks,ijs->ijk", M, xa).permute(inv)
     if vb is None:
         return oa, None
-    return oa, torch.einsum("jks,ijs->ijk", M, vb.permute(perm)).permute(inv)
+    return oa, einsum_store("jks,ijs->ijk", M, vb.permute(perm)).permute(inv)
 
 
 def _interp_or_nearest_matrix(coords, in_size: int, nearest: bool) -> torch.Tensor:
@@ -348,6 +360,7 @@ def _interp_or_nearest_matrix(coords, in_size: int, nearest: bool) -> torch.Tens
 
 def warp_rigid_pair_traced(
     va, vb, q_idx, angles, scale, delta, out_shape=None, post_a=None, post_b=None, out_perm=None,
+    emit_f32=True,
 ):
     """``out[q] = V[A q + t]`` for one or two (``vb`` may be None) cube
     volumes, linearly, with the map of :func:`decompose_affine_paeth_host`:
@@ -361,12 +374,17 @@ def warp_rigid_pair_traced(
     ``post_a``/``post_b``: per-axis (out, out) operators (or None) applied to
     each operand in the output frame, composed into the zoom matrices.
     ``out_perm=(1, 2, 0)`` emits the outputs as (axis1, axis2, axis0).
+
+    Under the storage scope every contraction keeps bf16, and the last one
+    emits f32 unless ``emit_f32`` is False; the ``post`` compositions take
+    the matmul precision scope.
     """
+    work = io_dtype()
     cube = va.shape[0]
     out_shape = tuple(out_shape) if out_shape is not None else tuple(va.shape)
     cc = (cube - 1) / 2.0
-    a = apply_quarter_turn(va.to(torch.float32), q_idx)
-    b = apply_quarter_turn(vb.to(torch.float32), q_idx) if vb is not None else None
+    a = apply_quarter_turn(va.to(work), q_idx)
+    b = apply_quarter_turn(vb.to(work), q_idx) if vb is not None else None
     C = [torch.ones((), dtype=torch.float32, device=va.device)] * 3
     for axis in range(3):
         u_ax, v_ax = _PLANE[axis]
@@ -382,10 +400,10 @@ def warp_rigid_pair_traced(
 
     def zoom(x, post, axis, M):
         if post is not None and post[axis] is not None:
-            M = post[axis] @ M
+            M = prec_matmul(post[axis], M)
         if axis == 2 and last_spec is not None:
-            return torch.einsum(last_spec, M, x)
-        return axis_mm(x, M, axis)
+            return einsum_store(last_spec, M, x, out_f32=emit_f32)
+        return axis_mm(x, M, axis, out_f32=emit_f32 and axis == 2)
 
     for axis in range(3):
         lanes = torch.arange(out_shape[axis], dtype=torch.float32, device=va.device)
@@ -407,7 +425,8 @@ def _rot_axis(axis: int, th: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r) for r in m])
 
 
-def warp_rigid_zoom_first(v, q_idx, angles, scale, delta, out_size=None, post=None, out_perm=None):
+def warp_rigid_zoom_first(v, q_idx, angles, scale, delta, out_size=None, post=None, out_perm=None,
+                          emit_f32=True):
     """The map of :func:`warp_rigid_pair_traced` (``out[q] = V[A q + t]``,
     rotation times isotropic scale) for one cube volume, with the zoom
     applied before the rotation's shears, onto an ``out_size`` cube.
@@ -421,14 +440,15 @@ def warp_rigid_zoom_first(v, q_idx, angles, scale, delta, out_size=None, post=No
     same six unit shears with deferred diagonals, applied last as three
     interpolation matmuls into which the ``post`` operators compose;
     ``out_perm=(1, 2, 0)`` emits (axis1, axis2, axis0). Interpolation order
-    differs from the zoom-last warp: equal up to interpolation error.
+    differs from the zoom-last warp: equal up to interpolation error. The
+    storage scope and ``emit_f32`` act as in :func:`warp_rigid_pair_traced`.
     """
     cube = v.shape[0]
     S = int(out_size) if out_size is not None else cube
     c_in = (cube - 1) / 2.0
     c_out = (S - 1) / 2.0
     dev = v.device
-    a = apply_quarter_turn(v.to(torch.float32), q_idx)
+    a = apply_quarter_turn(v.to(io_dtype()), q_idx)
     R_res = _rot_axis(0, angles[0]) @ _rot_axis(1, angles[1]) @ _rot_axis(2, angles[2])
     d = R_res @ (delta - c_in + scale * c_out) + c_in - scale * c_out
     lanes = torch.arange(S, dtype=torch.float32, device=dev)
@@ -449,8 +469,11 @@ def warp_rigid_zoom_first(v, q_idx, angles, scale, delta, out_size=None, post=No
     for axis in range(3):
         M = interp_matrix_1d(C[axis] * (lanes - c_out) + c_out, S)
         if post is not None and post[axis] is not None:
-            M = post[axis] @ M
-        a = torch.einsum(last_spec, M, a) if axis == 2 and last_spec is not None else axis_mm(a, M, axis)
+            M = prec_matmul(post[axis], M)
+        if axis == 2 and last_spec is not None:
+            a = einsum_store(last_spec, M, a, out_f32=emit_f32)
+        else:
+            a = axis_mm(a, M, axis, out_f32=emit_f32 and axis == 2)
     return a
 
 
@@ -464,7 +487,9 @@ def warp_affine_field_pair_pre(va, vb, A, t, gyT, gz, gxT):
 
     with L from :func:`ul_decompose` of the (B, 3, 3) ``A`` and (B, 3)
     offsets ``t``. The U passes and the L21 peel are batched matmuls; the L-y,
-    L-z and x passes launch the hat kernel, three launches per call.
+    L-z and x passes launch the hat kernel, three launches per call. Under the
+    storage scope the matmuls and the hat passes keep the pair in bf16 (the
+    labels too: below 257 they are exact), and the image comes out bf16.
     """
     U, L = ul_decompose(A)
     t = t.to(torch.float32)
@@ -477,8 +502,10 @@ def warp_affine_field_pair_pre(va, vb, A, t, gyT, gz, gxT):
     def coefs(ci):
         return torch.stack([ci, zero, one, zero], dim=1).contiguous()
 
+    io = io_dtype()
+
     def hat(a, b, ci, disp):
-        return hat_pass_pair(a.contiguous(), b.contiguous(), coefs(ci), disp.contiguous())
+        return hat_pass_pair(a.to(io).contiguous(), b.to(io).contiguous(), coefs(ci), disp.contiguous())
 
     # U-z on (i,j,k): pos_k = U22*k + t2
     a, b = _row_affine_matmul_pair(a, b, U[:, 2, 2], 0.0, t[:, 2], out_order="ikj")

@@ -14,11 +14,17 @@ struct_noise -> simulate_motion -> boundaries,
 :func:`~fetalsyngen_torch.generator.artifacts.batched.apply_chain`), before
 each image is divided by its peak. With ``prefetch`` the next batch is
 generated on a side CUDA stream while the caller holds the current one.
+
+The batch program runs in the stream's bf16 production mode, as the JAX
+stream's does (:func:`_production_scopes`: one-pass bf16 matmuls and bf16
+intermediates, ``ops.linops``); ``FSG_STREAM_BF16=0`` rolls it back to the
+f32 contract. The dataset API stays f32.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import heapq
 import os
 import threading
@@ -32,7 +38,20 @@ from ..generator.artifacts.scanner import slice_grid
 from ..generator.pipeline import draw_fields, make_generators, synth_core
 from ..generator.params import sample_params
 from ..io import native, nifti
+from ..ops.linops import DEFAULT, precision_scope, storage_scope
 from ..ops.numerics import device_const
+
+
+@contextlib.contextmanager
+def _production_scopes():
+    """The stream's bf16 production mode (``precision_scope(DEFAULT)`` and
+    ``storage_scope(bfloat16)``) for the calling thread, or, under
+    ``FSG_STREAM_BF16=0``, the f32 contract (the JAX stream's rollback)."""
+    if os.environ.get("FSG_STREAM_BF16", "1") == "0":
+        yield
+        return
+    with precision_scope(DEFAULT), storage_scope(torch.bfloat16):
+        yield
 
 # One side stream per CUDA device, made at first use and shared by every
 # stream's producer: the ring kernels keep a tile counter per (device,
@@ -126,6 +145,9 @@ def batch_program(mega, segs, hi, subj, u, p, fields, cfg, lo: int, chain=None):
         chain: None, or a callable ``(image, labels) -> image`` run on the
             synthesised batch before the division (the artifact chain).
 
+    The core and the chain run in the production mode
+    (:func:`_production_scopes`, entered here, in the calling thread).
+
     Returns:
         (image, label): (B, D, H, W) f32 divided by each sample's peak where
         it is positive, and int32 labels.
@@ -138,9 +160,11 @@ def batch_program(mega, segs, hi, subj, u, p, fields, cfg, lo: int, chain=None):
     seeds = picked.sum(1, dtype=torch.int32).reshape(-1, *vol)
     del picked
     seg = _take_rows(segs.reshape(S, -1), subj).reshape(-1, *vol).to(torch.int32)
-    out, seg, _ = synth_core(p, fields, seeds, seg, cfg)
-    if chain is not None:
-        out = chain(out, seg)
+    with _production_scopes():
+        out, seg, _ = synth_core(p, fields, seeds, seg, cfg)
+        out = out.float()
+        if chain is not None:
+            out = chain(out, seg)
     peak = out.amax(dim=(1, 2, 3), keepdim=True)
     return out / torch.where(peak > 0, peak, 1.0), seg
 

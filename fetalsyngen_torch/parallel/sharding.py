@@ -31,6 +31,7 @@ from ..generator.artifacts.batched import (
 )
 from ..generator.config import GeneratorCfg
 from ..train.step import generate, normalize_peak, resolve_device
+from .input_pipeline import _production_scopes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +82,8 @@ def shard_seeds(g: DataGroup, seeds_per_sample) -> list[int]:
 def make_sharded_generator(g: DataGroup, cfg: GeneratorCfg):
     """``gen(seeds_per_sample, seeds, segs) -> (images, labels)``: this
     rank's rows of ``synth_batch`` of the global batch, generated on its
-    device."""
+    device, in f32 (the JAX package's ``make_sharded_generator`` enters no
+    scope either)."""
 
     def gen(seeds_per_sample, seeds, segs):
         return generate(shard_seeds(g, seeds_per_sample), shard_batch(g, seeds), shard_batch(g, segs), cfg,
@@ -101,8 +103,10 @@ def make_sharded_artifact_generator(g: DataGroup, generator, shape, cube, ns_gri
     of the pack (:func:`motion_t`), boundaries (:func:`apply_post_motion`),
     then the division by its peak. Its artifact draws come from
     :func:`chain_draws` of its seed, as the stream's do; the pack's
-    ``"gates"`` pin the quality artifacts as they do in the stream. f32
-    throughout.
+    ``"gates"`` pin the quality artifacts as they do in the stream. The core
+    and the chain run in the stream's bf16 production mode
+    (``input_pipeline._production_scopes``; ``FSG_STREAM_BF16=0``: f32), as
+    the JAX package's sharded artifact generator does.
     """
     qa = QualityArtifacts.from_generator(generator)
     sm = (getattr(generator, "artifacts", None) or {}).get("simulate_motion")
@@ -116,14 +120,15 @@ def make_sharded_artifact_generator(g: DataGroup, generator, shape, cube, ns_gri
         gates = None if pack is None else pack.get("gates")
         images, labels = [], []
         for i, (s, b) in enumerate(zip(local, range(rows.start, rows.stop))):
-            out, seg = generate([s], seeds[i : i + 1], segs[i : i + 1], cfg, g.device)
-            out, seg = out[0], seg[0]
-            draws = chain_draws([s], g.device)[0]
-            gb = None if gates is None else gates[b]
-            out = apply_pre_motion(out, seg, qa, draws, gb)
-            if sm is not None and pack is not None and "motion_on" in pack:
-                out = motion_t(out, seg, row_of(pack, b), sm, shape, cube, ns_grid, draws, small_cube)
-            out = apply_post_motion(out, seg, qa, draws, gb)
+            with _production_scopes():
+                out, seg = generate([s], seeds[i : i + 1], segs[i : i + 1], cfg, g.device)
+                out, seg = out[0].float(), seg[0]
+                draws = chain_draws([s], g.device)[0]
+                gb = None if gates is None else gates[b]
+                out = apply_pre_motion(out, seg, qa, draws, gb)
+                if sm is not None and pack is not None and "motion_on" in pack:
+                    out = motion_t(out, seg, row_of(pack, b), sm, shape, cube, ns_grid, draws, small_cube)
+                out = apply_post_motion(out, seg, qa, draws, gb)
             images.append(out)
             labels.append(seg)
         return normalize_peak(torch.stack(images)), torch.stack(labels)

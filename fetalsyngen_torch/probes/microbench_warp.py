@@ -16,15 +16,20 @@ total, ... ms/vol (B=..., S^3)"``.
 - ``u_stage`` and ``nonlin_field`` run ``_row_affine_matmul_pair`` and
   ``zoom_mm`` (f32 matmuls, TF32 off, where the TPU script ran
   ``batched_matmul`` at the MXU's default bf16 precision).
+- The bf16 variants run under the stream's production scopes
+  (:mod:`fetalsyngen_torch.ops.linops`), each step casting its outputs back
+  to f32 as the TPU script's do: ``pair_l_unit_bf16`` is ``pair_l_unit`` on
+  bf16 rows (K1's bf16 form) under ``storage_scope``, ``u_stage_bf16`` the
+  U stage under ``storage_scope`` (bf16 intermediates), ``deform_pair_bf16``
+  the whole field warp under ``precision_scope(DEFAULT)`` and
+  ``storage_scope``.
 - ``transpose*``, ``pad``, ``gather_table``, ``onehot_sweep``, ``randn``,
   ``batched_matmul`` and ``matmul`` are plain torch operations.
 - ``probe2_{copy,stage,taps<N>}`` run K3 and ``probe_{copy,stage,ladder,
   tiles,sweep12}`` K4 (:mod:`fetalsyngen_torch.kernels.probes`; ``probe_*``
   needs S a multiple of 128).
 
-The script's bf16 variants (``pair_l_unit_bf16``, ``u_stage_bf16``,
-``deform_pair_bf16``) need the TPU package's storage and precision scopes,
-which the port does not have; ``transpose_bf16`` is plain torch and stays.
+``transpose_bf16`` is plain torch.
 """
 
 from __future__ import annotations
@@ -37,12 +42,13 @@ import torch.nn.functional as F
 
 from ..kernels import hat, probes
 from ..ops import warp
-from ..ops.linops import zoom_mm
+from ..ops.linops import DEFAULT, precision_scope, storage_scope, zoom_mm
 from . import timing
 
 VARIANTS = (
     "pair_l", "pair_l_nodisp", "pair_u", "single_l", "transpose", "transpose_bf16", "transpose_rows",
-    "pair_l_unit", "pair_l_unit_zero", "pair_l_unit_smooth", "u_stage", "nonlin_field", "deform_pair", "pad",
+    "pair_l_unit", "pair_l_unit_bf16", "pair_l_unit_zero", "pair_l_unit_smooth", "u_stage", "u_stage_bf16",
+    "nonlin_field", "deform_pair", "deform_pair_bf16", "pad",
     "probe2_copy", "probe2_stage", "probe2_taps8", "probe_copy", "probe_stage", "probe_ladder", "probe_tiles",
     "probe_sweep12", "gather_table", "onehot_sweep", "randn", "batched_matmul", "matmul",
 )
@@ -80,6 +86,16 @@ def build(v: str, B: int, S: int, dev: torch.device):
             d = _zoom_to(randn(B, 12, 12, 12) * 4.0, S).contiguous()
         c = _coefs((0.11, 0.07, 1.0, 0.3), B, dev)
         return (lambda t: (*hat.hat_pass_pair(t[0], t[1], c, t[2]), t[2])), (x, y, d)
+    if v == "pair_l_unit_bf16":
+        c = _coefs((0.11, 0.07, 1.0, 0.3), B, dev)
+
+        def pair_bf16(t):
+            with storage_scope(torch.bfloat16):
+                bf = torch.bfloat16
+                oa, ob = hat.hat_pass_pair(t[0].to(bf), t[1].to(bf), c, t[2])
+            return oa.float(), ob.float(), t[2]
+
+        return pair_bf16, (x, y, d)
     if v in ("pair_l_nodisp", "pair_u"):
         c = _coefs((0.11, 0.07, 1.0, 0.3) if v == "pair_l_nodisp" else (0.05, 0.1, 1.08, -9.0), B, dev)
         return (lambda t: hat.hat_pass_pair(t[0], t[1], c, None)), (x, y)
@@ -92,12 +108,16 @@ def build(v: str, B: int, S: int, dev: torch.device):
         return (lambda a: a.permute(0, 1, 3, 2) + 0.0), x.to(torch.bfloat16)
     if v == "transpose_rows":
         return (lambda a: a.permute(0, 2, 1, 3) + 0.0), x
-    if v == "u_stage":
+    if v in ("u_stage", "u_stage_bf16"):
+        store = torch.bfloat16 if v.endswith("bf16") else None
+
         def u_stage(t):
-            a, b = warp._row_affine_matmul_pair(t[0], t[1], 1.08, 0.0, 0.3, out_order="ikj")
-            a, b = warp._row_affine_matmul_pair(a, b, 0.95, 0.06, 0.1, out_order="kji")
-            a, b = warp._row_affine_matmul_pair(a, b, 1.0, 0.04, 0.0, out_order="jik")
-            return warp._row_affine_matmul_pair(a, b, 1.02, -0.05, 0.2, out_order="kij")
+            with storage_scope(store):
+                a, b = warp._row_affine_matmul_pair(t[0], t[1], 1.08, 0.0, 0.3, out_order="ikj")
+                a, b = warp._row_affine_matmul_pair(a, b, 0.95, 0.06, 0.1, out_order="kji")
+                a, b = warp._row_affine_matmul_pair(a, b, 1.0, 0.04, 0.0, out_order="jik")
+                a, b = warp._row_affine_matmul_pair(a, b, 1.02, -0.05, 0.2, out_order="kij")
+            return a.float(), b.float()
 
         return u_stage, (x, y)
     if v == "nonlin_field":
@@ -106,10 +126,18 @@ def build(v: str, B: int, S: int, dev: torch.device):
             return f + up.mean() * 1e-20
 
         return field, randn(B, 3, 10, 10, 10)
-    if v == "deform_pair":
+    if v in ("deform_pair", "deform_pair_bf16"):
         A = (torch.eye(3, device=dev) + randn(3, 3) * 0.05).expand(B, 3, 3)
         t0 = torch.zeros((B, 3), device=dev)
-        return (lambda t: (*warp.warp_affine_field_pair(t[0], t[1], A, t0, t[2], t[2], t[2]), t[2])), (x, y, d)
+        if v == "deform_pair":
+            return (lambda t: (*warp.warp_affine_field_pair(t[0], t[1], A, t0, t[2], t[2], t[2]), t[2])), (x, y, d)
+
+        def deform_bf16(t):
+            with precision_scope(DEFAULT), storage_scope(torch.bfloat16):
+                oa, ob = warp.warp_affine_field_pair(t[0], t[1], A, t0, t[2], t[2], t[2])
+            return oa.float(), ob.float(), t[2]
+
+        return deform_bf16, (x, y, d)
     if v == "pad":
         def pad(a):
             p = F.pad(a.reshape(B, S * S, S), (PAD, PAD + 128), mode="replicate")

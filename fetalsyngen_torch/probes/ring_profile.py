@@ -141,9 +141,9 @@ def _hat_launcher(lib, x, coefs, disp, nearest, out):
     args = (x.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(), out.data_ptr(), B, D * H,
             H, S, int(nearest), coef_mode, disp_mode, torch.cuda.current_stream(x.device).cuda_stream)
     geo = lib.fsg_hat_geometry
-    geo.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    geo.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     g = (ctypes.c_int * 4)()
-    if geo(B, D * H, S, int(nearest), coef_mode, disp_mode, g):
+    if geo(B, D * H, S, int(nearest), coef_mode, disp_mode, 0, g):
         raise RuntimeError("fsg_hat_geometry failed")
     return _checked(fn, args, "K2"), g[2]
 
@@ -160,9 +160,9 @@ def _pair_launcher(lib, xa, xb, coefs, disp, nearest_b, oa, ob):
             oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, oa.shape[-1], int(nearest_b), coef_mode, disp_mode,
             torch.cuda.current_stream(xa.device).cuda_stream)
     geo = lib.fsg_hat_pair_geometry
-    geo.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    geo.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     g = (ctypes.c_int * 4)()
-    if geo(B, D * H, S, int(nearest_b), coef_mode, disp_mode, g):
+    if geo(B, D * H, S, int(nearest_b), coef_mode, disp_mode, 0, g):
         raise RuntimeError("fsg_hat_pair_geometry failed")
     return _checked(fn, args, "K1"), g[2]
 

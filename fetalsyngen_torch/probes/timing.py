@@ -28,19 +28,21 @@ def bound(nbytes: float, ops: float):
     return (b, "bytes") if b >= o else (o, "operations")
 
 
-def hat_bound(pair: bool, B, D, H, S, OW, disp=None, nearest=False):
+def hat_bound(pair: bool, B, D, H, S, OW, disp=None, nearest=False, esize: int = 4):
     """:func:`bound` of one hat pass over (B, D, H, S) rows to OW lanes: each
     input read once (the rows of one or two operands, the displacement volume
     or lane-affine table, the coefficients), each output written once; per
     output element the position polynomial (6 operations, +1 with a volume,
     +5 with a table) and 5 per linear sample (the second operand of a pair
-    is nearest if ``nearest``, the single operand too)."""
+    is nearest if ``nearest``, the single operand too). ``esize``: the bytes
+    of a row and output element (4: f32, 2: the bf16 forms; displacements,
+    tables and coefficients are f32 either way)."""
     n_in, out = (2 if pair else 1), B * D * H * OW
     n_lin = n_in - int(nearest)
     disp_elems, pos_ops = 0, 6
     if disp is not None:
         disp_elems, pos_ops = (disp.numel(), 7) if disp.dim() == 4 else (disp.numel(), 11)
-    nbytes = 4 * (n_in * B * D * H * S + disp_elems + B * D * 4 + n_in * out)
+    nbytes = esize * n_in * (B * D * H * S + out) + 4 * (disp_elems + B * D * 4)
     return bound(nbytes, out * (pos_ops + 5 * n_lin))
 
 
@@ -56,11 +58,12 @@ def card_line() -> str:
 
 def start(device: str) -> torch.device:
     """The run's device; on a CUDA device, f32 products in full f32 (TF32
-    off) and the card's line printed first."""
+    off), bf16 GEMMs summing in f32 and the card's line printed first."""
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         torch.set_float32_matmul_precision("highest")
         print(card_line(), flush=True)
     return dev

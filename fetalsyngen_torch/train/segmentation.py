@@ -88,6 +88,10 @@ def main(argv=None) -> None:
     rank = 0
     if distributed:
         cuda = args.device is None or args.device.startswith("cuda")
+        if cuda:
+            # bind the process to its card before NCCL creates the group: a
+            # group made first sets up its communicator on cuda:0 in every rank
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
         dist.init_process_group("nccl" if cuda else "gloo")
         rank = dist.get_rank()
     try:

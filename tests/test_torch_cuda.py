@@ -25,6 +25,7 @@ def dev():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda", 0)
 
 
@@ -574,11 +575,15 @@ def _take(stream, n):
         it.close()
 
 
-def test_stream_matches_cpu(stream_ds):
+def test_stream_matches_cpu(stream_ds, monkeypatch):
     """A batch on the card against the port's batch program on the CPU, with
-    the card's parameters and fields: image within 1e-4, labels differing on
-    at most 1e-5 of voxels (chip_smoke's bars)."""
+    the card's parameters and fields, in the f32 mode (``FSG_STREAM_BF16=0``;
+    ``test_production_core_card_vs_cpu`` holds the production mode): image
+    within 1e-4, labels differing on at most 1e-5 of voxels (chip_smoke's
+    bars)."""
     from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream, batch_program
+
+    monkeypatch.setenv("FSG_STREAM_BF16", "0")
 
     stream = SyntheticStream(stream_ds, batch_size=2, seed=1, prefetch=False)
     batch = _take(stream, 1)[0]
@@ -609,16 +614,21 @@ def test_stream_replay_and_prefetch_bit_identical(stream_ds):
         assert torch.equal(r["image"], b["image"]) and torch.equal(r["label"], b["label"])
 
 
-def test_stream_launches_k1_three_times_per_batch(stream_ds):
+def test_stream_launches_k1_three_times_per_batch(stream_ds, monkeypatch):
+    """Three K1 launches a batch: its bf16 form at the stream's default, its
+    f32 form under ``FSG_STREAM_BF16=0``."""
     from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream
 
-    stream = SyntheticStream(stream_ds, batch_size=2, seed=2, prefetch=False)
-    _take(stream, 1)
-    for k in hat.LAUNCHES:
-        hat.LAUNCHES[k] = 0
-    _take(stream, 4)
-    torch.cuda.synchronize()
-    assert hat.LAUNCHES == {**dict.fromkeys(hat.LAUNCHES, 0), "hat_pass_pair": 12}
+    for env, form in ((None, "hat_pass_pair_bf16"), ("0", "hat_pass_pair")):
+        if env is not None:
+            monkeypatch.setenv("FSG_STREAM_BF16", env)
+        stream = SyntheticStream(stream_ds, batch_size=2, seed=2, prefetch=False)
+        _take(stream, 1)
+        for k in hat.LAUNCHES:
+            hat.LAUNCHES[k] = 0
+        _take(stream, 4)
+        torch.cuda.synchronize()
+        assert hat.LAUNCHES == {**dict.fromkeys(hat.LAUNCHES, 0), form: 12}
 
 
 def test_many_prefetching_iterators_share_one_side_stream(stream_ds):
@@ -724,17 +734,20 @@ def artifact_ds(dev, tmp_path):
     return FetalSynthDataset(str(root), gen, str(root / "derivatives" / "seeds"))
 
 
-def test_stream_artifacts_card_vs_cpu(artifact_ds):
+def test_stream_artifacts_card_vs_cpu(artifact_ds, monkeypatch):
     """A B=2 batch with the four artifacts on the card against the port's
-    CPU path: the core's labels within 1e-5 of voxels (nearest-label ties may
-    flip); the chain on the CPU from the card's core output with the card's
-    recorded draws: the same validity flags, within 1e-4 of its scale
-    outside the voxels whose recon weight crosses 1e-2 between the two
-    (grown by one voxel where the box smooth ran) or whose boundaries mask
-    differs; the recorded rerun bit-identical to the batch."""
+    CPU path, in the f32 mode (``FSG_STREAM_BF16=0``): the core's labels
+    within 1e-5 of voxels (nearest-label ties may flip); the chain on the
+    CPU from the card's core output with the card's recorded draws: the same
+    validity flags, within 1e-4 of its scale outside the voxels whose recon
+    weight crosses 1e-2 between the two (grown by one voxel where the box
+    smooth ran) or whose boundaries mask differs; the recorded rerun
+    bit-identical to the batch."""
     from fetalsyngen_torch.generator.artifacts import batched as tba
     from fetalsyngen_torch.ops.morphology import box_sum
     from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream, batch_program
+
+    monkeypatch.setenv("FSG_STREAM_BF16", "0")
 
     stream = SyntheticStream(artifact_ds, batch_size=2, seed=1, prefetch=False)
     batch = _take(stream, 1)[0]
@@ -880,3 +893,166 @@ def test_train_step_through_ddp_world_one(dev, tmp_path, monkeypatch):
         assert float((p.grad - q.grad).abs().max()) <= 1e-5 * float(q.grad.abs().max())
         adamw = p0 * (1 - 1e-3 * tstep.ADAMW["weight_decay"]) - 1e-3 * p.grad / (p.grad.abs() + 1e-8)
         assert float((p.detach() - adamw).abs().max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forms of K1 and K2 (the stream's production mode)
+# ---------------------------------------------------------------------------
+
+# K1's bf16 forms (displacement kind, nearest second operand) and K2's
+# (coef mode, nearest, displacement kind)
+K1_BF16_FORMS = [("volume", True), ("lane", False)]
+K2_BF16_FORMS = [("sample", False, None), ("sample", True, None), ("sample", False, "lane"), ("slice", False, None)]
+
+
+def _bf16_view(t: torch.Tensor, off_bytes: int) -> torch.Tensor:
+    """``t`` rounded to bf16, as a contiguous view ``off_bytes`` (a multiple
+    of 2) into a larger tensor; -0.0 kept."""
+    flat = torch.empty(t.numel() + 8, dtype=torch.bfloat16, device=t.device)
+    view = flat[off_bytes // 2 : off_bytes // 2 + t.numel()].view(t.shape)
+    view.copy_(t.to(torch.bfloat16))
+    assert view.data_ptr() % 16 == off_bytes % 16
+    return view
+
+
+def _bits16(got, want):
+    return all(k.dtype == torch.bfloat16 and torch.equal(k.view(torch.int16), r.view(torch.int16))
+               for k, r in zip(got, want))
+
+
+@pytest.mark.parametrize("off", [0, 2, 4, 8])
+@pytest.mark.parametrize("case", ["partial", "odd_s", "ow"])
+@pytest.mark.parametrize("form", K1_BF16_FORMS, ids=lambda f: f"{f[0]}-{f[1]}")
+def test_pair_kernel_bf16_bits(dev, form, case, off):
+    """K1's bf16 forms bit for bit (as int16) with their plain version on
+    bf16 rows: partial tiles across samples and slices, an odd S, OW != S,
+    and both operands 0, 2, 4 and 8 bytes off 16 (the loose ring takes any
+    bf16 offset)."""
+    disp_kind, nearest_b = form
+    shape, OW, _ = K1_SHAPES[case]
+    xa, xb, coefs, disp = _pair_inputs(dev, disp_kind, nearest_b, shape, OW, (0, 0), shape[-1] + off)
+    xa, xb = _bf16_view(xa, off), _bf16_view(xb, (off + 4) % 16 if off else 0)
+    got = hat.hat_pass_pair(xa, xb, coefs, disp, nearest_b)
+    want = hat.hat_pass_pair_ref(xa, xb, coefs, disp, nearest_b)
+    torch.cuda.synchronize()
+    assert _bits16(got, want)
+    assert got[0].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("off", [0, 2, 4, 8])
+@pytest.mark.parametrize("form", K2_BF16_FORMS, ids=lambda f: "-".join(str(v) for v in f))
+@pytest.mark.parametrize("S", sorted(K2_ROWS))
+def test_single_kernel_bf16_bits(dev, S, form, off):
+    """K2's bf16 forms bit for bit (as int16) with their plain version, -0.0
+    among the values, positions at half-integers and past both edges; an
+    ``x`` off 16 bytes is copied to 16 bytes first (``hat.COPIES``)."""
+    coef, nearest, disp_kind = form
+    B, (D, H) = 3, K2_ROWS[S]
+    g = torch.Generator(device=dev).manual_seed(S * 10 + len(str(form)) + off)
+    if nearest:
+        x = torch.randint(-1, 50, (B, D, H, S), generator=g, device=dev).float()
+        x[x < 0] = -0.0
+    else:
+        x = _with_negative_zeros(100.0 * torch.randn((B, D, H, S), generator=g, device=dev))
+    x = _bf16_view(x, off)
+    if coef == "slice":
+        coefs = (torch.rand((B, D, 4), generator=g, device=dev) - 0.5) * torch.tensor([0.0, 0.5, 0.2, S / 2],
+                                                                                       device=dev)
+        coefs[..., 2] += 1.0
+    else:
+        coefs = torch.tensor([[0.25, -0.5, 1.0, 0.5], [0.05, -0.04, 1.02, -0.3 * S], [0.0, 0.0, -1.0, S - 1.0]],
+                             device=dev)
+    disp = None
+    if disp_kind == "lane":
+        disp = torch.randn((B, 3, S), generator=g, device=dev) * torch.tensor([[[0.3], [0.3], [S / 8]]], device=dev)
+    copies = hat.COPIES["hat_pass"]
+    got, want = hat.hat_pass(x, coefs, disp, nearest), hat.hat_pass_ref(x, coefs, disp, nearest)
+    torch.cuda.synchronize()
+    assert _bits16((got,), (want,))
+    assert hat.COPIES["hat_pass"] - copies == (1 if off % 16 else 0)
+
+
+def test_bf16_forms_not_instantiated_raise(dev):
+    """A bf16 operand launches a bf16 kernel or raises: never the f32 one."""
+    x = torch.zeros((1, 2, 3, 16), dtype=torch.bfloat16, device=dev)
+    coefs = torch.zeros((1, 4), device=dev)
+    with pytest.raises(ValueError, match="no kernel"):
+        hat.hat_pass(x, coefs, torch.zeros((1, 2, 3, 16), device=dev))
+    with pytest.raises(ValueError, match="no kernel"):
+        hat.hat_pass_pair(x, x, coefs, None)
+    with pytest.raises(TypeError, match="operand 2 must be bfloat16"):
+        hat.hat_pass_pair(x, x.float(), coefs, torch.zeros((1, 2, 3, 16), device=dev))
+
+
+def test_hat_geometry_bf16(dev):
+    """K2's bf16 launches: 16 KB tiles hold twice the rows of f32 ones; tile
+    rows in whole 16-byte units (eight bf16) and two stages where three do
+    not fit."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf = torch.bfloat16
+    for nearest, per_slice, disp in ((False, False, "none"), (True, False, "none"), (False, False, "lane"),
+                                     (False, True, "none")):
+        geo = hat.hat_geometry((1, 256, 256, 256), nearest, per_slice, disp, dtype=bf)
+        assert geo == {"tile_rows": 32, "stages": 3, "grid": geo["grid"], "smem_bytes": 128 + 3 * 16384}
+        assert geo["grid"] % sms == 0 and geo["grid"] < 2048
+    assert hat.hat_geometry((3, 40, 30, 5), dtype=bf) == {"tile_rows": 1632, "stages": 3, "grid": 3,
+                                                          "smem_bytes": 128 + 3 * 16320}
+    geo = hat.hat_geometry((1, 1, 8, 6143), dtype=bf)
+    assert geo == {"tile_rows": 8, "stages": 2, "grid": 1, "smem_bytes": 128 + 2 * 8 * 6143 * 2}
+
+
+def test_hat_pair_geometry_bf16(dev):
+    """K1's bf16 launches: 16 KB tiles per operand (32 rows at S = 256),
+    each buffer whole 16-byte units with room for seven bf16 of lead."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf = torch.bfloat16
+    for nearest_b, disp in ((True, "volume"), (False, "lane")):
+        geo = hat.hat_pair_geometry((4, 256, 256, 256), nearest_b, False, disp, dtype=bf)
+        assert geo == {"tile_rows": 32, "stages": 3, "grid": geo["grid"], "smem_bytes": 128 + 3 * 2 * 8200 * 2}
+        assert geo["grid"] % sms == 0 and geo["grid"] < 4 * 256 * 256 // 32
+    assert hat.hat_pair_geometry((3, 40, 30, 5), dtype=bf) == {"tile_rows": 1638, "stages": 3, "grid": 3,
+                                                               "smem_bytes": 128 + 3 * 2 * 8200 * 2}
+    geo = hat.hat_pair_geometry((1, 1, 8, 6143), dtype=bf)
+    assert geo == {"tile_rows": 1, "stages": 3, "grid": 8, "smem_bytes": 128 + 3 * 2 * 6152 * 2}
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_production_core_card_vs_cpu(dev, reduced):
+    """``synth_core`` at 64^3 in the production mode on the card against the
+    port's production mode on the CPU with the card's parameters and fields:
+    labels within 1e-5 of voxels (phase 11's bar); the image, whose bf16
+    roundings may fall the other way where the card sums in another order,
+    within 2 bf16 ulps of its scale (chip_smoke measured one at 64^3) and a
+    relative L2 of 1e-3. With cuBLAS's reduced-precision bf16 reductions
+    off the GEMMs give bf16 results; with them allowed (``reduced``) the
+    GEMMs write f32 results, so their sums stay f32 all the same. The mode
+    leaves the setting as it was."""
+    from fetalsyngen_torch.parallel.input_pipeline import _production_scopes
+
+    shape = (64, 64, 64)
+    cfg = GeneratorCfg(shape=shape, resolution=(0.5, 0.5, 0.5), intensity=IntensityCfg(
+        1, 6, tuple([0] + list(range(10, 50))), tuple([0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50)))))
+    seeds, seg = phantom_seeds_and_seg(shape, seed=1)
+    seeds = torch.from_numpy(np.stack([seeds, seeds]).astype(np.int32))
+    segs = torch.from_numpy(np.stack([seg, seg]).astype(np.int32))
+    gens = tpipe.make_generators([3, 4], dev)
+    p = sample_params(gens, cfg)
+    f = tpipe.draw_fields(gens, cfg, dev)
+    prior = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    before = dict(hat.LAUNCHES)
+    try:
+        with _production_scopes():
+            out, lab, _ = tpipe.synth_core(p, f, seeds.to(dev), segs.to(dev), cfg)
+            torch.cuda.synchronize()
+            out_c, lab_c, _ = tpipe.synth_core(p.to("cpu"), f.to("cpu"), seeds, segs, cfg)
+        assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction == reduced
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prior
+    assert hat.LAUNCHES["hat_pass_pair_bf16"] - before["hat_pass_pair_bf16"] == 3
+    assert hat.LAUNCHES["hat_pass_pair"] == before["hat_pass_pair"]
+    assert (lab.cpu() != lab_c).sum().item() <= 1e-5 * lab_c.numel()
+    scale = float(out_c.abs().max())
+    d = (out.cpu() - out_c).abs()
+    assert float(d.max()) <= 2 * 2.0**-8 * scale
+    assert float(d.norm() / out_c.norm()) < 1e-3

@@ -232,7 +232,7 @@ def test_port_imports_no_jax():
               "generator.artifacts.draws", "generator.artifacts.transforms", "generator.artifacts.motion",
               "generator.artifacts.psf", "generator.artifacts.quality", "generator.artifacts.scanner",
               "kernels.probes", "probes.timing", "probes.microbench_warp", "probes.probe_blocktp",
-              "probes.profile_kernel_variants", "probes.ring_profile", "io.native",
+              "probes.profile_kernel_variants", "probes.ring_profile", "probes.stream_rate", "io.native",
               "parallel.input_pipeline", "ops.rand", "generator.artifacts.batched", "train.unet", "train.step",
               "train.segmentation", "parallel.sharding"):
         assert f"fetalsyngen_torch.{m}" in mods

@@ -366,10 +366,12 @@ def test_two_gloo_ranks_equal_one_process(tmp_path):
     ill-conditioned (|g| >= 1e-6, all but 0.11% of the weights); each rank's
     sharded generator gives its rows of ``synth_batch`` and its sharded
     artifact generator its rows of ``apply_chain`` on the same seeds and
-    pack, bit for bit."""
+    pack, bit for bit. The ranks run the artifact generator in the f32
+    mode (``FSG_STREAM_BF16=0``): the one-process reference is f32."""
     code = f"import sys; sys.path.insert(0, {str(TESTS)!r}); import test_torch_train as t; " \
            "t._rank_main(int(sys.argv[1]), 2, sys.argv[2])"
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")])}
+    env = {**os.environ, "FSG_STREAM_BF16": "0",
+           "PYTHONPATH": os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")])}
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(tmp_path)], env=env, cwd=REPO,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
     try:
@@ -416,6 +418,30 @@ def test_two_gloo_ranks_equal_one_process(tmp_path):
         assert torch.equal(got["art"][0], chained[r : r + 1])
         assert torch.equal(got["art"][1], core_labels[r : r + 1])
     assert not torch.equal(ranks[0]["art"][0], tstep.normalize_peak(core[:1]))
+
+
+@pytest.mark.parametrize("device, want", [
+    (None, [("set_device", 1), ("init", "nccl")]),
+    ("cpu", [("init", "gloo")]),
+])
+def test_entry_point_binds_the_card_before_the_group(monkeypatch, device, want):
+    """Under ``torchrun`` the entry point binds the process to
+    ``cuda:LOCAL_RANK`` before it creates the NCCL group (a group made first
+    sets its communicator up on cuda:0 in every rank); gloo binds nothing.
+    Both calls are stubs: the group's creation stops the run."""
+    calls = []
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setattr(torch.cuda, "set_device", lambda i: calls.append(("set_device", i)))
+
+    def init(backend, *a, **kw):
+        calls.append(("init", backend))
+        raise RuntimeError("group stub")
+
+    monkeypatch.setattr(segmentation.dist, "init_process_group", init)
+    with pytest.raises(RuntimeError, match="group stub"):
+        segmentation.main(["--steps", "1"] + ([] if device is None else ["--device", device]))
+    assert calls == want
 
 
 def test_sharding_without_a_group():
