@@ -139,6 +139,26 @@ operations over 67 TFLOP/s.
     relative, each gradient within 1e-3 of its leaf's max |g|); the kernels
     of two steps by device time (``torch.profiler``).
 
+14. the seed-preparation path (``fetalsyngen_torch.scripts``) on a copy of
+    ``data/sub-sta21`` (256^3 at 0.5 mm) in a temporary directory:
+    ``resample`` (host seconds; its output at 256^3 with a 0.5 mm diagonal
+    affine); ``generate_seeds --annotation feta --max_subclasses 6`` with
+    its mixtures' EM on the card (wall seconds, each fit's CUDA-event ms and
+    EM iterations per init, the host seconds of the k-means++ picks, peak
+    device memory), its 24 int8 files each within its meta-label's labels,
+    ``subclasses_1`` against the committed tree (meta-labels 2 and 3 equal;
+    1 and 4 differing on exactly segmentation label 4's voxels, which the
+    committed tree puts in the skull class), subclasses 2-6's agreement with
+    the committed (unseeded) fits after ranking components by mean (a
+    report); meta-label 2 at k = 6 from one ``random_state`` on the card
+    against the port's CPU path (the same k-means++ indices and winning
+    init, means within 1e-4 relative, labels differing on at most 1e-4 of
+    the values); ``resize_seeds`` over the tree (voxels and headers
+    unchanged); ``FetalSynthDataset`` from ``synth_train.yaml`` (PyYAML)
+    less its SR artifacts on the fresh tree (3 K1 launches a draw, the image
+    in [0, 1], replay bit-identical); the walkthrough
+    (``fetalsyngen_torch.examples.generator``) at 64^3 on the card.
+
 Phase 3 also holds K1's form without a displacement (the probes'
 ``pair_l_nodisp`` and ``pair_u`` coefficients, and crafted half-integers)
 and K2's lane-affine form (K7's inputs, and a wide table at 256^3) against
@@ -183,6 +203,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -224,6 +245,7 @@ from fetalsyngen_torch.ops.warp import FIELD_LIM, ul_decompose
 from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream, _production_scopes, batch_program, compose_seeds
 from fetalsyngen_torch.probes import microbench_warp, probe_blocktp, profile_kernel_variants, ring_profile
 from fetalsyngen_torch.probes.timing import bound, hat_bound
+from fetalsyngen_torch.scripts import generate_seeds, gmm, resample, resize_seeds
 from fetalsyngen_torch.testing import phantom_seeds_and_seg, run_scanner_ab, scanner_ab_case
 from fetalsyngen_torch.train import step as tstep
 from fetalsyngen_torch.train.unet import UNet3D
@@ -2570,6 +2592,253 @@ def train_phase(dev, t_start):
     return launches["hat_pass_pair"], [result]
 
 
+SEED_MAX_SUBCLASSES = 6  # configs/dataset/generator/default.yaml's max_subclusters
+SEED_STATE = 7  # phase 14's card-against-CPU fit: meta-label 2, k = 6, this random_state
+SEED_K = 6
+SEED_MEAN_RTOL = 1e-4  # |card - CPU| / |CPU| of each component mean
+SEED_LABEL_SHARE = 1e-4  # the share of values whose component differs
+SEED_STEM = "sub-sta21_rec-irtk_T2w_dseg_mlabel_{m}.nii.gz"
+
+
+def _gz_bytes(path) -> bytes:
+    import gzip
+
+    with gzip.open(path, "rb") as f:
+        return f.read()
+
+
+def _rank_agreement(image, ours, theirs) -> float:
+    """The share of voxels labelled in both seed volumes whose components
+    agree once each side's components are ranked by ascending mean
+    intensity."""
+    both = (ours != 0) & (theirs != 0)
+
+    def ranks(lab):
+        on = lab != 0
+        values = lab[on].astype(np.int64)
+        n = np.bincount(values)
+        means = np.bincount(values, weights=image[on]) / np.maximum(n, 1)
+        used = np.flatnonzero(n)
+        lut = np.zeros(n.size, dtype=np.int64)
+        lut[used[np.argsort(means[used], kind="stable")]] = np.arange(used.size)
+        return lut[lab[both].astype(np.int64)]
+
+    return float(np.mean(ranks(ours) == ranks(theirs))) if both.any() else 1.0
+
+
+def timed_fits(fits, picks_s):
+    """``gmm.fit_predict`` with each call's size, k, CUDA events and fit
+    appended to ``fits``, and ``gmm.kmeans_plusplus`` adding its host
+    seconds to ``picks_s``."""
+    plain, plain_picks = gmm.fit_predict, gmm.kmeans_plusplus
+
+    def kmeans_plusplus(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return plain_picks(*a, **kw)
+        finally:
+            picks_s.append(time.perf_counter() - t0)
+
+    def fit_predict(x, k, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fit = plain(x, k, **kw)
+        e1.record()
+        fits.append((int(np.asarray(x).size), k, e0, e1, fit))
+        return fit
+
+    return fit_predict, kmeans_plusplus
+
+
+def seeds_generate(dev, bids: Path, out: Path, image, segm):
+    """Phase 14: ``generate_seeds`` on the card (``--annotation feta
+    --max_subclasses 6``, every fit's CUDA events), then its tree held: 24
+    int8 files, each meta-label's labels in its range, ``subclasses_1``
+    against the committed tree (meta-labels 2 and 3 equal, 1 and 4 differing
+    exactly on segmentation label 4's voxels), and subclasses 2-6's
+    agreement with the committed fits reported (unseeded on both sides)."""
+    fits, picks_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain = gmm.fit_predict, gmm.kmeans_plusplus
+    gmm.fit_predict, gmm.kmeans_plusplus = timed_fits(fits, picks_s)
+    t0 = time.perf_counter()
+    try:
+        generate_seeds.main(["--bids_path", str(bids), "--out_path", str(out), "--max_subclasses",
+                             str(SEED_MAX_SUBCLASSES), "--annotation", "feta", "--workers", "4"])
+        torch.cuda.synchronize()
+    finally:
+        gmm.fit_predict, gmm.kmeans_plusplus = plain
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    # a fit's events span its host k-means++ picks and its EM on the card
+    fit_ms = [a.elapsed_time(b) for _, _, a, b, _ in fits]
+    iters = [f.em.n_iter.tolist() for *_, f in fits]
+    log(json.dumps({"generate_seeds": "sub-sta21 feta, max_subclasses 6, on the card", "wall_s": wall_s,
+                    "fits": len(fits), "fit_ms_median": statistics.median(fit_ms), "fit_ms_max": max(fit_ms),
+                    "fit_ms_sum": sum(fit_ms), "kmeans_plusplus_host_s_sum": sum(picks_s),
+                    "em_iterations_per_init_median": statistics.median(sum(iters, [])),
+                    "em_iterations_per_init_max": max(sum(iters, [])), "peak_mem_bytes": peak,
+                    "per_fit": [{"values": n, "k": k, "ms": ms, "iterations": it, "best": f.best}
+                                for (n, k, *_, f), ms, it in zip(fits, fit_ms, iters)]}))
+    if len(fits) != 4 * (SEED_MAX_SUBCLASSES - 1):
+        raise RuntimeError(f"seeds: expected {4 * (SEED_MAX_SUBCLASSES - 1)} fits, got {len(fits)}")
+    files = sorted(out.rglob("*.nii.gz"))
+    if len(files) != 4 * SEED_MAX_SUBCLASSES:
+        raise RuntimeError(f"seeds: expected {4 * SEED_MAX_SUBCLASSES} files, got {len(files)}")
+    meta = np.zeros(segm.shape, dtype=np.int16)
+    for a, b in generate_seeds.FETA2META.items():
+        meta[segm == a] = b
+    meta[(segm == 0) & (image != 0)] = 4
+    label4 = segm == 4
+    agreement = {}
+    for n in range(1, SEED_MAX_SUBCLASSES + 1):
+        for m in range(1, 5):
+            rel = Path(f"subclasses_{n}") / "sub-sta21" / "anat" / SEED_STEM.format(m=m)
+            # C order, as the volumes it is compared with: masks over mixed memory orders are slow
+            got = np.ascontiguousarray(nifti.load(out / rel).data)
+            values = set(np.flatnonzero(np.bincount(got.ravel().view(np.uint8), minlength=256)).tolist())
+            if got.dtype != np.int8 or not values <= {0, *range(10 * m, 10 * m + n)}:
+                raise RuntimeError(f"seeds: {rel} is {got.dtype} with labels {sorted(values)}")
+            if not np.array_equal((got != 0), meta == m):
+                raise RuntimeError(f"seeds: {rel} does not cover meta-label {m}'s voxels")
+            committed = np.ascontiguousarray(nifti.load(DATA / "derivatives" / "seeds" / rel).data)
+            if n == 1:
+                differ = got != committed
+                want = int(label4.sum()) if m in (1, 4) else 0
+                if int(differ.sum()) != want or (differ & ~label4).any():
+                    raise RuntimeError(f"seeds: {rel} differs from the committed tree on {int(differ.sum())} "
+                                       f"voxels, {int((differ & ~label4).sum())} outside label 4 (want {want}, 0)")
+            else:
+                agreement[f"{n}/{m}"] = _rank_agreement(image, got, committed)
+    log(f"seeds: subclasses_1 against the committed tree: meta-labels 2, 3 equal; 1, 4 differ on exactly the "
+        f"{int(label4.sum())} voxels of segmentation label 4 (the committed tree puts them in the skull class)")
+    log(json.dumps({"seeds_agreement_with_committed_by_mean_rank": agreement}))
+
+
+def seeds_card_vs_cpu(dev, image, segm):
+    """Phase 14: meta-label 2 (labels 2 and 6) with k = 6 and one
+    ``random_state`` on the card and through the port on the CPU: the same
+    k-means++ indices and winning init, each component mean within
+    SEED_MEAN_RTOL, labels differing on at most SEED_LABEL_SHARE of the
+    values."""
+    x = image[(segm == 2) | (segm == 6)]
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    card = gmm.fit_predict(x, SEED_K, random_state=SEED_STATE, device=dev)
+    e1.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cpu = gmm.fit_predict(x, SEED_K, random_state=SEED_STATE, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    means_card, means_cpu = card.em.means[card.best].cpu(), cpu.em.means[cpu.best]
+    rel = float(((means_card - means_cpu).abs() / means_cpu.abs()).max())
+    share = float((card.labels.cpu() != cpu.labels).double().mean())
+    log(f"seeds: meta-label 2 ({x.size} values), k={SEED_K}, random_state={SEED_STATE}: card {e0.elapsed_time(e1):.3f} "
+        f"ms, CPU {cpu_s:.3f} s; indices equal {np.array_equal(card.indices, cpu.indices)}, best {card.best} / "
+        f"{cpu.best}, iterations {card.em.n_iter.tolist()} / {cpu.em.n_iter.tolist()}, means rel diff {rel:.3e} "
+        f"(bar {SEED_MEAN_RTOL}), labels differing {share:.3e} (bar {SEED_LABEL_SHARE})")
+    if (not np.array_equal(card.indices, cpu.indices) or card.best != cpu.best or not rel <= SEED_MEAN_RTOL
+            or not share <= SEED_LABEL_SHARE):
+        raise RuntimeError("seeds: the card's mixture disagrees with the CPU's beyond the bars")
+
+
+def synth_train_dataset(dev, bids: Path, seeds: Path):
+    """``configs/dataset/synth_train.yaml`` through the port's config loader
+    on ``bids`` with ``seed_path`` at ``seeds``, its generator on ``dev``
+    without its four SR artifacts."""
+    from fetalsyngen_torch.config import instantiate, load_yaml, resolve_interpolations
+
+    cfg = resolve_interpolations(load_yaml(REPO / "configs" / "dataset" / "synth_train.yaml"))
+    cfg.update(bids_path=str(bids), seed_path=str(seeds))
+    gen = cfg.pop("generator")
+    for name in ("blur_cortex", "struct_noise", "simulate_motion", "boundaries"):
+        del gen[name]
+    gen["device"] = str(dev)
+    gen["shape"] = gen["spatial_deform"]["size"] = list(SHAPE)  # the YAML's 256^3 at full size
+    return instantiate(cfg, generator=instantiate(gen))
+
+
+def seeds_phase(dev, t_start):
+    """Phase 14: the seed-preparation path on a copy of ``data/sub-sta21``
+    (256^3 at 0.5 mm): ``resample``, ``generate_seeds`` on the card, the card
+    against the CPU, ``resize_seeds``, one draw of the dataset API from the
+    fresh tree and the walkthrough at 64^3. Returns the kernels' launches of
+    the draws."""
+    from fetalsyngen_torch.examples import generator as walkthrough
+
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        bids = tmp / "bids"
+        shutil.copytree(DATA / "sub-sta21", bids / "sub-sta21")
+        t0 = time.perf_counter()
+        resample.main(["--bids_path", str(bids), "--out_path", str(tmp / "resampled"), "--target_size",
+                       *map(str, SHAPE)])
+        resample_s = time.perf_counter() - t0
+        written = sorted((tmp / "resampled").rglob("*.nii.gz"))
+        for f in written:
+            img = nifti.load(f)
+            if img.data.shape != SHAPE or not np.array_equal(img.affine, np.diag([0.5, 0.5, 0.5, 1.0])):
+                raise RuntimeError(f"seeds: resample wrote {f.name} at {img.data.shape}, affine {img.affine}")
+        if len(written) != 2:
+            raise RuntimeError(f"seeds: resample wrote {len(written)} files, not 2")
+        log(f"seeds: resample of sub-sta21 in {resample_s:.2f} s on the host, 2 files at {SHAPE} and 0.5 mm")
+
+        image, segm, _ = generate_seeds.load_subject(
+            bids / "sub-sta21/anat/sub-sta21_rec-irtk_T2w.nii.gz",
+            bids / "sub-sta21/anat/sub-sta21_rec-irtk_T2w_dseg.nii.gz", "feta")
+        seeds = tmp / "seeds"
+        seeds_generate(dev, bids, seeds, image, segm)
+        log(f"phase 14 generate_seeds done at {time.perf_counter() - t_start:.1f} s")
+        seeds_card_vs_cpu(dev, image, segm)
+
+        before = {f: (_gz_bytes(f), nifti.load(f)) for f in sorted(seeds.rglob("*.nii.gz"))}
+        t0 = time.perf_counter()
+        resize_seeds.main([str(seeds)])
+        resize_s = time.perf_counter() - t0
+        for f, (raw, img) in before.items():
+            again = nifti.load(f)
+            if (_gz_bytes(f)[:352] != raw[:352] or again.data.dtype != img.data.dtype
+                    or not np.array_equal(again.data, img.data) or not np.array_equal(again.affine, img.affine)):
+                raise RuntimeError(f"seeds: resize_seeds changed {f.name}")
+        log(f"seeds: resize_seeds over {len(before)} files in {resize_s:.2f} s: voxels and headers unchanged")
+        del before
+
+        ds = synth_train_dataset(dev, bids, seeds)
+        torch.cuda.synchronize()
+        reset_counts()
+        item = ds.sample_with_meta(0)
+        drawn = dict(hat.LAUNCHES)
+        reset_counts()
+        again = ds.sample_with_meta(0, genparams=item["generation_params"])
+        replayed = dict(hat.LAUNCHES)
+        img = item["image"]
+        log(f"seeds: synth_train draw from the fresh tree: launches {drawn}, replay {replayed}, image {img.shape} "
+            f"[{img.min():.6f}, {img.max():.6f}], labels {sorted(np.unique(item['label']).tolist())}")
+        if drawn != counts(hat_pass_pair=3) or replayed != drawn:
+            raise RuntimeError(f"seeds: expected 3 hat_pass_pair launches a draw, got {drawn}, {replayed}")
+        if img.shape != (1, *SHAPE) or not np.isfinite(img).all() or img.min() < 0.0 or img.max() > 1.0:
+            raise RuntimeError(f"seeds: bad image from the fresh tree {img.shape}")
+        if not (np.array_equal(again["image"], img) and np.array_equal(again["label"], item["label"])):
+            raise RuntimeError("seeds: the draw from the fresh tree does not replay bit for bit")
+        launches.update({k: v for k, v in drawn.items() if v})
+        launches.update({k: v for k, v in replayed.items() if v})
+
+        reset_counts()
+        walk = walkthrough.main(["--shape", "64", "--out", str(tmp / "walkthrough")])
+        walked = {k: v for k, v in hat.LAUNCHES.items() if v}
+        for name in ("synth_train", "real_train"):
+            w = walk[name]["image"]
+            if w.shape != (1, 64, 64, 64) or not np.isfinite(w).all() or w.min() < 0.0 or w.max() > 1.0:
+                raise RuntimeError(f"seeds: the walkthrough's {name} image is bad: {w.shape}")
+        if walk["reversed"]["image"].shape != walk["testing"]["image"].shape or not walked.get("hat_pass_pair"):
+            raise RuntimeError(f"seeds: the walkthrough's testing item or launches are wrong ({walked})")
+        log(f"seeds: walkthrough at 64^3 on the card: launches {walked}")
+        launches.update(walked)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU")
@@ -2637,6 +2906,10 @@ def main() -> int:
     launches["train:hat_pass_pair"], train_checks = train_phase(dev, t_start)
     checks += train_checks
     log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t13:.1f} s)")
+    t14 = time.perf_counter()
+    for k, v in seeds_phase(dev, t_start).items():
+        launches[k] += v
+    log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t14:.1f} s)")
     missing = [k for k in KERNELS if not launches.get(k)]
     if missing:
         raise RuntimeError(f"kernel forms never launched on the main paths: {missing}")

@@ -83,6 +83,16 @@ def get_lib():
             ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_float),
         ]
+        lib.nifti_save_batch.restype = ctypes.c_int
+        lib.nifti_save_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p),
+            ctypes.POINTER(ctypes.c_char_p),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_char_p),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int,
+            ctypes.c_int,
+        ]
         _lib = lib
         return _lib
 
@@ -132,3 +142,25 @@ def load_labels_batch(paths: list[str], shape: tuple[int, int, int]):
         return None
     # NIfTI voxels are Fortran-ordered: zero-copy Fortran views per volume
     return [out[i].reshape(shape, order="F") for i in range(n)]
+
+
+def save_gz_batch(paths: list[str], headers: list[bytes], datas: list[np.ndarray],
+                  level: int = 6) -> bool:
+    """Concurrently gzip-write a batch of NIfTI files (header bytes +
+    Fortran-ordered voxel payload per file). Returns False if the native
+    path is unavailable or any write failed (callers fall back to the
+    Python writer)."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    n = len(paths)
+    datas = [np.asfortranarray(d) for d in datas]
+    path_arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+    hdr_arr = (ctypes.c_char_p * n)(*headers)
+    hsz = (ctypes.c_int64 * n)(*[len(h) for h in headers])
+    data_ptrs = (ctypes.c_char_p * n)(
+        *[ctypes.cast(d.ctypes.data, ctypes.c_char_p) for d in datas]
+    )
+    dsz = (ctypes.c_int64 * n)(*[d.nbytes for d in datas])
+    rc = lib.nifti_save_batch(path_arr, hdr_arr, hsz, data_ptrs, dsz, n, level)
+    return rc == 0

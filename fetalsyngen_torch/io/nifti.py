@@ -201,6 +201,36 @@ def save(path: str | Path, data: np.ndarray, affine: np.ndarray | None = None) -
             f.write(payload)
 
 
+def save_batch(
+    paths: list, datas: list, affines: list | None = None, level: int = 1
+) -> None:
+    """Write many ``.nii.gz`` volumes concurrently via the native
+    zlib/pthreads writer (``io/native``); falls back to sequential
+    :func:`save` when the native library is unavailable (``native.build_error()``
+    says why) or any path is a plain ``.nii``. The batch-export counterpart of
+    the batch loader: ``scripts/resample.py``, ``resize_seeds.py`` and
+    ``generate_seeds.py`` write whole cohorts."""
+    from . import native
+
+    affines = affines if affines is not None else [None] * len(paths)
+    spaths = [str(p) for p in paths]
+    if all(p.endswith(".gz") for p in spaths) and native.available():
+        prepped = [_prep_save(d, a) for d, a in zip(datas, affines)]
+        CH = 16  # thread per file, chunked
+        ok = True
+        for i in range(0, len(spaths), CH):
+            ok = ok and native.save_gz_batch(
+                spaths[i : i + CH],
+                [h for _, h in prepped[i : i + CH]],
+                [d for d, _ in prepped[i : i + CH]],
+                level=level,
+            )
+        if ok:
+            return
+    for p, d, a in zip(spaths, datas, affines):
+        save(p, d, a)
+
+
 def io_orientation(affine: np.ndarray) -> np.ndarray:
     """nibabel-compatible orientation of an affine.
 

@@ -1056,3 +1056,67 @@ def test_production_core_card_vs_cpu(dev, reduced):
     d = (out.cpu() - out_c).abs()
     assert float(d.max()) <= 2 * 2.0**-8 * scale
     assert float(d.norm() / out_c.norm()) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the seed-preparation path: the mixture's EM on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [2, 6, 10])
+def test_gmm_card_matches_cpu(dev, k):
+    """Meta-label 2 of ``data/sub-sta21`` (labels 2 and 6, 179,621 values)
+    fitted on the card and through the port on the CPU from one
+    ``random_state``: the same k-means++ indices and winning init, each
+    component mean within 1e-4 relative, labels differing on at
+    most 1e-4 of the values (chip_smoke phase 14's bars)."""
+    from pathlib import Path
+
+    from fetalsyngen_torch.scripts import generate_seeds, gmm
+
+    anat = Path(__file__).resolve().parent.parent / "data" / "sub-sta21" / "anat"
+    image, segm, _ = generate_seeds.load_subject(
+        anat / "sub-sta21_rec-irtk_T2w.nii.gz", anat / "sub-sta21_rec-irtk_T2w_dseg.nii.gz", "feta")
+    x = image[(segm == 2) | (segm == 6)]
+    card = gmm.fit_predict(x, k, random_state=11, device=dev)
+    cpu = gmm.fit_predict(x, k, random_state=11, device="cpu")
+    assert card.labels.device.type == "cuda" and card.em.means.device.type == "cuda"
+    np.testing.assert_array_equal(card.indices, cpu.indices)
+    assert card.best == cpu.best
+    torch.testing.assert_close(card.em.means[card.best].cpu(), cpu.em.means[cpu.best], rtol=1e-4, atol=0)
+    assert float((card.labels.cpu() != cpu.labels).double().mean()) <= 1e-4
+
+
+def test_generate_seeds_on_the_card(dev, tmp_path):
+    """``generate_seeds`` on the card over a ``build_bids_tree`` tree (two
+    subjects, 64^3) against ``--device cpu``, both from numpy's global
+    ``RandomState`` seeded alike: the same files, int8, ``subclasses_1``
+    identical, the fitted seeds differing on at most 1e-4 of each file's
+    labelled voxels."""
+    import shutil
+
+    from fetalsyngen_torch.io import nifti
+    from fetalsyngen_torch.scripts import generate_seeds
+    from fetalsyngen_torch.testing import build_bids_tree
+
+    bids = build_bids_tree(tmp_path / "bids", shape=(64, 64, 64))
+    shutil.rmtree(bids / "derivatives")
+    trees = {}
+    for device in ("cuda", "cpu"):
+        np.random.seed(3)
+        trees[device] = tmp_path / device
+        generate_seeds.main(["--bids_path", str(bids), "--out_path", str(trees[device]), "--max_subclasses", "3",
+                             "--annotation", "feta", "--device", device])
+    files = sorted(p.relative_to(trees["cuda"]) for p in trees["cuda"].rglob("*.nii.gz"))
+    assert files == sorted(p.relative_to(trees["cpu"]) for p in trees["cpu"].rglob("*.nii.gz"))
+    assert len(files) == 2 * 3 * 4
+    for rel in files:
+        a, b = nifti.load(trees["cuda"] / rel), nifti.load(trees["cpu"] / rel)
+        assert a.data.dtype == b.data.dtype == np.int8
+        np.testing.assert_array_equal(a.affine, b.affine)
+        region = b.data != 0
+        np.testing.assert_array_equal(a.data != 0, region)
+        if rel.parts[0] == "subclasses_1":
+            np.testing.assert_array_equal(a.data, b.data)
+        else:
+            assert np.mean(a.data[region] != b.data[region]) <= 1e-4

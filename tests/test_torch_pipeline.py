@@ -221,8 +221,8 @@ def test_off_slice_configs_raise(volumes):
 
 def test_port_imports_no_jax():
     """Every port module and ``chip_smoke.py`` import neither JAX nor the JAX
-    package, and import without PyYAML; with all three blocked, a tiny
-    stream with the four SR artifacts runs on the CPU."""
+    package nor scikit-learn, and import without PyYAML; with all of them
+    blocked, a tiny stream with the four SR artifacts runs on the CPU."""
     mods = [
         m.name
         for m in pkgutil.walk_packages(fetalsyngen_torch.__path__, "fetalsyngen_torch.")
@@ -234,13 +234,14 @@ def test_port_imports_no_jax():
               "kernels.probes", "probes.timing", "probes.microbench_warp", "probes.probe_blocktp",
               "probes.profile_kernel_variants", "probes.ring_profile", "probes.stream_rate", "io.native",
               "parallel.input_pipeline", "ops.rand", "generator.artifacts.batched", "train.unet", "train.step",
-              "train.segmentation", "parallel.sharding"):
+              "train.segmentation", "parallel.sharding", "scripts.gmm", "scripts.generate_seeds",
+              "scripts.resample", "scripts.resize_seeds", "examples.generator"):
         assert f"fetalsyngen_torch.{m}" in mods
     # PyYAML is blocked too: only ``config.load_yaml`` may need it. The
     # recorded trajectories are the port's own file.
     code = (
         "import importlib, sys, tempfile\n"
-        "for m in ('yaml', 'jax', 'jaxlib', 'fetalsyngen_tpu'): sys.modules[m] = None\n"
+        "for m in ('yaml', 'jax', 'jaxlib', 'fetalsyngen_tpu', 'sklearn'): sys.modules[m] = None\n"
         f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
         "from fetalsyngen_torch.generator.artifacts import motion\n"
         "assert 'fetalsyngen_torch' in motion._TRAJ_PATH and motion.get_trajectory()['dT'] > 0\n"
@@ -269,7 +270,7 @@ def test_port_imports_no_jax():
         "b = next(iter(SyntheticStream(ds, batch_size=1, seed=2, prefetch=False)))\n"
         "assert b['image'].shape == (1, *S) and bool(torch.isfinite(b['image']).all())\n"
         "assert b['meta']['pack']['motion_on'].all()\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'fetalsyngen_tpu') "
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'fetalsyngen_tpu', 'sklearn') "
         "and sys.modules[k] is not None)\n"
         "assert not bad, bad[:5]\n"
     )
