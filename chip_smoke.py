@@ -588,7 +588,7 @@ def compare(key, name, run, plain, bnd, lib=None, n=20, note=""):
     bound_ms, bound_by = bnd
     lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     fenced_ms = ring_profile.one_ms(run, True)
-    fence_txt = (f" (fenced {fenced_ms:.4f} ms, {100 * bnd[0] / fenced_ms:.1f}% of bound, host wait "
+    fence_txt = (f" (fenced {fenced_ms:.4f} ms, {100 * bnd[0] / fenced_ms:.1f}% of bound {bnd[0]:.4f} ms, host wait "
                  f"{1e3 * (ms - fenced_ms):.1f} us)")
     log(f"kernel {key} {name}: max|kernel-plain|={err:.3e} elements differing={differ} kernel {ms:.4f} ms"
         f"{fence_txt} plain {plain_ms:.4f} ms library {lib_txt} bound {bound_ms:.4f} ms ({bound_by}){note}")

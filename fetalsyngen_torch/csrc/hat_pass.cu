@@ -48,6 +48,9 @@
 //   S = 3630; one-row tiles fit up to S of about 14,500.
 // Per tile, each operand's lead (its first float's offset from a 16-byte
 // boundary) places it in its buffer; the ring's buffers have room for it.
+// The bf16 lane-affine pair runs hat_lanes_kernel (hat_common.cuh) on the
+// same loose ring: a thread keeps eight lanes across rows, and the two
+// operands share each lane's position, weights and tap address.
 
 #include "hat_common.cuh"
 
@@ -65,8 +68,13 @@ cudaError_t pair_run(const T* xa, const T* xb, const float* disp, const float* c
                                                                  launch, st, g);
   }
   if (!nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispLaneAffine) {
-    return hat_ring_run<T, 2, false, kCoefPerSample, kDispLaneAffine>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S,
-                                                                      OW, launch, st, g);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      return hat_lanes_run<2, kCoefPerSample, kDispLaneAffine>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW,
+                                                               launch, st, g);
+    } else {
+      return hat_ring_run<T, 2, false, kCoefPerSample, kDispLaneAffine>(xa, xb, disp, coefs, oa, ob, nrows, R, H, S,
+                                                                        OW, launch, st, g);
+    }
   }
   if constexpr (std::is_same_v<T, float>) {
     if (nearest_b && coef_mode == kCoefPerSample && disp_mode == kDispNone) {

@@ -36,7 +36,11 @@
 // the lane-affine table are read with 16-byte __ldg, not staged. K2's tiles
 // are whole 16-byte units (4 / gcd(S, 4) rows, x on 16 bytes: the wrapper
 // copies an x that is not), so at S = 6143 two stages of its 4-row tiles
-// (197 KB) fit where three do not.
+// (197 KB) fit where three do not. The bf16 lane-affine and per-slice forms
+// run hat_lanes_kernel (hat_common.cuh): a thread keeps eight lanes across
+// the rows of its tiles, their terms in registers, and the taps' index comes
+// from one rounding add; 4 bytes an element leave too few instructions for
+// the ring kernel's per-group work.
 
 // The second kernel, hat_variant_kernel, replaces the TPU cost probe
 // scripts/profile_kernel_variants.py::make_kernel (K7): the hat kernel's
@@ -98,19 +102,31 @@ cudaError_t run(const T* x, const float* disp, const float* coefs, T* out, long 
 
 // K2's instantiated forms of element type T: cudaErrorInvalidValue for
 // another one. f32: every form; bf16 (the production mode's): the linear
-// lane-affine and per-slice forms and the per-sample forms without a
-// displacement (the affine warp without the nonlinear field).
+// lane-affine and per-slice forms (the lanes kernel, hat_common.cuh) and the
+// per-sample forms without a displacement (the affine warp without the
+// nonlinear field).
 template <typename T>
 cudaError_t hat_run(const T* x, const float* disp, const float* coefs, T* out, long long nrows, int R, int H, int S,
                     int nearest, int coef_mode, int disp_mode, bool launch, cudaStream_t st, Geometry* g) {
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   if (coef_mode == kCoefPerSlice) {
     if (nearest || disp_mode != kDispNone) return cudaErrorInvalidValue;
-    return run<T, false, kCoefPerSlice, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+    if constexpr (kBf16) {
+      return hat_lanes_run<1, kCoefPerSlice, kDispNone>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S, S,
+                                                        launch, st, g);
+    } else {
+      return run<T, false, kCoefPerSlice, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+    }
   }
   if (coef_mode != kCoefPerSample) return cudaErrorInvalidValue;
   if (disp_mode == kDispLaneAffine) {
     if (nearest) return cudaErrorInvalidValue;
-    return run<T, false, kCoefPerSample, kDispLaneAffine>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+    if constexpr (kBf16) {
+      return hat_lanes_run<1, kCoefPerSample, kDispLaneAffine>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S,
+                                                               S, launch, st, g);
+    } else {
+      return run<T, false, kCoefPerSample, kDispLaneAffine>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+    }
   }
   if (disp_mode == kDispNone) {
     if (nearest) return run<T, true, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);

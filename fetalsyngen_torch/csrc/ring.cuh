@@ -13,7 +13,9 @@
 // where three do not fit) in shared memory with TMA bulk copies
 // (cp.async.bulk, one mbarrier per buffer counts the bytes in) while every
 // thread computes on the current buffer; the __syncthreads() that ends a
-// tile frees its buffer for the next draw.
+// tile frees its buffer for the next draw (ring_walk). ring_walk_producer
+// walks the same ring with a producer warp and a second mbarrier per buffer
+// that the computing warps arrive on, for a kernel of one block per SM.
 // Drawing balances the blocks: with a fixed grid-stride share each, the
 // card's slowest blocks ran on alone at the end of a launch. A bulk copy
 // moves whole 16-byte units between 16-byte boundaries, so a tile lies in
@@ -46,13 +48,15 @@ namespace {
 constexpr int kRingThreads = 512;  // threads of a ring block
 constexpr int kSmemMax = 232448;   // the dynamic shared memory a block may opt into on sm_90
 constexpr int kRingHeader = 128;   // the ring's mbarriers and tile numbers, ahead of its buffers
+constexpr int kRingConsumers = kRingThreads - 32;  // the threads that compute in ring_walk_producer
 
 __device__ __forceinline__ uint32_t shared_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_addr(bar)), "r"(1u) : "memory");
+// `bar` completes a phase on `count` arrivals (and the bytes they expect)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_addr(bar)), "r"(count) : "memory");
 }
 
 // Arrive on `bar` (a release: this thread's earlier shared-memory writes are
@@ -233,6 +237,76 @@ __device__ __forceinline__ void ring_walk(const Ring<kOps, T>& ring, TileCounter
   }
 }
 
+// Arrive on `bar` (a release of this thread's earlier shared-memory reads and
+// writes).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(shared_addr(bar)) : "memory");
+}
+
+// The walk of ring_walk with a producer warp: of a block's kRingThreads
+// threads, the last warp's first thread (the producer) draws tiles (its
+// first `stages` in one atomic) and fills the buffers; the other warps
+// (kRingConsumers threads) run body(t, s) on each tile in turn and release
+// its buffer on the buffer's `empty` mbarrier, one arrival per warp; the
+// producer draws and refills a buffer once every consumer warp has released
+// it. No barrier spans the block: a warp waits for its tile's bytes alone,
+// up to `stages` tiles ahead of the slowest warp, and the draw's round trip
+// to L2 and the fills stay off the consumers' path. The header holds the
+// full mbarriers of up to four stages in slots 0-3 and their empty ones in
+// 4-7 (plan() gives at most three).
+template <int kOps, typename T, typename Body>
+__device__ __forceinline__ void ring_walk_producer(const Ring<kOps, T>& ring, TileCounter* counter, Body&& body) {
+  constexpr int kConsumerWarps = kRingConsumers / 32;
+  RingClock clock;
+  clock.start();
+  const auto empty = [&](int s) { return ring.bar(s) + 4; };  // the header's mbarrier slots 4-7
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ring.stages; ++s) {
+      mbar_init(ring.bar(s));
+      mbar_init(empty(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == kRingConsumers) {  // the producer
+    const unsigned long long first = atomicAdd(&counter->next, static_cast<unsigned long long>(ring.stages));
+    long long filled = 0;
+    for (int s = 0; s < ring.stages && filled < ring.ntiles; ++s) {
+      filled = static_cast<long long>(first + s);
+      ring.fill(filled, s);
+    }
+    for (int k = ring.stages; filled < ring.ntiles; ++k) {
+      const int s = k % ring.stages;
+      mbar_wait(empty(s), static_cast<uint32_t>((k / ring.stages - 1) & 1));
+      filled = static_cast<long long>(atomicAdd(&counter->next, 1ull));
+      ring.fill(filled, s);
+    }
+    __threadfence();  // this block's draws before its count
+    if (atomicAdd(&counter->done, 1u) == gridDim.x - 1) {
+      counter->next = 0;
+      counter->done = 0;
+    }
+  } else if (threadIdx.x < kRingConsumers) {  // the consumers
+    int s = 0;
+    uint32_t parity = 0;
+    while (true) {
+      clock.wait_begin();
+      mbar_wait(ring.bar(s), parity);
+      clock.wait_end();
+      const long long t = *ring.tile(s);
+      if (t >= ring.ntiles) break;
+      body(t, s);
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(empty(s));
+      if (++s == ring.stages) {
+        s = 0;
+        parity ^= 1u;
+      }
+    }
+  }
+  clock.end();
+}
+
 // out[l + k] = v[k] for the lanes l + k < S: one 16-byte store, streaming
 // past the caches, where all four lie in the row on a 16-byte boundary, else
 // lane by lane
@@ -326,39 +400,59 @@ cudaError_t tile_counter(int dev, cudaStream_t st, TileCounter** counter) {
   return e;
 }
 
+// Rows of a tile of about `target` bytes of S lanes of `esize`-byte
+// elements: a multiple of lcm(unit, step) where one fits, else of unit (at
+// least one unit).
+int tile_rows_for(int target, int esize, int S, int unit, int step) {
+  const int fit = target / (esize * S);
+  int both = unit;
+  while (both % step) both += unit;
+  if (fit >= both) return fit / both * both;
+  return fit >= unit ? fit / unit * unit : unit;
+}
+
 // The launch of a kernel on nrows rows of S lanes of `ops` operands of
 // `esize`-byte elements (4: f32, 2: bf16): tiles of as many rows as fit
 // `target` bytes per operand, in units of V / gcd(S, V) rows (whole 16-byte
-// units, V = 16 / esize), or of one row for a `loose` ring. No ring (`fn`
-// null): one tile per block, placed by the card's block scheduler. The ring
-// kernel `fn`: three stages, two where three do not fit kSmemMax, and as
-// many blocks as fit the card (at most one per tile).
+// units, V = 16 / esize), or of one row for a `loose` ring, and a multiple
+// of `step` rows (the rows a block computes at once) where that fits. No
+// ring (`fn` null): one tile per block, placed by the card's block
+// scheduler. The ring kernel `fn`: three stages, two where three do not fit
+// kSmemMax, and as many blocks as fit the card (at most one per tile). With
+// `min_tiles`, a pass of fewer than min_tiles tiles per resident block takes
+// tiles of half the bytes, down to `step` rows, so that a block's ring
+// stages overlap.
 cudaError_t plan(const void* fn, int dev, int ops, long long nrows, int S, int target, Geometry* g,
-                 bool loose = false, int esize = 4) {
-  if (nrows < 1 || S < 1 || (esize != 2 && esize != 4)) return cudaErrorInvalidValue;
+                 bool loose = false, int esize = 4, int step = 1, int min_tiles = 0) {
+  if (nrows < 1 || S < 1 || step < 1 || (esize != 2 && esize != 4)) return cudaErrorInvalidValue;
   const int vec = 16 / esize;
   int common = vec;  // gcd(S, vec), vec a power of two
   while (S % common) common /= 2;
   const int unit = loose ? 1 : vec / common;
-  g->tile_rows = target / (esize * S) / unit * unit;
-  if (g->tile_rows < unit) g->tile_rows = unit;
-  const long long ntiles = (nrows + g->tile_rows - 1) / g->tile_rows;
-  g->stages = 0;
-  g->smem = 0;
-  if (fn == nullptr) {
-    if (ntiles > 0x7fffffff) return cudaErrorInvalidValue;
-    g->grid = static_cast<int>(ntiles);
-    return cudaSuccess;
+  while (true) {
+    g->tile_rows = tile_rows_for(target, esize, S, unit, step);
+    const long long ntiles = (nrows + g->tile_rows - 1) / g->tile_rows;
+    g->stages = 0;
+    g->smem = 0;
+    if (fn == nullptr) {
+      if (ntiles > 0x7fffffff) return cudaErrorInvalidValue;
+      g->grid = static_cast<int>(ntiles);
+      return cudaSuccess;
+    }
+    const long long stage = static_cast<long long>(ops) * ring_pitch(g->tile_rows * S, loose, vec) * esize;
+    g->stages = kRingHeader + 3 * stage <= kSmemMax ? 3 : 2;
+    if (kRingHeader + g->stages * stage > kSmemMax) return cudaErrorInvalidValue;
+    g->smem = static_cast<int>(kRingHeader + g->stages * stage);
+    int blocks = 0;
+    const cudaError_t e = card_blocks(fn, dev, g->smem, &blocks);
+    if (e != cudaSuccess) return e;
+    g->grid = static_cast<int>(ntiles < blocks ? ntiles : blocks);
+    const int smaller = tile_rows_for(target / 2, esize, S, unit, step);
+    if (ntiles >= static_cast<long long>(min_tiles) * blocks || smaller >= g->tile_rows || smaller < step) {
+      return cudaSuccess;
+    }
+    target /= 2;
   }
-  const long long stage = static_cast<long long>(ops) * ring_pitch(g->tile_rows * S, loose, vec) * esize;
-  g->stages = kRingHeader + 3 * stage <= kSmemMax ? 3 : 2;
-  if (kRingHeader + g->stages * stage > kSmemMax) return cudaErrorInvalidValue;
-  g->smem = static_cast<int>(kRingHeader + g->stages * stage);
-  int blocks = 0;
-  const cudaError_t e = card_blocks(fn, dev, g->smem, &blocks);
-  if (e != cudaSuccess) return e;
-  g->grid = static_cast<int>(ntiles < blocks ? ntiles : blocks);
-  return cudaSuccess;
 }
 
 }  // namespace

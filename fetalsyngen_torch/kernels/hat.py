@@ -35,6 +35,9 @@ semantics). The bf16 kernels are instantiated for the forms the production
 mode launches: K1's main-path form and its lane-affine pair; K2's
 lane-affine and per-slice forms and its per-sample forms without a
 displacement (the affine warp of a generator without the nonlinear field).
+The linear lane-affine and per-slice bf16 forms run a kernel of their own
+(``hat_lanes_kernel`` in ``csrc/hat_common.cuh``, a thread keeping its lanes
+across rows), the others the ring kernel both dtypes share.
 
 :func:`hat_pass_pair_ref` and :func:`hat_pass_ref` are the plain versions the
 kernels are held against; they take every combination. The wrappers take the

@@ -39,6 +39,14 @@ wrappers' public names, so it times another checkout's kernels when run as
 a file with that checkout first on the path:
 ``PYTHONPATH=<checkout> python <this file> --wrappers``.
 
+``--bf16`` runs both parts for the bf16 forms alone (the stream's
+production mode, :data:`BF16_FORMS`): K2's lane-affine form on the
+extraction's (cube, cube, cube), the recon value's (cube, cube, 128) and
+the pooled weight's 128^3, its per-slice form on (96, cube, cube), K1's
+lane-affine pair on (cube, cube, 128), cubes 256 to 640; K1's main form and
+K2's per-sample forms at B=4 256^3. It too times another checkout's kernels
+from that checkout's sources when run as a file with it first on the path.
+
 Needs a CUDA device and ``nvcc``.
 """
 
@@ -90,6 +98,21 @@ K1_FORMS = (
     ("per-slice cube 640", False, "slice", None, (1, 128, 640, 640)),
 )
 K1_RING_FORMS = tuple(f for f in K1_FORMS if f[0] == "main B=4 256^3" or f[0].endswith("cube 384"))
+CUBES = (256, 384, 512, 640)  # the stream's motion engines' cubes
+# the bf16 forms at the stream's shapes: (name, pair, nearest (second)
+# operand, coefficient kind, disp kind, shape); "scanner": the scanner's unit
+# coefficients with a lane-affine table of its magnitudes (row slopes up to
+# 0.02 lanes, shifts up to 3 lanes); inputs from :func:`bf16_inputs`
+BF16_FORMS = (
+    *((f"K2 lane bf16 extraction cube {c}", False, False, "sample", "scanner", (1, c, c, c)) for c in CUBES),
+    *((f"K2 lane bf16 recon value cube {c}", False, False, "sample", "scanner", (1, c, c, 128)) for c in CUBES),
+    ("K2 lane bf16 pooled weight 128^3", False, False, "sample", "scanner", (1, 128, 128, 128)),
+    *((f"K2 slice bf16 cube {c}", False, False, "slice", None, (1, 96, c, c)) for c in CUBES),
+    *((f"K1 lane pair bf16 cube {c}", True, False, "sample", "scanner", (1, c, c, 128)) for c in CUBES),
+    ("K1 main bf16 B=4 256^3", True, True, "sample", "volume", (4, 256, 256, 256)),
+    ("K2 per-sample bf16 linear B=4 256^3", False, False, "sample", None, (4, 256, 256, 256)),
+    ("K2 per-sample bf16 nearest B=4 256^3", False, True, "sample", None, (4, 256, 256, 256)),
+)
 
 
 def _profile_build(stem: str) -> ctypes.CDLL:
@@ -131,30 +154,34 @@ def _probe_launcher(lib, kernel, mode, xa, xb, oa, ob):
 
 
 def _hat_launcher(lib, x, coefs, disp, nearest, out):
-    """A call of the profiling build's K2 entry point on the current stream,
-    raising on a launch error; and the launch's grid."""
+    """A call of the profiling build's K2 entry point for ``x``'s dtype (f32
+    or bf16) on the current stream, raising on a launch error; and the
+    launch's grid."""
     B, D, H, S = x.shape
     coef_mode = int(coefs.dim() == 3)
     disp_mode = 0 if disp is None else (2 if disp.dim() == 3 else 1)
-    fn = lib.fsg_hat_pass_f32
+    bf16 = x.dtype == torch.bfloat16
+    fn = lib.fsg_hat_pass_bf16 if bf16 else lib.fsg_hat_pass_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     args = (x.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(), out.data_ptr(), B, D * H,
             H, S, int(nearest), coef_mode, disp_mode, torch.cuda.current_stream(x.device).cuda_stream)
     geo = lib.fsg_hat_geometry
     geo.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     g = (ctypes.c_int * 4)()
-    if geo(B, D * H, S, int(nearest), coef_mode, disp_mode, 0, g):
+    if geo(B, D * H, S, int(nearest), coef_mode, disp_mode, int(bf16), g):
         raise RuntimeError("fsg_hat_geometry failed")
     return _checked(fn, args, "K2"), g[2]
 
 
 def _pair_launcher(lib, xa, xb, coefs, disp, nearest_b, oa, ob):
-    """A call of the profiling build's K1 entry point on the current stream,
-    raising on a launch error; and the launch's grid."""
+    """A call of the profiling build's K1 entry point for the operands' dtype
+    on the current stream, raising on a launch error; and the launch's
+    grid."""
     B, D, H, S = xa.shape
     coef_mode = int(coefs.dim() == 3)
     disp_mode = 0 if disp is None else (2 if disp.dim() == 3 else 1)
-    fn = lib.fsg_hat_pass_pair_f32
+    bf16 = xa.dtype == torch.bfloat16
+    fn = lib.fsg_hat_pass_pair_bf16 if bf16 else lib.fsg_hat_pass_pair_f32
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     args = (xa.data_ptr(), xb.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(),
             oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, oa.shape[-1], int(nearest_b), coef_mode, disp_mode,
@@ -162,7 +189,7 @@ def _pair_launcher(lib, xa, xb, coefs, disp, nearest_b, oa, ob):
     geo = lib.fsg_hat_pair_geometry
     geo.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     g = (ctypes.c_int * 4)()
-    if geo(B, D * H, S, int(nearest_b), coef_mode, disp_mode, 0, g):
+    if geo(B, D * H, S, int(nearest_b), coef_mode, disp_mode, int(bf16), g):
         raise RuntimeError("fsg_hat_pair_geometry failed")
     return _checked(fn, args, "K1"), g[2]
 
@@ -310,6 +337,84 @@ def k1_inputs(form, dev, g):
     return xa, xb, coefs, disp, nearest_b, timing.hat_bound(True, b, d, h, s, s, disp, nearest_b)[0]
 
 
+def bf16_inputs(form, dev, g):
+    """(xa, xb or None, coefs, disp, nearest, bound ms) of a
+    :data:`BF16_FORMS` entry: bf16 rows in [0, 100) (labels in 0..49 where
+    nearest); the scanner's unit coefficients and a table of its
+    magnitudes, per-slice coefficients, or a shear row with or without a
+    field displacement."""
+    _, pair, nearest, coef, disp_kind, (b, d, h, s) = form
+    bf = torch.bfloat16
+    xa = (torch.rand((b, d, h, s), generator=g, device=dev) * 100.0).to(bf)
+    xb = None
+    if pair:
+        xb = torch.rand((b, d, h, s), generator=g, device=dev) * 100.0
+        xb = (torch.floor(xb * 0.5) if nearest else xb).to(bf)
+    elif nearest:
+        xa = torch.floor(xa.float() * 0.5).to(bf)
+    if coef == "slice":
+        u = torch.rand((b, d, 4), generator=g, device=dev) - 0.5
+        coefs = torch.stack([u[..., 0] * 0, u[..., 1] * 0.1, 1.0 + u[..., 2] * 0.04, u[..., 3] * 6.0], -1)
+    elif disp_kind == "scanner":
+        coefs = torch.tensor([[0.0, 0.0, 1.0, 0.0]], device=dev).expand(b, 4)
+    else:
+        coefs = torch.tensor([[0.05, -0.04, 1.02, -3.1]], device=dev).expand(b, 4)
+    coefs = coefs.contiguous()
+    disp = None
+    if disp_kind == "volume":
+        disp = (torch.rand((b, d, h, s), generator=g, device=dev) * 2 - 1) * FIELD_LIM
+    elif disp_kind == "scanner":
+        disp = (torch.rand((b, 3, s), generator=g, device=dev) * 2 - 1) * torch.tensor([[[0.02], [0.02], [3.0]]],
+                                                                                       device=dev)
+    bnd = timing.hat_bound(pair, b, d, h, s, s, disp, nearest, esize=2)[0]
+    return xa, xb, coefs, disp, nearest, bnd
+
+
+def _bf16_calls(form, dev, g):
+    """The inputs of a :data:`BF16_FORMS` entry, its wrapper's call and its
+    plain version's."""
+    xa, xb, coefs, disp, nearest, bnd = bf16_inputs(form, dev, g)
+    if xb is None:
+        return (xa, xb, coefs, disp, nearest, bnd), lambda: hat.hat_pass(xa, coefs, disp, nearest), \
+            lambda: hat.hat_pass_ref(xa, coefs, disp, nearest)
+    return (xa, xb, coefs, disp, nearest, bnd), lambda: hat.hat_pass_pair(xa, xb, coefs, disp, nearest), \
+        lambda: hat.hat_pass_pair_ref(xa, xb, coefs, disp, nearest)
+
+
+def bf16_forms(dev):
+    """``--bf16``: each :data:`BF16_FORMS` entry's ring records from the
+    profiling build (part 1), then its wrapper's times beside one ``clone``
+    per operand (part 2); each checked bit for bit against its plain version
+    first."""
+    libs = {stem: _profile_build(stem) for stem in ("hat_single", "hat_pass")}
+    g = torch.Generator(device=dev).manual_seed(51)
+    for form in BF16_FORMS:
+        (xa, xb, coefs, disp, nearest, bnd), run, plain = _bf16_calls(form, dev, g)
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        if xb is None:
+            outs = (torch.empty_like(xa),)
+            call, grid = _hat_launcher(libs["hat_single"], xa, coefs, disp, nearest, outs[0])
+        else:
+            outs = (torch.empty_like(xa), torch.empty_like(xb))
+            call, grid = _pair_launcher(libs["hat_pass"], xa, xb, coefs, disp, nearest, *outs)
+        call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(k.view(torch.int16), r.view(torch.int16)) for k, r in zip(outs, want)):
+            raise RuntimeError(f"{form[0]}: the profiling build differs from plain")
+        got = run()
+        got = got if isinstance(got, tuple) else (got,)
+        if not all(torch.equal(k.view(torch.int16), r.view(torch.int16)) for k, r in zip(got, want)):
+            raise RuntimeError(f"{form[0]}: kernel differs from plain")
+        del want, got
+        _ring_line(libs["hat_pass" if xb is not None else "hat_single"], form[0], call, grid, dev)
+        del outs
+        _wrapper_line(form[0], run, dev, bnd)
+        ops = (xa,) if xb is None else (xa, xb)
+        _wrapper_line(f"  clone x{len(ops)}", lambda: [torch.clone(v) for v in ops], dev)
+        del xa, xb, coefs, disp, ops, run, plain
+
+
 def wrappers(dev):
     """Part 2 for K1's and K2's forms, K5 and K7, through the public
     wrappers alone."""
@@ -392,8 +497,12 @@ def rings(dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--wrappers", action="store_true", help="only K1's, K2's, K5's and K7's wrappers, part 2")
+    ap.add_argument("--bf16", action="store_true", help="only the bf16 forms at the stream's shapes, both parts")
     args = ap.parse_args(argv)
     dev = timing.start("cuda")
+    if args.bf16:
+        bf16_forms(dev)
+        return
     if args.wrappers:
         wrappers(dev)
         return

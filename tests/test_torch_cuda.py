@@ -985,35 +985,158 @@ def test_bf16_forms_not_instantiated_raise(dev):
 
 
 def test_hat_geometry_bf16(dev):
-    """K2's bf16 launches: 16 KB tiles hold twice the rows of f32 ones; tile
-    rows in whole 16-byte units (eight bf16) and two stages where three do
-    not fit."""
+    """K2's bf16 launches. The per-sample forms (the ring kernel): 16 KB
+    tiles hold twice the rows of f32 ones, in whole 16-byte units (eight
+    bf16), two stages where three do not fit. The lane-affine and per-slice
+    forms (the lanes kernel): one 512-thread block an SM, 32 KB tiles of a
+    multiple of the rows its 480 consumer threads compute at once
+    (480 / ceil(OW / 8)) where that fits, and a pass of fewer than three
+    tiles a block takes tiles of half the bytes, down to those rows."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bf = torch.bfloat16
-    for nearest, per_slice, disp in ((False, False, "none"), (True, False, "none"), (False, False, "lane"),
-                                     (False, True, "none")):
-        geo = hat.hat_geometry((1, 256, 256, 256), nearest, per_slice, disp, dtype=bf)
+    for nearest in (False, True):
+        geo = hat.hat_geometry((1, 256, 256, 256), nearest, dtype=bf)
         assert geo == {"tile_rows": 32, "stages": 3, "grid": geo["grid"], "smem_bytes": 128 + 3 * 16384}
         assert geo["grid"] % sms == 0 and geo["grid"] < 2048
     assert hat.hat_geometry((3, 40, 30, 5), dtype=bf) == {"tile_rows": 1632, "stages": 3, "grid": 3,
                                                           "smem_bytes": 128 + 3 * 16320}
     geo = hat.hat_geometry((1, 1, 8, 6143), dtype=bf)
     assert geo == {"tile_rows": 8, "stages": 2, "grid": 1, "smem_bytes": 128 + 2 * 8 * 6143 * 2}
+    for per_slice, disp in ((False, "lane"), (True, "none")):
+        # (shape, tile rows): 15, 10, 6, 30 and 30 rows at once; 128^3 and
+        # the 6144-lane rows a small pass
+        for shape, rows in (((1, 256, 256, 256), 60), ((1, 96, 384, 384), 40), ((1, 640, 640, 640), 24),
+                            ((1, 640, 640, 128), 120), ((1, 128, 128, 128), 30), ((2, 3, 7, 6144), 1)):
+            geo = hat.hat_geometry(shape, False, per_slice, disp, dtype=bf)
+            ntiles = -(-shape[0] * shape[1] * shape[2] // rows)
+            assert geo == {"tile_rows": rows, "stages": 3, "grid": min(ntiles, sms),
+                           "smem_bytes": 128 + 3 * rows * shape[-1] * 2}, (shape, geo)
+        # an odd S: tiles in units of eight rows, two stages at 6143
+        geo = hat.hat_geometry((1, 1, 8, 6143), False, per_slice, disp, dtype=bf)
+        assert geo == {"tile_rows": 8, "stages": 2, "grid": 1, "smem_bytes": 128 + 2 * 8 * 6143 * 2}
 
 
 def test_hat_pair_geometry_bf16(dev):
-    """K1's bf16 launches: 16 KB tiles per operand (32 rows at S = 256),
-    each buffer whole 16-byte units with room for seven bf16 of lead."""
+    """K1's bf16 launches: the main form's 16 KB tiles per operand (32 rows
+    at S = 256), each buffer whole 16-byte units with room for seven bf16 of
+    lead; the lane-affine pair (the lanes kernel) on one 512-thread block an
+    SM with 16 KB per operand (a 32 KB stage), its 128^3 pass on tiles of
+    half the bytes."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bf = torch.bfloat16
-    for nearest_b, disp in ((True, "volume"), (False, "lane")):
-        geo = hat.hat_pair_geometry((4, 256, 256, 256), nearest_b, False, disp, dtype=bf)
-        assert geo == {"tile_rows": 32, "stages": 3, "grid": geo["grid"], "smem_bytes": 128 + 3 * 2 * 8200 * 2}
-        assert geo["grid"] % sms == 0 and geo["grid"] < 4 * 256 * 256 // 32
+    geo = hat.hat_pair_geometry((4, 256, 256, 256), True, False, "volume", dtype=bf)
+    assert geo == {"tile_rows": 32, "stages": 3, "grid": geo["grid"], "smem_bytes": 128 + 3 * 2 * 8200 * 2}
+    assert geo["grid"] % sms == 0 and geo["grid"] < 4 * 256 * 256 // 32
     assert hat.hat_pair_geometry((3, 40, 30, 5), dtype=bf) == {"tile_rows": 1638, "stages": 3, "grid": 3,
                                                                "smem_bytes": 128 + 3 * 2 * 8200 * 2}
     geo = hat.hat_pair_geometry((1, 1, 8, 6143), dtype=bf)
     assert geo == {"tile_rows": 1, "stages": 3, "grid": 8, "smem_bytes": 128 + 3 * 2 * 6152 * 2}
+    lane = dict(nearest_b=False, disp="lane", dtype=bf)
+    # 60 rows of 128 lanes: 7680 bf16, each buffer 7688 (room for a lead)
+    assert hat.hat_pair_geometry((1, 640, 640, 128), **lane) == {"tile_rows": 60, "stages": 3, "grid": sms,
+                                                                 "smem_bytes": 128 + 3 * 2 * 7688 * 2}
+    assert hat.hat_pair_geometry((1, 128, 128, 128), **lane) == {"tile_rows": 30, "stages": 3, "grid": sms,
+                                                                 "smem_bytes": 128 + 3 * 2 * 3848 * 2}
+    assert hat.hat_pair_geometry((1, 1, 8, 6143), **lane) == {"tile_rows": 1, "stages": 3, "grid": 8,
+                                                              "smem_bytes": 128 + 3 * 2 * 6152 * 2}
+
+
+# the lanes kernel's forms: (K1 pair, coefficient kind); and the output
+# widths of its tests: the stream's 128-640, widths that are not a multiple
+# of 8 (rows off 16 bytes) and an odd one (rows off 4 bytes)
+LANES_FORMS = [(False, "lane"), (False, "slice"), (True, "lane")]
+LANES_OW = [128, 256, 384, 512, 640, 100, 77]
+
+
+def _lanes_case(dev, pair, kind, OW, seed):
+    """The inputs of a lanes-kernel test: B=3 samples of (5, 7) rows (tiles
+    span samples and slices), bf16 rows with -0.0 among them, OW lanes out
+    (K2: S = OW; K1: S = OW + 37). Lane-affine: general coefficients and a
+    table whose lanes 3 mod 11 give exact half-integer positions, 5 mod 13
+    and 6 mod 17 positions past either edge. Per-slice: the scanner's
+    in-plane coefficients, slice 1 of sample 1 past the low edge, slice 3
+    of sample 2 past the high one. Returns (xa, xb or None, coefs, disp)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, D, H = 3, 5, 7
+    S = OW + 37 if pair else OW
+    rows = lambda: _with_negative_zeros(100.0 * torch.randn((B, D, H, S), generator=g, device=dev)).to(  # noqa: E731
+        torch.bfloat16)
+    xa, xb = rows(), rows() if pair else None
+    if kind == "slice":
+        coefs = torch.rand((B, D, 4), generator=g, device=dev) - 0.5
+        coefs[..., 0] = 0.0
+        coefs[..., 2] = 1.0 + 0.04 * coefs[..., 2]
+        coefs[..., 3] *= 8.0
+        coefs[1, 1, 3] = -2.0 * S
+        coefs[2, 3, 3] = 2.0 * S
+        return xa, xb, coefs, None
+    coefs = torch.tensor([[0.25, -0.5, S / OW, 0.5], [0.05, -0.04, 1.02 * S / OW, -0.3 * S], [0.0, 0.0, 1.0, 0.0]],
+                         device=dev)
+    disp = (torch.rand((B, 3, OW), generator=g, device=dev) - 0.5) * torch.tensor([[[0.04], [0.04], [6.0]]],
+                                                                                 device=dev)
+    lanes = torch.arange(OW, device=dev)
+    half = lanes % 11 == 3
+    disp[2, :2, half] = 0.0
+    disp[2, 2, half] = 0.5
+    disp[:, 2, lanes % 13 == 5] = -3.0 * S
+    disp[:, 2, lanes % 17 == 6] = 3.0 * S
+    return xa, xb, coefs, disp
+
+
+def _lanes_run(pair, xa, xb, coefs, disp, plain=False):
+    if pair:
+        fn = hat.hat_pass_pair_ref if plain else hat.hat_pass_pair
+        return fn(xa, xb, coefs, disp, nearest_b=False)
+    return ((hat.hat_pass_ref if plain else hat.hat_pass)(xa, coefs, disp),)
+
+
+@pytest.mark.parametrize("OW", LANES_OW)
+@pytest.mark.parametrize("pair, kind", LANES_FORMS, ids=lambda v: str(v))
+def test_lanes_forms_bits(dev, pair, kind, OW):
+    """The lanes kernel's forms (K2 lane-affine and per-slice, K1's
+    lane-affine pair, bf16) bit for bit (as int16) with their plain versions
+    at the stream's widths and at widths whose rows lie off 16 and 4 bytes,
+    on tiles that span samples and slices, with exact half-integer positions
+    and positions past both edges (the sign of zero kept)."""
+    xa, xb, coefs, disp = _lanes_case(dev, pair, kind, OW, OW + 7 * pair + len(kind))
+    R, H, S = xa.shape[1] * xa.shape[2], xa.shape[2], xa.shape[-1]
+    pos = hat.positions(coefs, R, H, OW, lane=disp)
+    assert bool((pos - torch.floor(pos) == 0.5).any()) or kind == "slice"
+    assert bool((pos <= 0).any()) and bool((pos >= S - 1).any())
+    key = hat.launch_key(pair, False, coefs, disp, torch.bfloat16)
+    before = hat.LAUNCHES[key]
+    got = _lanes_run(pair, xa, xb, coefs, disp)
+    want = _lanes_run(pair, xa, xb, coefs, disp, plain=True)
+    torch.cuda.synchronize()
+    assert hat.LAUNCHES[key] == before + 1
+    assert _bits16(got, want)
+
+
+@pytest.mark.parametrize("pair, kind", LANES_FORMS, ids=lambda v: str(v))
+def test_lanes_forms_nan_positions(dev, pair, kind):
+    """A NaN position (a NaN table lane, or a slice's NaN bias) stays in the
+    row: the lane is row[0] * 1 + row[1] * 0 in f32, rounded once, as the
+    ring kernel computed it; every other lane bit for bit with the plain
+    version on the same inputs made finite."""
+    OW = 300
+    xa, xb, coefs, disp = _lanes_case(dev, pair, kind, OW, 99 + pair)
+    B, D, H, S = xa.shape
+    nan_coefs, nan_disp = coefs.clone(), None if disp is None else disp.clone()
+    if kind == "slice":
+        nan_coefs[0, 2, 3] = float("nan")
+        bad = torch.zeros((B, D, H, OW), dtype=torch.bool, device=dev)
+        bad[0, 2] = True
+    else:
+        nan_disp[1, 2, 7::29] = float("nan")
+        bad = torch.zeros((B, D, H, OW), dtype=torch.bool, device=dev)
+        bad[1, ..., 7::29] = True
+    got = _lanes_run(pair, xa, xb, nan_coefs, nan_disp)
+    want = _lanes_run(pair, xa, xb, coefs, disp, plain=True)
+    torch.cuda.synchronize()
+    for k, r, x in zip(got, want, (xa, xb)):
+        edge = (x[..., :1].float() * 1.0 + x[..., 1:2].float() * 0.0).to(torch.bfloat16).expand(B, D, H, OW)
+        assert torch.equal(k[bad].view(torch.int16), edge[bad].view(torch.int16))
+        assert torch.equal(k[~bad].view(torch.int16), r[~bad].view(torch.int16))
 
 
 @pytest.mark.parametrize("reduced", [False, True])

@@ -615,6 +615,46 @@ ptxas info    : Used 48 registers, used 1 barriers
     assert count_sass(sass) == {"_Z1bPf": 2, "_Z1aPf": 1}
 
 
+def test_kernel_stats_loop_per_element():
+    """``kernel_stats``' innermost storing loop: the instructions from a
+    backward branch's target to the branch, and the elements its widest
+    global stores write (the narrow fallback stores and the outer loop's
+    instructions aside)."""
+    from fetalsyngen_torch.probes.kernel_stats import loop_per_element, parse_sass
+
+    sass = """		Function : _Z1kP13__nv_bfloat16
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDS.U16 R2, [R3] ;
+        /*0020*/                   FADD R4, R2, R5 ;
+        /*0030*/                   STG.E.EF desc[UR4][R6.64], R4 ;
+        /*0040*/                   STG.E.EF desc[UR4][R6.64+0x40], R4 ;
+        /*0050*/               @P1 STG.E.U16 desc[UR4][R8.64], R4 ;
+        /*0060*/                   IADD3 R3, R3, 0x2, RZ ;
+        /*0070*/               @P0 BRA 0x10 ;
+        /*0080*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0090*/              @!P2 BRA 0x0 ;
+        /*00a0*/                   EXIT ;
+		Function : _Z1cPf
+        /*0000*/                   STG.E.128 desc[UR4][R2.64], R4 ;
+        /*0010*/                   EXIT ;
+"""
+    fns = parse_sass(sass)
+    assert [a for a, _ in fns["_Z1kP13__nv_bfloat16"]] == list(range(0, 0xB0, 0x10))
+    assert loop_per_element(fns["_Z1kP13__nv_bfloat16"], 2) == (7, 4)
+    assert loop_per_element(fns["_Z1cPf"], 4) is None
+    # a loop whose vector stores the compiler laid out past its end
+    out_of_line = """		Function : _Z1oP13__nv_bfloat16
+        /*0000*/                   LDS.U16 R2, [R3] ;
+        /*0010*/               @P0 BRA 0x50 ;
+        /*0020*/                   STG.E.U16 desc[UR4][R8.64], R2 ;
+        /*0030*/               @P1 BRA 0x0 ;
+        /*0040*/                   EXIT ;
+        /*0050*/                   STG.E.EF.128 desc[UR4][R6.64], R4 ;
+        /*0060*/                   BRA 0x30 ;
+"""
+    assert loop_per_element(parse_sass(out_of_line)["_Z1oP13__nv_bfloat16"], 2) == (6, 8)
+
+
 def test_bounds():
     """The least times the kernels are read against: bytes over 3.35 TB/s or
     f32 operations over 67 TFLOP/s, whichever is longer; a hat pass counts
