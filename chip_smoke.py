@@ -159,6 +159,20 @@ operations over 67 TFLOP/s.
     in [0, 1], replay bit-identical); the walkthrough
     (``fetalsyngen_torch.examples.generator``) at 64^3 on the card.
 
+15. the separable-warp surface (``ops.warp``): at B=4 256^3 in f32 and
+    under ``storage_scope(bf16)``, ``warp_affine_separable`` of an image and
+    its labels onto a (240, 256, 272) grid (its U passes write fewer and more
+    lanes than they read), ``warp_affine_separable_pair`` in the four pairs
+    of modes onto that grid, ``warp_displacement_separable`` of each on a
+    smooth field whose peaks pass +-FIELD_LIM, and ``ops.warp.hat_pass_pair``
+    with a 384-cube stack's per-slice table on bf16 rows: every launch count
+    exact, outputs finite and of their shapes; each op on a 64^3 crop on the
+    card against the port's CPU path (images within IMAGE_TOL of their scale,
+    bf16 BF16_ULPS ulps; labels within LABEL_TOL); then each K1/K2 form it
+    launched at its 256^3 passes against its plain version (bit-identical,
+    distinct operands for a pair), timed with its bound and ``grid_sample``:
+    the kernel entries ``separable:<form>``.
+
 Phase 3 also holds K1's form without a displacement (the probes'
 ``pair_l_nodisp`` and ``pair_u`` coefficients, and crafted half-integers)
 and K2's lane-affine form (K7's inputs, and a wide table at 256^3) against
@@ -240,7 +254,7 @@ from fetalsyngen_torch.kernels import build, hat, probes
 from fetalsyngen_torch.ops.affine import make_affine_matrix
 from fetalsyngen_torch.ops.morphology import box_sum
 from fetalsyngen_torch.ops.numerics import device_const
-from fetalsyngen_torch.ops import warp
+from fetalsyngen_torch.ops import linops, warp
 from fetalsyngen_torch.ops.warp import FIELD_LIM, ul_decompose
 from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream, _production_scopes, batch_program, compose_seeds
 from fetalsyngen_torch.probes import microbench_warp, probe_blocktp, profile_kernel_variants, ring_profile
@@ -1930,16 +1944,17 @@ class StreamHatCheck:
         self.calls = collections.Counter()
         self.kept = {}
 
-    def single(self, x, coefs, disp=None, nearest=False):
-        out = hat.hat_pass(x, coefs, disp, nearest)
+    def single(self, x, coefs, disp=None, nearest=False, out_len=None):
+        out = hat.hat_pass(x, coefs, disp, nearest, out_len)
         key = hat.launch_key(False, nearest, coefs, disp, x.dtype)
-        self._note(key, (out,), (hat.hat_pass_ref(x, coefs, disp, nearest),), (x, None, coefs, disp))
+        self._note(key, (out,), (hat.hat_pass_ref(x, coefs, disp, nearest, out_len),), (x, None, coefs, disp))
         return out
 
-    def pair(self, va, vb, coefs, disp, nearest_b=True):
-        got = hat.hat_pass_pair(va, vb, coefs, disp, nearest_b)
-        key = hat.launch_key(True, nearest_b, coefs, disp, va.dtype)
-        self._note(key, got, hat.hat_pass_pair_ref(va, vb, coefs, disp, nearest_b), (va, vb, coefs, disp))
+    def pair(self, va, vb, coefs, disp, nearest_b=True, out_len=None, nearest_a=False):
+        got = hat.hat_pass_pair(va, vb, coefs, disp, nearest_b, out_len, nearest_a)
+        key = hat.launch_key(True, nearest_b, coefs, disp, va.dtype, nearest_a=nearest_a)
+        want = hat.hat_pass_pair_ref(va, vb, coefs, disp, nearest_b, out_len, nearest_a)
+        self._note(key, got, want, (va, vb, coefs, disp))
         return got
 
     def _note(self, key, got, want, inputs):
@@ -2839,6 +2854,202 @@ def seeds_phase(dev, t_start):
     return launches
 
 
+# phase 15: the separable-warp surface at B=4 256^3 onto another grid (OW
+# below and above S across the U passes), its card-against-CPU crop, and
+# the K1/K2 forms it launches: their kernel entries are "separable:<form>"
+SEP_OUT = (240, 256, 272)
+SEP_CPU_SHAPE, SEP_CPU_OUT = (64, 64, 64), (60, 64, 68)
+SEP_MODES = ((False, True), (False, False), (True, False), (True, True))
+SEP_PAIR_FORMS = tuple(hat._PAIR_FORMS[(*m, 0, 0)] for m in SEP_MODES)
+SEP_FORMS = ("hat_pass", "hat_pass_bf16", "hat_pass_field_bf16", *SEP_PAIR_FORMS,
+             *(f"{f}_bf16" for f in SEP_PAIR_FORMS), "hat_pass_pair_slice_bf16")
+for _form in SEP_FORMS:
+    KERNELS[f"separable:{_form}"] = KERNELS["hat_pass_pair" if "pair" in _form else "hat_pass"]
+
+
+def separable_inputs(dev, shape, out_shape, seed=15):
+    """Phase 15's inputs at ``shape``, B=4: a smooth image in [0, 100], its
+    labels (8 levels), a near-identity affine of the generator's ranges
+    mapping the ``out_shape`` grid's centre onto the input's, and three
+    smooth displacement components with a standard deviation of 10 voxels
+    (their peaks pass +-FIELD_LIM)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    big = tuple(n + 8 for n in shape)
+
+    def smooth():
+        v = F.avg_pool3d(torch.rand((BATCH, 1, *big), generator=g, device=dev), 9, 1)[:, 0]
+        return (v - v.mean()) / v.std()
+
+    img = smooth()
+    img = 100.0 * (img - img.min()) / (img.max() - img.min())
+    lab = torch.floor(img * 0.0799)
+    A = make_affine_matrix(
+        (torch.rand((BATCH, 3), generator=g, device=dev) - 0.5) * (40.0 / 180.0 * np.pi),
+        (torch.rand((BATCH, 3), generator=g, device=dev) - 0.5) * 0.04,
+        1.0 + (torch.rand((BATCH, 3), generator=g, device=dev) - 0.5) * 0.2)
+    def centre(grid):
+        return (torch.tensor(grid, dtype=torch.float32, device=dev) - 1) / 2
+
+    t = centre(shape) - torch.einsum("bij,j->bi", A, centre(out_shape))
+    fields = [10.0 * smooth() for _ in range(3)]
+    return img, lab, A, t, fields
+
+
+def separable_ops(img, lab, A, t, fields, out_shape):
+    """The separable-warp surface on one set of inputs: the affine warp of
+    the image and the labels onto ``out_shape``, the pair warp in each pair
+    of modes, and the displacement warp of each. Returns {(op, modes):
+    outputs}."""
+    outs = {("affine", (False,)): (warp.warp_affine_separable(img, A, t, False, out_shape),),
+            ("affine", (True,)): (warp.warp_affine_separable(lab, A, t, True, out_shape),)}
+    for m in SEP_MODES:
+        outs[("pair", m)] = warp.warp_affine_separable_pair(lab if m[0] else img, lab if m[1] else img, A, t, m,
+                                                            out_shape)
+    for nearest in (False, True):
+        outs[("displacement", (nearest,))] = (warp.warp_displacement_separable(lab if nearest else img, *fields,
+                                                                               nearest),)
+    return outs
+
+
+def separable_path(dev):
+    """Phase 15's path: the separable-warp surface at B=4 256^3 onto
+    SEP_OUT, in f32 and under ``storage_scope(bf16)``, and the JAX surface's
+    paired hat pass (``ops.warp.hat_pass_pair``) with the scanner's per-slice
+    table of a 384-cube stack on bf16 rows. Returns the launches of the run
+    by form; raises on a wrong count or a non-finite or misshapen output."""
+    img, lab, A, t, fields = separable_inputs(dev, SHAPE, SEP_OUT)
+    _, _, (D, H, S), coefs, _ = next(x for x in stack_tables(dev, 384, TIER_RS[384], SHAPE) if x[0] == "acquire dv")
+    g = torch.Generator(device=dev).manual_seed(151)
+    xa, xb = ((100.0 * torch.rand((1, D, H, S), generator=g, device=dev)).to(BF16) for _ in range(2))
+    torch.cuda.synchronize()
+    reset_counts()
+    shapes = {}
+    for mode in (None, BF16):
+        with linops.storage_scope(mode):
+            for key, outs in separable_ops(img, lab, A, t, fields, SEP_OUT).items():
+                for o in outs:
+                    if not bool(torch.isfinite(o).all()):
+                        raise RuntimeError(f"separable {key} {mode}: non-finite output")
+                shapes[key] = tuple(outs[0].shape)
+                del outs
+    warp.hat_pass_pair(xa, xb, coefs, None, nearest_b=False)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in hat.LAUNCHES.items() if v}
+    want = {"hat_pass": 16, "hat_pass_bf16": 10, "hat_pass_field_bf16": 6, "hat_pass_pair_slice_bf16": 1,
+            **{f: 5 for f in SEP_PAIR_FORMS}, **{f"{f}_bf16": 5 for f in SEP_PAIR_FORMS}}
+    named = {f"{op} {modes}": sh for (op, modes), sh in shapes.items()}
+    log(f"separable: launches {json.dumps(got)}; output shapes {json.dumps(named)}")
+    if got != want:
+        raise RuntimeError(f"separable: launches {got}, expected {want}")
+    for (op, _), sh in shapes.items():
+        if sh != (BATCH, *(SHAPE if op == "displacement" else SEP_OUT)):
+            raise RuntimeError(f"separable: {op} wrote {sh}")
+    return {f"separable:{k}": got[k] for k in SEP_FORMS}
+
+
+def separable_cpu_check(dev):
+    """Phase 15: each op of the surface on a 64^3 crop (B=4, onto
+    SEP_CPU_OUT) on the card against the port's CPU path on the same inputs,
+    f32 and under ``storage_scope(bf16)``: images within IMAGE_TOL of their
+    scale (bf16: BF16_ULPS bf16 ulps), labels differing on at most
+    LABEL_TOL of the voxels."""
+    inputs = separable_inputs(dev, SEP_CPU_SHAPE, SEP_CPU_OUT, seed=16)
+    cpu_inputs = [v.cpu() if isinstance(v, torch.Tensor) else [f.cpu() for f in v] for v in inputs]
+    worst = {}
+    for mode in (None, BF16):
+        with linops.storage_scope(mode):
+            card = separable_ops(*inputs, SEP_CPU_OUT)
+            cpu = separable_ops(*cpu_inputs, SEP_CPU_OUT)
+        for (op, modes), outs in card.items():
+            for o, c, nearest in zip(outs, cpu[(op, modes)], modes):
+                o = o.cpu().float()
+                c = c.float()
+                if nearest:
+                    share = float((o != c).float().mean())
+                    bad = share > LABEL_TOL
+                    worst[f"{op} {modes} {mode} labels"] = share
+                else:
+                    scale = float(c.abs().max())
+                    err = float((o - c).abs().max()) / scale
+                    bad = err > (BF16_ULPS * 2.0**-8 if mode else IMAGE_TOL)
+                    worst[f"{op} {modes} {mode} image"] = err
+                if bad:
+                    raise RuntimeError(f"separable {op} {modes} {mode}: card against CPU {worst}")
+    log(f"separable: card against CPU at {SEP_CPU_SHAPE} onto {SEP_CPU_OUT}: {json.dumps(worst)}")
+
+
+def separable_kernel_checks(dev):
+    """Phase 15: each K1/K2 form of the surface at its B=4 256^3 passes (the
+    U-z pass writing 272 lanes from 256, the U-x pass 240, the displacement
+    warp's x pass) against its plain version: bit-identical, timed with its
+    bound and a ``grid_sample`` yardstick; and K1's per-slice bf16 pair at
+    the 384-cube stack's table."""
+    img, lab, A, t, fields = separable_inputs(dev, SHAPE, SEP_OUT)
+    U, _ = ul_decompose(A)
+    z = torch.zeros(BATCH, device=dev)
+    uz = torch.stack([z, z, U[:, 2, 2], t[:, 2]], 1).contiguous()
+    ux = torch.stack([U[:, 0, 1], U[:, 0, 2], U[:, 0, 0], t[:, 0]], 1).contiguous()
+    unit = torch.stack([z, z, z + 1, z], 1).contiguous()
+    gx = torch.clamp(fields[0], -FIELD_LIM, FIELD_LIM).permute(0, 2, 3, 1).contiguous()
+    B, D, H, S = img.shape
+    # the first and the second operand of a pair in each mode: distinct
+    # tensors (one read twice would come from the L2 cache the second time)
+    vols = {(dt, n, op): (lab if n else img).flip(-1 - op).to(dt).contiguous() for dt in (torch.float32, BF16)
+            for n in (False, True) for op in (0, 1)}
+    cases = []  # (entry, name, pair, modes, coefs, disp, OW, dtype)
+    for dt, sfx in ((torch.float32, ""), (BF16, "_bf16")):
+        cases += [(f"hat_pass{sfx}", "U-z linear", False, (False,), uz, None, SEP_OUT[2], dt),
+                  (f"hat_pass{sfx}", "U-x nearest", False, (True,), ux, None, SEP_OUT[0], dt)]
+        field_entry = "hat_pass_field_bf16" if sfx else "hat_pass"
+        cases += [(field_entry, f"field x {'nearest' if n else 'linear'}", False, (n,), unit, gx, S, dt)
+                  for n in (False, True)]
+        cases += [(f"{hat._PAIR_FORMS[(*m, 0, 0)]}{sfx}", f"U-z {m}", True, m, uz, None, SEP_OUT[2], dt)
+                  for m in SEP_MODES]
+    results = []
+    for entry, name, pair, modes, coefs, disp, OW, dt in cases:
+        xs = [vols[(dt, m, op)] for op, m in enumerate(modes)]
+        if pair:
+            run = lambda: hat.hat_pass_pair(*xs, coefs, disp, modes[1], OW, modes[0])  # noqa: E731
+            plain = lambda: hat.hat_pass_pair_ref(*xs, coefs, disp, modes[1], OW, modes[0])  # noqa: E731
+        else:
+            run = lambda: hat.hat_pass(xs[0], coefs, disp, modes[0], OW)  # noqa: E731
+            plain = lambda: hat.hat_pass_ref(xs[0], coefs, disp, modes[0], OW)  # noqa: E731
+        pos = hat._positions_of(coefs, B, D, H, OW, disp)
+        n_half, n_out = count_positions(pos, S)
+        nearest_b = modes[-1]
+        results.append(compare(
+            f"separable:{entry}", name, run, plain,
+            hat_bound(pair, B, D, H, S, OW, disp, nearest_b, esize=xs[0].element_size(),
+                      nearest_a=pair and modes[0]),
+            lib=lambda: grid_sample_ms(xs, pos),
+            note=f" B={B} R={D * H} S={S} OW={OW} {dt} half-integer positions={n_half} saturated={n_out}",
+        ))
+        del pos
+    del vols, img, lab, fields, gx
+    _, _, (D, H, S), coefs, _ = next(x for x in stack_tables(dev, 384, TIER_RS[384], SHAPE) if x[0] == "acquire dv")
+    g = torch.Generator(device=dev).manual_seed(152)
+    xa, xb = ((100.0 * torch.rand((1, D, H, S), generator=g, device=dev)).to(BF16) for _ in range(2))
+    pos = hat._positions_of(coefs, 1, D, H, S, None)
+    n_half, n_out = count_positions(pos, S)
+    results.append(compare(
+        "separable:hat_pass_pair_slice_bf16", "acquire dv cube 384",
+        lambda: hat.hat_pass_pair(xa, xb, coefs, None, nearest_b=False),
+        lambda: hat.hat_pass_pair_ref(xa, xb, coefs, None, nearest_b=False),
+        hat_bound(True, 1, D, H, S, S, None, esize=2), lib=lambda: grid_sample_ms([xa, xb], pos),
+        note=f" R={D * H} S=OW={S} bf16 half-integer positions={n_half} saturated={n_out}",
+    ))
+    return results
+
+
+def separable_phase(dev, t_start):
+    """Phase 15: the separable-warp surface. Returns (the launches of its
+    path by kernel entry, the kernel checks)."""
+    launches = separable_path(dev)
+    log(f"phase 15 path done at {time.perf_counter() - t_start:.1f} s")
+    separable_cpu_check(dev)
+    return launches, separable_kernel_checks(dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU")
@@ -2910,6 +3121,11 @@ def main() -> int:
     for k, v in seeds_phase(dev, t_start).items():
         launches[k] += v
     log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t14:.1f} s)")
+    t15 = time.perf_counter()
+    sep_launches, sep_checks = separable_phase(dev, t_start)
+    launches.update(sep_launches)
+    checks += sep_checks
+    log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t15:.1f} s)")
     missing = [k for k in KERNELS if not launches.get(k)]
     if missing:
         raise RuntimeError(f"kernel forms never launched on the main paths: {missing}")

@@ -19,9 +19,11 @@
 // for f32 rows and rounded once to bf16 (__float2bfloat16_rn, as torch's
 // .to(bfloat16)); a nearest or edge sample is the row's value as it is.
 //
-// Two kernels run the forms: hat_ring_kernel (every f32 form, and bf16 K1's
-// main form and K2's per-sample forms) and hat_lanes_kernel (the linear
-// bf16 lane-affine and per-slice forms, designed for 2-byte rows; below).
+// Two kernels run the forms: hat_ring_kernel (every f32 form, and the bf16
+// forms with a nearest operand or a displacement volume, and K2's linear
+// per-sample form) and hat_lanes_kernel (the linear bf16 lane-affine and
+// per-slice forms and K1's linear pair without a displacement, designed for
+// 2-byte rows; below).
 
 #pragma once
 
@@ -179,9 +181,10 @@ __device__ __forceinline__ void store4(__nv_bfloat16* out, int l, int S, const _
   }
 }
 
-// kOps operands xa (linear) and xb of T elements, the last sampled nearest if
-// kNearestLast; nrows rows of S lanes in, of OW lanes out
-template <typename T, int kOps, bool kNearestLast, int kCoef, int kDisp>
+// kOps operands xa and xb of T elements, the last sampled nearest if
+// kNearestLast, the first if kNearestFirst (one operand: both are it);
+// nrows rows of S lanes in, of OW lanes out
+template <typename T, int kOps, bool kNearestLast, int kCoef, int kDisp, bool kNearestFirst = kOps == 1 && kNearestLast>
 __global__ void __launch_bounds__(kRingThreads, 2) hat_ring_kernel(
     const T* __restrict__ xa, const T* __restrict__ xb, const float* __restrict__ disp,
     const float* __restrict__ coefs, T* __restrict__ oa, T* __restrict__ ob, long long nrows, int R,
@@ -261,7 +264,7 @@ __global__ void __launch_bounds__(kRingThreads, 2) hat_ring_kernel(
         const size_t out = static_cast<size_t>(n0 + row) * OW;
         T v[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) v[k] = hat_sample<kOps == 1 && kNearestLast>(src[0] + row * S, pos[k], S);
+        for (int k = 0; k < 4; ++k) v[k] = hat_sample<kNearestFirst>(src[0] + row * S, pos[k], S);
         store4(oa + out, l, OW, v);
         if constexpr (kOps == 2) {
 #pragma unroll
@@ -279,12 +282,13 @@ __global__ void __launch_bounds__(kRingThreads, 2) hat_ring_kernel(
 // operands, 4-row tiles of odd f32 S would not fit two stages above
 // S = 3630); K2's tiles are whole 16-byte units of an x on 16 bytes,
 // cudaErrorMisalignedAddress for an x that is not.
-template <typename T, int kOps, bool kNearestLast, int kCoef, int kDisp>
+template <typename T, int kOps, bool kNearestLast, int kCoef, int kDisp, bool kNearestFirst = kOps == 1 && kNearestLast>
 cudaError_t hat_ring_run(const T* xa, const T* xb, const float* disp, const float* coefs, T* oa, T* ob,
                          long long nrows, int R, int H, int S, int OW, bool launch, cudaStream_t st, Geometry* g) {
   constexpr bool kLoose = kOps == 2;
   constexpr int kVec = Ring<kOps, T>::kVec;
-  const void* fn = reinterpret_cast<const void*>(&hat_ring_kernel<T, kOps, kNearestLast, kCoef, kDisp>);
+  const void* fn =
+      reinterpret_cast<const void*>(&hat_ring_kernel<T, kOps, kNearestLast, kCoef, kDisp, kNearestFirst>);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = plan(fn, dev, kOps, nrows, S, kTileBytes, g, kLoose, static_cast<int>(sizeof(T)));
@@ -293,7 +297,7 @@ cudaError_t hat_ring_run(const T* xa, const T* xb, const float* disp, const floa
   TileCounter* counter = nullptr;
   e = tile_counter(dev, st, &counter);
   if (e != cudaSuccess) return e;
-  hat_ring_kernel<T, kOps, kNearestLast, kCoef, kDisp><<<g->grid, kRingThreads, g->smem, st>>>(
+  hat_ring_kernel<T, kOps, kNearestLast, kCoef, kDisp, kNearestFirst><<<g->grid, kRingThreads, g->smem, st>>>(
       xa, xb, disp, coefs, oa, ob, nrows, R, H, S, OW, g->tile_rows, ring_pitch(g->tile_rows * S, kLoose, kVec),
       g->stages, counter);
   return cudaGetLastError();
@@ -302,8 +306,10 @@ cudaError_t hat_ring_run(const T* xa, const T* xb, const float* disp, const floa
 // --- the linear bf16 forms: a thread keeps its lanes across rows ------------
 //
 // hat_lanes_kernel computes the linear bf16 forms of the scanner and the
-// stream (K2's lane-affine and per-slice forms, K1's lane-affine pair), the
-// same function bit for bit, with a design for 2-byte rows. A bf16 element
+// stream (K2's lane-affine and per-slice forms, K1's lane-affine pair) and
+// K1's other linear pairs (per-slice, and per-sample without a displacement:
+// the separable pair warp's), the same function bit for bit, with a design
+// for 2-byte rows. A bf16 element
 // moves 4 bytes (K2), so the card's memory leaves some 35 issued
 // instructions per element; the f32 ring kernel spent about as many on
 // re-deriving each group of four lanes' row, coefficients, table and lane
@@ -403,7 +409,8 @@ __host__ __device__ constexpr int lanes_rows(int OW) {
 }
 
 // kOps linear bf16 operands (K2: one, per-slice or lane-affine; K1: a pair,
-// lane-affine); nrows < 2^31 - 512 rows of S lanes in, of OW lanes out
+// lane-affine, per-slice or per-sample without a displacement); nrows <
+// 2^31 - 512 rows of S lanes in, of OW lanes out
 template <int kOps, int kCoef, int kDisp>
 __global__ void __launch_bounds__(kRingThreads, 1) hat_lanes_kernel(
     const __nv_bfloat16* __restrict__ xa, const __nv_bfloat16* __restrict__ xb, const float* __restrict__ disp,

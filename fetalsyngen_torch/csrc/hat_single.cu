@@ -1,15 +1,18 @@
 // Single-operand hat pass: resampling of the last axis of one f32 (or bf16) volume at
-// edge-clamped positions, linearly (images) or nearest (labels cast to f32).
+// edge-clamped positions, linearly (images) or nearest (labels cast to f32),
+// to rows of OW lanes.
 //
 // Replaces the TPU Pallas kernel fetalsyngen_tpu/ops/warp.py::_hat_kernel
-// (launched by _hat_pass_impl) in the forms its callers use, OW == W: one
+// (launched by _hat_pass_impl) in the forms its callers use: one
 // coefficient row per sample with an optional displacement volume (the
-// generator's warps), one coefficient row per sample with a (3, W)
+// generator's warps and the separable affine and displacement warps, OW
+// any length: out_len), one coefficient row per sample with a (3, OW)
 // lane-affine table, linearly (the form the kernel probes time), and one
 // coefficient row per slice without a displacement (the scanner's in-plane
-// reconstruction passes). Its spec is _hat_pass_jnp in the same file; the
-// plain PyTorch version is fetalsyngen_torch/kernels/hat.py::hat_pass_ref,
-// which this kernel matches bit for bit.
+// reconstruction passes); each in f32 and bf16. Its spec is _hat_pass_jnp
+// in the same file; the plain PyTorch version is
+// fetalsyngen_torch/kernels/hat.py::hat_pass_ref, which this kernel matches
+// bit for bit.
 //
 // For sample b, row r (row_i = r / H, row_j = r % H) and lane l:
 //   pos = ((ci*row_i + cj*row_j) + ck*l) + bias
@@ -24,21 +27,24 @@
 //
 // Bound: device memory. Per element it reads one source value, one
 // displacement when present, and writes one output: 8 to 12 bytes per
-// element in f32, 4 in the bf16 forms (the stream's production mode, rows
-// and output bf16, the taps' arithmetic f32, see hat_common.cuh); the table of the lane-affine form
-// (3 x 4 bytes a lane) is read once per sample from the caches.
+// element in f32, 4 to 8 in the bf16 forms (the stream's production mode,
+// rows and output bf16, the taps' arithmetic f32, see hat_common.cuh); the
+// table of the lane-affine form (3 x 4 bytes a lane) is read once per sample
+// from the caches.
 //
 // Design: the ring kernel of hat_common.cuh (hat_ring_kernel), which K1
 // runs with two operands: a persistent grid of 512-thread blocks draws tiles
 // of consecutive rows, about 16 KB, from a per-stream counter through a
 // three-stage ring of TMA bulk copies; each thread computes four lanes and
 // stores them with one 16-byte streaming store; the displacement volume and
-// the lane-affine table are read with 16-byte __ldg, not staged. K2's tiles
-// are whole 16-byte units (4 / gcd(S, 4) rows, x on 16 bytes: the wrapper
-// copies an x that is not), so at S = 6143 two stages of its 4-row tiles
-// (197 KB) fit where three do not. The bf16 lane-affine and per-slice forms
-// run hat_lanes_kernel (hat_common.cuh): a thread keeps eight lanes across
-// the rows of its tiles, their terms in registers, and the taps' index comes
+// the lane-affine table are read with 16-byte __ldg, not staged. Only the
+// staged rows are tiled: outputs of OW lanes go from registers to device
+// memory, so OW != S changes the stores, not the ring. K2's tiles are whole
+// 16-byte units (4 / gcd(S, 4) rows, x on 16 bytes: the wrapper copies an x
+// that is not), so at S = 6143 two stages of its 4-row tiles (197 KB) fit
+// where three do not. The bf16 lane-affine and per-slice forms run
+// hat_lanes_kernel (hat_common.cuh): a thread keeps eight lanes across the
+// rows of its tiles, their terms in registers, and the taps' index comes
 // from one rounding add; 4 bytes an element leave too few instructions for
 // the ring kernel's per-group work.
 
@@ -91,31 +97,29 @@
 namespace {
 
 // K2's form (kNearest, kCoef, kDisp) on T rows, planned into g and launched
-// if `launch`: the ring kernel with one operand, OW = S, tiles in whole
-// 16-byte units
+// if `launch`: the ring kernel with one operand, tiles in whole 16-byte units
 template <typename T, bool kNearest, int kCoef, int kDisp>
-cudaError_t run(const T* x, const float* disp, const float* coefs, T* out, long long nrows, int R, int H, int S,
+cudaError_t run(const T* x, const float* disp, const float* coefs, T* out, long long nrows, int R, int H, int S, int OW,
                 bool launch, cudaStream_t st, Geometry* g) {
-  return hat_ring_run<T, 1, kNearest, kCoef, kDisp>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S, S,
-                                                    launch, st, g);
+  return hat_ring_run<T, 1, kNearest, kCoef, kDisp>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S, OW, launch,
+                                                    st, g);
 }
 
-// K2's instantiated forms of element type T: cudaErrorInvalidValue for
-// another one. f32: every form; bf16 (the production mode's): the linear
-// lane-affine and per-slice forms (the lanes kernel, hat_common.cuh) and the
-// per-sample forms without a displacement (the affine warp without the
-// nonlinear field).
+// K2's instantiated forms of element type T (every one in f32 and bf16):
+// cudaErrorInvalidValue for another one. The linear bf16 lane-affine and
+// per-slice forms run the lanes kernel (hat_common.cuh), the others the ring
+// kernel.
 template <typename T>
 cudaError_t hat_run(const T* x, const float* disp, const float* coefs, T* out, long long nrows, int R, int H, int S,
-                    int nearest, int coef_mode, int disp_mode, bool launch, cudaStream_t st, Geometry* g) {
+                    int OW, int nearest, int coef_mode, int disp_mode, bool launch, cudaStream_t st, Geometry* g) {
   constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   if (coef_mode == kCoefPerSlice) {
     if (nearest || disp_mode != kDispNone) return cudaErrorInvalidValue;
     if constexpr (kBf16) {
-      return hat_lanes_run<1, kCoefPerSlice, kDispNone>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S, S,
+      return hat_lanes_run<1, kCoefPerSlice, kDispNone>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S, OW,
                                                         launch, st, g);
     } else {
-      return run<T, false, kCoefPerSlice, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+      return run<T, false, kCoefPerSlice, kDispNone>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
     }
   }
   if (coef_mode != kCoefPerSample) return cudaErrorInvalidValue;
@@ -123,20 +127,20 @@ cudaError_t hat_run(const T* x, const float* disp, const float* coefs, T* out, l
     if (nearest) return cudaErrorInvalidValue;
     if constexpr (kBf16) {
       return hat_lanes_run<1, kCoefPerSample, kDispLaneAffine>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S,
-                                                               S, launch, st, g);
+                                                               OW, launch, st, g);
     } else {
-      return run<T, false, kCoefPerSample, kDispLaneAffine>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+      return run<T, false, kCoefPerSample, kDispLaneAffine>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
     }
   }
   if (disp_mode == kDispNone) {
-    if (nearest) return run<T, true, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
-    return run<T, false, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+    if (nearest) return run<T, true, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
+    return run<T, false, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
   }
-  if constexpr (std::is_same_v<T, float>) {
-    if (disp_mode == kDispVolume) {
-      if (nearest) return run<T, true, kCoefPerSample, kDispVolume>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
-      return run<T, false, kCoefPerSample, kDispVolume>(x, disp, coefs, out, nrows, R, H, S, launch, st, g);
+  if (disp_mode == kDispVolume) {
+    if (nearest) {
+      return run<T, true, kCoefPerSample, kDispVolume>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
     }
+    return run<T, false, kCoefPerSample, kDispVolume>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
   }
   return cudaErrorInvalidValue;
 }
@@ -337,45 +341,45 @@ cudaError_t variant_run(const float* x, const float* tab, const float* coefs, fl
 
 }  // namespace
 
-// x, out: (B, R, S); coefs: (B, 4), or per slice (B, R/H, 4) when coef_mode
-// is kCoefPerSlice; disp: (B, R, S), (B, 3, S) or null as disp_mode says
-// (DispMode in hat_common.cuh); all f32, contiguous, on the current device,
-// x on 16 bytes. nearest != 0 selects nearest sampling. Launches on `stream`
-// without synchronising and returns cudaGetLastError(), or an error without
-// launching: cudaErrorInvalidValue for a form that is not instantiated or an
-// S whose two ring stages do not fit, cudaErrorMisalignedAddress for x off
-// 16 bytes, or the failed attribute, occupancy or tile-counter call.
+// x: (B, R, S); out: (B, R, OW); coefs: (B, 4), or per slice (B, R/H, 4)
+// when coef_mode is kCoefPerSlice; disp: (B, R, OW), (B, 3, OW) or null as
+// disp_mode says (DispMode in hat_common.cuh); all f32, contiguous, on the
+// current device, x on 16 bytes. nearest != 0 selects nearest sampling.
+// Launches on `stream` without synchronising and returns cudaGetLastError(),
+// or an error without launching: cudaErrorInvalidValue for a form that is
+// not instantiated or an S whose two ring stages do not fit,
+// cudaErrorMisalignedAddress for x off 16 bytes, or the failed attribute,
+// occupancy or tile-counter call.
 extern "C" int fsg_hat_pass_f32(const float* x, const float* disp, const float* coefs,
-                                float* out, int B, int R, int H, int S, int nearest,
+                                float* out, int B, int R, int H, int S, int OW, int nearest,
                                 int coef_mode, int disp_mode, void* stream) {
   Geometry g;
-  return static_cast<int>(hat_run(x, disp, coefs, out, static_cast<long long>(B) * R, R, H, S, nearest,
+  return static_cast<int>(hat_run(x, disp, coefs, out, static_cast<long long>(B) * R, R, H, S, OW, nearest,
                                   coef_mode, disp_mode, true, static_cast<cudaStream_t>(stream), &g));
 }
 
 // fsg_hat_pass_f32 with bf16 x and out (x on 16 bytes; coefs and disp f32),
-// in the linear lane-affine and per-slice forms and the per-sample forms
-// without a displacement.
+// in the same forms.
 extern "C" int fsg_hat_pass_bf16(const __nv_bfloat16* x, const float* disp, const float* coefs,
-                                 __nv_bfloat16* out, int B, int R, int H, int S, int nearest, int coef_mode,
+                                 __nv_bfloat16* out, int B, int R, int H, int S, int OW, int nearest, int coef_mode,
                                  int disp_mode, void* stream) {
   Geometry g;
-  return static_cast<int>(hat_run(x, disp, coefs, out, static_cast<long long>(B) * R, R, H, S, nearest, coef_mode,
+  return static_cast<int>(hat_run(x, disp, coefs, out, static_cast<long long>(B) * R, R, H, S, OW, nearest, coef_mode,
                                   disp_mode, true, static_cast<cudaStream_t>(stream), &g));
 }
 
 // The launch fsg_hat_pass_f32 (io_bf16 0) or fsg_hat_pass_bf16 (io_bf16 1)
-// makes on the current device for (B, R, S) in the form (nearest, coef_mode,
-// disp_mode): geometry = {tile rows, ring stages, grid blocks, dynamic
-// shared-memory bytes}. Returns a cudaError code.
-extern "C" int fsg_hat_geometry(int B, int R, int S, int nearest, int coef_mode, int disp_mode, int io_bf16,
+// makes on the current device for (B, R, S), OW lanes out, in the form
+// (nearest, coef_mode, disp_mode): geometry = {tile rows, ring stages, grid
+// blocks, dynamic shared-memory bytes}. Returns a cudaError code.
+extern "C" int fsg_hat_geometry(int B, int R, int S, int OW, int nearest, int coef_mode, int disp_mode, int io_bf16,
                                 int* geometry) {
   Geometry g{};
   const long long nrows = static_cast<long long>(B) * R;
   const cudaError_t e =
-      io_bf16 ? hat_run<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nrows, R, 1, S, nearest, coef_mode,
+      io_bf16 ? hat_run<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nrows, R, 1, S, OW, nearest, coef_mode,
                                        disp_mode, false, nullptr, &g)
-              : hat_run<float>(nullptr, nullptr, nullptr, nullptr, nrows, R, 1, S, nearest, coef_mode, disp_mode,
+              : hat_run<float>(nullptr, nullptr, nullptr, nullptr, nrows, R, 1, S, OW, nearest, coef_mode, disp_mode,
                                false, nullptr, &g);
   write_geometry(g, geometry);
   return static_cast<int>(e);

@@ -13,17 +13,18 @@ where ``pos <= 0`` and ``x[S-1]`` where ``pos >= S-1`` (``_hat_pass_jnp``
 semantics). ``coefs`` is one (ci, cj, ck, bias) row per sample, (B, 4), or
 one per slice ``row_i``, (B, D, 4). The displacement is a (B, D, H, OW)
 volume ``disp[b, i, j, l]``, a (B, 3, OW) lane-affine table
-``(A0[l]*row_i + A1[l]*row_j) + A2[l]``, or absent.
+``(A0[l]*row_i + A1[l]*row_j) + A2[l]``, or absent. The output rows have OW
+lanes: the displacement's, else ``out_len``, else the input rows' S.
 
 - :func:`hat_pass_pair` (K1, ``csrc/hat_pass.cu``) samples two operands at
-  shared positions, the first linearly, the second nearest (the generator's
-  image and labels: per-sample coefficients and a displacement volume; the
-  kernel probes' plain passes: per-sample coefficients, no displacement) or
-  linearly (the scanner's pairs: a lane-affine table, or per-slice
-  coefficients without a displacement).
-- :func:`hat_pass` (K2, ``csrc/hat_single.cu``) samples one operand, OW == W:
+  shared positions, each linearly or nearest: (linear, nearest) with a
+  displacement volume (the generator's image and labels); linearly with a
+  lane-affine table or per-slice coefficients (the scanner's pairs); and
+  per-sample coefficients without a displacement in all four modes (the
+  separable pair warp, the kernel probes' plain passes).
+- :func:`hat_pass` (K2, ``csrc/hat_single.cu``) samples one operand:
   per-sample coefficients, linearly or nearest, with or without a
-  displacement volume, or linearly with a (B, 3, W) lane-affine table; or
+  displacement volume, or linearly with a (B, 3, OW) lane-affine table; or
   per-slice coefficients, linearly, without a displacement.
 
 The operand rows and the outputs are f32, or bf16 (the stream's production
@@ -31,11 +32,8 @@ mode, ``ops.linops.storage_scope``); coefficients, displacements and
 lane-affine tables are f32 either way, and so is the tap arithmetic: a linear
 sample widens its two taps to f32 and rounds its result to bf16 once, a
 nearest sample is the gathered value as it is (``_hat_pass_jnp``'s
-semantics). The bf16 kernels are instantiated for the forms the production
-mode launches: K1's main-path form and its lane-affine pair; K2's
-lane-affine and per-slice forms and its per-sample forms without a
-displacement (the affine warp of a generator without the nonlinear field).
-The linear lane-affine and per-slice bf16 forms run a kernel of their own
+semantics). Every form has a bf16 twin. The linear bf16 forms without a
+displacement volume, but K2's per-sample one, run a kernel of their own
 (``hat_lanes_kernel`` in ``csrc/hat_common.cuh``, a thread keeping its lanes
 across rows), the others the ring kernel both dtypes share.
 
@@ -53,14 +51,20 @@ import functools
 import torch
 
 # Kernel launches of each instantiated form (one per wrapper call, whole
-# batch): K1's main-path form, its scanner forms and its form without a
-# displacement; K2's per-sample forms, its lane-affine form and its
-# per-slice form; then the bf16 forms ("_bf16").
+# batch): K1's main-path form, its scanner forms and its per-sample forms
+# without a displacement in the modes (linear, nearest), (linear, linear),
+# (nearest, linear) and (nearest, nearest); K2's per-sample forms, its
+# lane-affine form and its per-slice form; then the bf16 forms ("_bf16"),
+# where K2's per-sample forms with a displacement volume count apart
+# ("hat_pass_field_bf16").
 LAUNCHES = {
     "hat_pass_pair": 0, "hat_pass_pair_lane": 0, "hat_pass_pair_slice": 0,
     "hat_pass_pair_nodisp": 0, "hat_pass": 0, "hat_pass_lane": 0, "hat_pass_slice": 0,
     "hat_pass_pair_bf16": 0, "hat_pass_pair_lane_bf16": 0, "hat_pass_bf16": 0, "hat_pass_lane_bf16": 0,
     "hat_pass_slice_bf16": 0,
+    "hat_pass_pair_nodisp_ll": 0, "hat_pass_pair_nodisp_nl": 0, "hat_pass_pair_nodisp_nn": 0,
+    "hat_pass_pair_slice_bf16": 0, "hat_pass_pair_nodisp_bf16": 0, "hat_pass_pair_nodisp_ll_bf16": 0,
+    "hat_pass_pair_nodisp_nl_bf16": 0, "hat_pass_pair_nodisp_nn_bf16": 0, "hat_pass_field_bf16": 0,
 }
 
 # The longest row the wrappers take. On the card, the ring's plan()
@@ -74,28 +78,28 @@ _MAX_S = 6144
 _COEF_PER_SAMPLE, _COEF_PER_SLICE = 0, 1
 _DISP_NONE, _DISP_VOLUME, _DISP_LANE_AFFINE = 0, 1, 2
 
-# (nearest second operand, coef mode, disp mode) of K1's instantiations, and
-# (nearest, coef mode, disp mode) of K2's -> their LAUNCHES key
+# (nearest first operand, nearest second operand, coef mode, disp mode) of
+# K1's instantiations, and (nearest, coef mode, disp mode) of K2's -> their
+# LAUNCHES key
 _PAIR_FORMS = {
-    (True, _COEF_PER_SAMPLE, _DISP_VOLUME): "hat_pass_pair",
-    (False, _COEF_PER_SAMPLE, _DISP_LANE_AFFINE): "hat_pass_pair_lane",
-    (False, _COEF_PER_SLICE, _DISP_NONE): "hat_pass_pair_slice",
-    (True, _COEF_PER_SAMPLE, _DISP_NONE): "hat_pass_pair_nodisp",
+    (False, True, _COEF_PER_SAMPLE, _DISP_VOLUME): "hat_pass_pair",
+    (False, False, _COEF_PER_SAMPLE, _DISP_LANE_AFFINE): "hat_pass_pair_lane",
+    (False, False, _COEF_PER_SLICE, _DISP_NONE): "hat_pass_pair_slice",
+    (False, True, _COEF_PER_SAMPLE, _DISP_NONE): "hat_pass_pair_nodisp",
+    (False, False, _COEF_PER_SAMPLE, _DISP_NONE): "hat_pass_pair_nodisp_ll",
+    (True, False, _COEF_PER_SAMPLE, _DISP_NONE): "hat_pass_pair_nodisp_nl",
+    (True, True, _COEF_PER_SAMPLE, _DISP_NONE): "hat_pass_pair_nodisp_nn",
 }
 _SINGLE_FORMS = {
     **{(n, _COEF_PER_SAMPLE, d): "hat_pass" for n in (False, True) for d in (_DISP_NONE, _DISP_VOLUME)},
     (False, _COEF_PER_SAMPLE, _DISP_LANE_AFFINE): "hat_pass_lane",
     (False, _COEF_PER_SLICE, _DISP_NONE): "hat_pass_slice",
 }
-# the bf16 instantiations (csrc/hat_pass.cu, csrc/hat_single.cu)
-_PAIR_FORMS_BF16 = {
-    (True, _COEF_PER_SAMPLE, _DISP_VOLUME): "hat_pass_pair_bf16",
-    (False, _COEF_PER_SAMPLE, _DISP_LANE_AFFINE): "hat_pass_pair_lane_bf16",
-}
+# the bf16 twins (csrc/hat_pass.cu, csrc/hat_single.cu)
+_PAIR_FORMS_BF16 = {form: f"{key}_bf16" for form, key in _PAIR_FORMS.items()}
 _SINGLE_FORMS_BF16 = {
-    **{(n, _COEF_PER_SAMPLE, _DISP_NONE): "hat_pass_bf16" for n in (False, True)},
-    (False, _COEF_PER_SAMPLE, _DISP_LANE_AFFINE): "hat_pass_lane_bf16",
-    (False, _COEF_PER_SLICE, _DISP_NONE): "hat_pass_slice_bf16",
+    **{form: f"{key}_bf16" for form, key in _SINGLE_FORMS.items()},
+    **{(n, _COEF_PER_SAMPLE, _DISP_VOLUME): "hat_pass_field_bf16" for n in (False, True)},
 }
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -161,32 +165,46 @@ def _sample_ref(x: torch.Tensor, pos: torch.Tensor, nearest: bool) -> torch.Tens
     return torch.where(sat_hi, x[:, :, S - 1 :], out)
 
 
-def hat_pass_pair_ref(va, vb, coefs, disp, nearest_b=True):
+def _out_len(S: int, disp, out_len) -> int:
+    """The output rows' length: the displacement's lanes, else ``out_len``,
+    else S; raises where ``out_len`` disagrees with the displacement."""
+    OW = disp.shape[-1] if disp is not None else (S if out_len is None else int(out_len))
+    if out_len is not None and int(out_len) != OW:
+        raise ValueError(f"out_len={out_len} but the displacement has {OW} lanes")
+    if OW < 1:
+        raise ValueError(f"out_len must be positive, got {OW}")
+    return OW
+
+
+def hat_pass_pair_ref(va, vb, coefs, disp, nearest_b=True, out_len=None, nearest_a=False):
     """Plain PyTorch paired hat pass (K1's reference).
 
-    ``va`` (linear), ``vb`` (nearest if ``nearest_b``, else linear): (B, D,
-    H, S) f32 or bf16, outputs in their dtype; ``coefs``: (B, 4) or (B, D, 4); ``disp``: (B, D, H, OW),
-    (B, 3, OW) or None (then OW = S). Returns two (B, D, H, OW) tensors.
+    ``va`` (nearest if ``nearest_a``, else linear), ``vb`` (nearest if
+    ``nearest_b``, else linear): (B, D, H, S) f32 or bf16, outputs in their
+    dtype; ``coefs``: (B, 4) or (B, D, 4); ``disp``: (B, D, H, OW), (B, 3,
+    OW) or None (then OW = ``out_len``, or S). Returns two (B, D, H, OW)
+    tensors.
     """
     B, D, H, S = va.shape
-    OW = S if disp is None else disp.shape[-1]
+    OW = _out_len(S, disp, out_len)
     R = D * H
     pos = _positions_of(coefs, B, D, H, OW, disp)
-    oa = _sample_ref(va.reshape(B, R, S), pos, nearest=False)
+    oa = _sample_ref(va.reshape(B, R, S), pos, nearest=nearest_a)
     ob = _sample_ref(vb.reshape(B, R, S), pos, nearest=nearest_b)
     return oa.reshape(B, D, H, OW), ob.reshape(B, D, H, OW)
 
 
-def hat_pass_ref(x, coefs, disp=None, nearest=False):
+def hat_pass_ref(x, coefs, disp=None, nearest=False, out_len=None):
     """Plain PyTorch single-operand hat pass (K2's reference).
 
     ``x``: (B, D, H, S) f32 or bf16; ``coefs``: (B, 4) or (B, D, 4); ``disp``:
-    (B, D, H, S), (B, 3, S) or None. Returns a (B, D, H, S) tensor of ``x``'s
-    dtype, sampled nearest if ``nearest``.
+    (B, D, H, OW), (B, 3, OW) or None (then OW = ``out_len``, or S). Returns
+    a (B, D, H, OW) tensor of ``x``'s dtype, sampled nearest if ``nearest``.
     """
     B, D, H, S = x.shape
-    pos = _positions_of(coefs, B, D, H, S, disp)
-    return _sample_ref(x.reshape(B, D * H, S), pos, nearest).reshape(B, D, H, S)
+    OW = _out_len(S, disp, out_len)
+    pos = _positions_of(coefs, B, D, H, OW, disp)
+    return _sample_ref(x.reshape(B, D * H, S), pos, nearest).reshape(B, D, H, OW)
 
 
 @functools.cache
@@ -201,13 +219,14 @@ def _bind(stem: str, symbol: str, n_ptrs: int, n_ints: int):
     return fn
 
 
-def _check(x, others, coefs, disp, ow_free):
-    """Validate a CUDA launch: ``x`` (B, D, H, S) and ``others`` of its shape,
-    (B, 4) or (B, D, 4) ``coefs``, a (B, D, H, OW) or (B, 3, OW) ``disp``
-    (OW == S unless ``ow_free``) or None; the volumes f32 or bf16, all of one
-    dtype, the coefficients and the displacement f32; all contiguous, on
-    ``x``'s device. Reads only shapes, dtypes, devices and strides, so it
-    runs on tensors of any device."""
+def _check(x, others, coefs, disp, out_len=None) -> int:
+    """Validate a CUDA launch and return its output rows' length OW
+    (:func:`_out_len`): ``x`` (B, D, H, S) and ``others`` of its shape,
+    (B, 4) or (B, D, 4) ``coefs``, a (B, D, H, OW) or (B, 3, OW) ``disp`` or
+    None; the volumes f32 or bf16, all of one dtype, the coefficients and
+    the displacement f32; all contiguous, on ``x``'s device. Reads only
+    shapes, dtypes, devices and strides, so it runs on tensors of any
+    device."""
     shape = x.shape
     if len(shape) != 4 or any(o.shape != shape for o in others):
         raise ValueError(
@@ -216,13 +235,8 @@ def _check(x, others, coefs, disp, ow_free):
     B, D, H, S = shape
     if disp is not None:
         ds = disp.shape
-        lead = (B, 3) if len(ds) == 3 else (B, D, H)
-        if ds[:-1] != lead or not (ow_free or ds[-1] == S):
-            want = "OW" if ow_free else str(S)
-            raise ValueError(
-                f"disp must be (B, D, H, {want}) = ({B}, {D}, {H}, {want}) or (B, 3, {want}), "
-                f"got {tuple(ds)}"
-            )
+        if ds[:-1] != ((B, 3) if len(ds) == 3 else (B, D, H)):
+            raise ValueError(f"disp must be (B, D, H, OW) = ({B}, {D}, {H}, OW) or (B, 3, OW), got {tuple(ds)}")
     cs = coefs.shape
     if cs != (B, 4) and cs != (B, D, 4):
         raise ValueError(f"coefs must be ({B}, 4) or ({B}, {D}, 4), got {tuple(cs)}")
@@ -243,6 +257,7 @@ def _check(x, others, coefs, disp, ow_free):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return _out_len(S, disp, out_len)
 
 
 def _call(fn, dev, *args) -> int:
@@ -253,12 +268,13 @@ def _call(fn, dev, *args) -> int:
 
 
 def _form(nearest, coefs, disp, forms, name):
-    form = (bool(nearest), _COEF_PER_SLICE if coefs.dim() == 3 else _COEF_PER_SAMPLE, _disp_mode(disp))
+    """The instantiation key of a call: ``nearest`` is K2's mode, or K1's
+    (first, second) modes as a tuple; raises for a form without a kernel."""
+    modes = tuple(bool(n) for n in nearest) if isinstance(nearest, tuple) else (bool(nearest),)
+    form = (*modes, _COEF_PER_SLICE if coefs.dim() == 3 else _COEF_PER_SAMPLE, _disp_mode(disp))
     if form not in forms:
-        raise ValueError(
-            f"{name}: no kernel for (nearest, coef mode, disp mode) = {form}; "
-            f"instantiated: {sorted(forms)}"
-        )
+        what = "(nearest a, nearest b, coef mode, disp mode)" if len(modes) == 2 else "(nearest, coef mode, disp mode)"
+        raise ValueError(f"{name}: no kernel for {what} = {form}; instantiated: {sorted(forms)}")
     return form
 
 
@@ -271,15 +287,16 @@ def _instantiated(pair: bool, dtype) -> tuple[dict, str]:
     return (_SINGLE_FORMS_BF16 if bf16 else _SINGLE_FORMS), f"hat_pass ({dtype})"
 
 
-def launch_key(pair: bool, nearest, coefs, disp, dtype) -> str:
+def launch_key(pair: bool, nearest, coefs, disp, dtype, nearest_a=False) -> str:
     """The ``LAUNCHES`` key of the form a call of :func:`hat_pass_pair`
-    (``pair``) or :func:`hat_pass` with these arguments and operands of
-    ``dtype`` launches; raises for a form without a kernel."""
+    (``pair``; ``nearest`` its ``nearest_b``) or :func:`hat_pass` with these
+    arguments and operands of ``dtype`` launches; raises for a form without
+    a kernel."""
     forms, name = _instantiated(pair, dtype)
-    return forms[_form(nearest, coefs, disp, forms, name)]
+    return forms[_form((nearest_a, nearest) if pair else nearest, coefs, disp, forms, name)]
 
 
-def hat_pass_pair(va, vb, coefs, disp, nearest_b=True):
+def hat_pass_pair(va, vb, coefs, disp, nearest_b=True, out_len=None, nearest_a=False):
     """Paired hat pass (K1) over a batch; see the module docstring.
 
     CPU tensors take :func:`hat_pass_pair_ref`. CUDA tensors must be
@@ -290,22 +307,20 @@ def hat_pass_pair(va, vb, coefs, disp, nearest_b=True):
     into larger tensors): the kernel stages them from there.
     """
     if va.device.type == "cpu":
-        return hat_pass_pair_ref(va, vb, coefs, disp, nearest_b)
+        return hat_pass_pair_ref(va, vb, coefs, disp, nearest_b, out_len, nearest_a)
     if va.device.type != "cuda":
         raise ValueError(f"hat_pass_pair runs on cpu or cuda tensors, got {va.device}")
-    _check(va, (vb,), coefs, disp, ow_free=True)
+    OW = _check(va, (vb,), coefs, disp, out_len)
     bf16 = va.dtype == torch.bfloat16
     forms, name = _instantiated(True, va.dtype)
-    form = _form(nearest_b, coefs, disp, forms, name)
-    _, coef_mode, disp_mode = form
+    form = _form((nearest_a, nearest_b), coefs, disp, forms, name)
     B, D, H, S = va.shape
-    OW = S if disp is None else disp.shape[-1]
     oa = torch.empty((B, D, H, OW), dtype=va.dtype, device=va.device)
     ob = torch.empty_like(oa)
     rc = _call(
-        _bind("hat_pass", "fsg_hat_pass_pair_bf16" if bf16 else "fsg_hat_pass_pair_f32", 6, 8), va.device,
+        _bind("hat_pass", "fsg_hat_pass_pair_bf16" if bf16 else "fsg_hat_pass_pair_f32", 6, 9), va.device,
         va.data_ptr(), vb.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(),
-        oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, OW, int(nearest_b), coef_mode, disp_mode,
+        oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, OW, *form,
     )
     if rc != 0:
         raise RuntimeError(f"hat_pass_pair kernel launch failed: cudaError {rc}")
@@ -313,7 +328,7 @@ def hat_pass_pair(va, vb, coefs, disp, nearest_b=True):
     return oa, ob
 
 
-def hat_pass(x, coefs, disp=None, nearest=False):
+def hat_pass(x, coefs, disp=None, nearest=False, out_len=None):
     """Single-operand hat pass (K2) over a batch; see the module docstring.
 
     CPU tensors take :func:`hat_pass_ref`. CUDA tensors must be
@@ -325,10 +340,10 @@ def hat_pass(x, coefs, disp=None, nearest=False):
     (``COPIES`` counts those copies).
     """
     if x.device.type == "cpu":
-        return hat_pass_ref(x, coefs, disp, nearest)
+        return hat_pass_ref(x, coefs, disp, nearest, out_len)
     if x.device.type != "cuda":
         raise ValueError(f"hat_pass runs on cpu or cuda tensors, got {x.device}")
-    _check(x, (), coefs, disp, ow_free=False)
+    OW = _check(x, (), coefs, disp, out_len)
     bf16 = x.dtype == torch.bfloat16
     forms, name = _instantiated(False, x.dtype)
     form = _form(nearest, coefs, disp, forms, name)
@@ -336,11 +351,11 @@ def hat_pass(x, coefs, disp=None, nearest=False):
         x = x.clone()
         COPIES["hat_pass"] += 1
     B, D, H, S = x.shape
-    out = torch.empty_like(x)
+    out = torch.empty((B, D, H, OW), dtype=x.dtype, device=x.device)
     rc = _call(
-        _bind("hat_single", "fsg_hat_pass_bf16" if bf16 else "fsg_hat_pass_f32", 4, 7), x.device,
+        _bind("hat_single", "fsg_hat_pass_bf16" if bf16 else "fsg_hat_pass_f32", 4, 8), x.device,
         x.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(), out.data_ptr(),
-        B, D * H, H, S, *form,
+        B, D * H, H, S, OW, *form,
     )
     if rc != 0:
         raise RuntimeError(f"hat_pass kernel launch failed: cudaError {rc}")
@@ -348,33 +363,37 @@ def hat_pass(x, coefs, disp=None, nearest=False):
     return out
 
 
-def _geometry(stem, symbol, shape, nearest, coefs_per_slice, disp, dtype):
+def _geometry(stem, symbol, shape, modes, coefs_per_slice, disp, dtype, out_len):
     from .build import load_library
 
     fn = getattr(load_library(stem), symbol)
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * (7 + len(modes)) + [ctypes.POINTER(ctypes.c_int)]
     B, D, H, S = shape
     mode = {"none": _DISP_NONE, "volume": _DISP_VOLUME, "lane": _DISP_LANE_AFFINE}[disp]
     if dtype not in _IO_DTYPES:
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
     out = (ctypes.c_int * 4)()
-    rc = fn(B, D * H, S, int(nearest), int(coefs_per_slice), mode, int(dtype == torch.bfloat16), out)
+    OW = S if out_len is None else int(out_len)
+    rc = fn(B, D * H, S, OW, *(int(m) for m in modes), int(coefs_per_slice), mode, int(dtype == torch.bfloat16), out)
     if rc != 0:
         raise RuntimeError(f"{symbol}: {tuple(shape)} {disp}: cudaError {rc}")
     return dict(zip(("tile_rows", "stages", "grid", "smem_bytes"), out))
 
 
-def hat_geometry(shape, nearest=False, coefs_per_slice=False, disp="none", dtype=torch.float32):
+def hat_geometry(shape, nearest=False, coefs_per_slice=False, disp="none", dtype=torch.float32, out_len=None):
     """The launch :func:`hat_pass` makes on the current CUDA device for a
-    (B, D, H, S) ``x`` of ``dtype`` in the form (``nearest``,
-    ``coefs_per_slice``, ``disp`` "none", "volume" or "lane"): a dict of
-    tile rows, ring stages, grid blocks and dynamic shared-memory bytes."""
-    return _geometry("hat_single", "fsg_hat_geometry", shape, nearest, coefs_per_slice, disp, dtype)
+    (B, D, H, S) ``x`` of ``dtype`` to ``out_len`` lanes (default S) in the
+    form (``nearest``, ``coefs_per_slice``, ``disp`` "none", "volume" or
+    "lane"): a dict of tile rows, ring stages, grid blocks and dynamic
+    shared-memory bytes."""
+    return _geometry("hat_single", "fsg_hat_geometry", shape, (nearest,), coefs_per_slice, disp, dtype, out_len)
 
 
-def hat_pair_geometry(shape, nearest_b=True, coefs_per_slice=False, disp="volume", dtype=torch.float32):
+def hat_pair_geometry(shape, nearest_b=True, coefs_per_slice=False, disp="volume", dtype=torch.float32,
+                      out_len=None, nearest_a=False):
     """The launch :func:`hat_pass_pair` makes on the current CUDA device for
-    (B, D, H, S) operands of ``dtype`` in the form (``nearest_b``,
-    ``coefs_per_slice``, ``disp`` "none", "volume" or "lane"), as
-    :func:`hat_geometry` gives it."""
-    return _geometry("hat_pass", "fsg_hat_pair_geometry", shape, nearest_b, coefs_per_slice, disp, dtype)
+    (B, D, H, S) operands of ``dtype`` to ``out_len`` lanes (default S) in
+    the form (``nearest_a``, ``nearest_b``, ``coefs_per_slice``, ``disp``
+    "none", "volume" or "lane"), as :func:`hat_geometry` gives it."""
+    return _geometry("hat_pass", "fsg_hat_pair_geometry", shape, (nearest_a, nearest_b), coefs_per_slice, disp, dtype,
+                     out_len)

@@ -49,6 +49,7 @@ import math
 
 import torch
 
+from .blur import gaussian_kernel_fixed
 from .interp import zoom_coords
 
 # The precision scope's one narrowed value: one bf16 pass, JAX's
@@ -185,15 +186,7 @@ def toeplitz_blur_matrix(sigma: torch.Tensor, size: int, half_len: int) -> torch
     yields the identity.
     """
     dev = sigma.device
-    sigma = sigma[:, None]
-    t = torch.arange(-half_len, half_len + 1, dtype=torch.float32, device=dev)[None, :]
-    sl = torch.ceil(3.0 * sigma)
-    safe = torch.where(sigma > 0, sigma, 1.0)
-    g = torch.exp(-((t / safe) ** 2) / 2.0)
-    g = torch.where(torch.abs(t) <= sl, g, 0.0)
-    g = g / torch.sum(g, dim=1, keepdim=True)
-    kernel = torch.where(sigma > 0, g, (t == 0).to(torch.float32))
-
+    kernel = gaussian_kernel_fixed(sigma, half_len)
     rows = torch.arange(size, device=dev)[:, None]
     cols = torch.arange(size, device=dev)[None, :]
     idx = cols - rows + half_len

@@ -9,11 +9,19 @@ so the warp runs as single-axis resampling passes with closed-form positions.
   go through the paired hat kernel
   (:func:`fetalsyngen_torch.kernels.hat.hat_pass_pair`).
 - One volume (:func:`warp_affine_separable`,
-  :func:`warp_affine_field_separable`): every pass goes through the
-  single-operand hat kernel (:func:`fetalsyngen_torch.kernels.hat.hat_pass`).
+  :func:`warp_affine_field_separable`, :func:`warp_displacement_separable`):
+  every pass goes through the single-operand hat kernel
+  (:func:`fetalsyngen_torch.kernels.hat.hat_pass`).
+- A pair with per-operand modes (:func:`warp_affine_separable_pair`): five
+  passes of the paired hat kernel without a displacement.
 - The scanner's rigid maps of cube volumes (:func:`warp_rigid_pair_traced`
   with its host decompositions): a quarter turn, unit shears as batched
   matmuls (:func:`_shear_pass_pair_mm`) and a separable zoom, unbatched.
+
+The affine warps may write another grid than the input's (``out_shape``):
+the U passes resample to its lengths (``out_len``). Their ``maxspan``
+argument is accepted and has no effect: it sized the TPU kernels' tap
+window, and the port's kernels read their two taps directly.
 
 The affine warps are batch-first, with per-sample scalars as (B,) tensors;
 the rigid warps take one (D, H, W) volume or pair. The pass order, layouts
@@ -140,43 +148,93 @@ def warp_affine_field_pair(va, vb, A, t, Fx, Fy, Fz):
     return warp_affine_field_pair_pre(va, vb, A, t, gy.permute(0, 1, 3, 2), gz, gx.permute(0, 2, 3, 1))
 
 
-def _hat(x, ci, cj, ck, bias, nearest, disp=None):
+def _hat(x, ci, cj, ck, bias, nearest, disp=None, out_len=None):
     """A hat pass (K2) of one (B, D, H, W) volume with per-sample (B,)
-    coefficients ``ci, cj, ck, bias`` and an optional displacement, on rows
-    of the storage scope's type (:func:`~fetalsyngen_torch.ops.linops.io_dtype`)."""
+    coefficients ``ci, cj, ck, bias``, an optional displacement and output
+    length, on rows of the storage scope's type
+    (:func:`~fetalsyngen_torch.ops.linops.io_dtype`)."""
     coefs = torch.stack([ci, cj, ck, bias], dim=1).contiguous()
-    return hat_pass(x.to(io_dtype()).contiguous(), coefs, None if disp is None else disp.contiguous(), nearest)
+    return hat_pass(x.to(io_dtype()).contiguous(), coefs, None if disp is None else disp.contiguous(), nearest,
+                    out_len)
 
 
-def _u_passes(x, U, t, nearest):
+def _u_passes(x, U, t, nearest, out_shape=None):
     """The U stage ``W1(p) = V[U p + t]``: U-z on (i,j,k), U-y on (i,k,j),
-    U-x on (j,k,i); returns the (j,k,i) layout."""
+    U-x on (j,k,i), each resampling to its axis of ``out_shape`` (default
+    the input's); returns the (j,k,i) layout."""
+    OD, OH, OW = out_shape if out_shape is not None else x.shape[1:]
     zero = torch.zeros_like(t[:, 0])
-    x = _hat(x, zero, zero, U[:, 2, 2], t[:, 2], nearest)
+    x = _hat(x, zero, zero, U[:, 2, 2], t[:, 2], nearest, out_len=OW)
     x = x.permute(0, 1, 3, 2)  # (i, k, j)
-    x = _hat(x, zero, U[:, 1, 2], U[:, 1, 1], t[:, 1], nearest)
+    x = _hat(x, zero, U[:, 1, 2], U[:, 1, 1], t[:, 1], nearest, out_len=OH)
     x = x.permute(0, 3, 2, 1)  # (j, k, i)
-    return _hat(x, U[:, 0, 1], U[:, 0, 2], U[:, 0, 0], t[:, 0], nearest)
+    return _hat(x, U[:, 0, 1], U[:, 0, 2], U[:, 0, 0], t[:, 0], nearest, out_len=OD)
 
 
-def warp_affine_separable(vol, A, t, nearest=False):
+def warp_affine_separable(vol, A, t, nearest=False, out_shape=None, maxspan=None):
     """``out[o] = V[A o + t]`` of a (B, D, H, W) volume via five triangular
     hat passes (exact positions), with (B, 3, 3) ``A`` and (B, 3) ``t``.
 
     Pass order (layouts in parentheses, resampled axis last):
     U-z (i,j,k) -> U-y (i,k,j) -> U-x (j,k,i) -> L-y (i,k,j) -> L-z (i,j,k).
+    ``out_shape`` (OD, OH, OW) is the output grid the map is evaluated on
+    (default the input's); ``maxspan`` has no effect (module docstring).
     """
+    del maxspan
     U, L = ul_decompose(A)
     t = t.to(torch.float32)
     zero = torch.zeros_like(t[:, 0])
     one = torch.ones_like(zero)
-    x = _u_passes(vol.to(torch.float32), U, t, nearest)
+    x = _u_passes(vol.to(torch.float32), U, t, nearest, out_shape)
     # L stage: out(o) = W1[L o]
     x = x.permute(0, 3, 2, 1)  # (i, k, j)
     x = _hat(x, L[:, 1, 0], zero, one, zero, nearest)
     x = x.permute(0, 1, 3, 2)  # (i, j, k)
     x = _hat(x, L[:, 2, 0], L[:, 2, 1], one, zero, nearest)
     return x.to(vol.dtype)
+
+
+def warp_affine_separable_pair(va, vb, A, t, modes=(False, False), out_shape=None, maxspan=None):
+    """Pair version of :func:`warp_affine_separable`: the five passes shared
+    by two (B, D, H, W) volumes, each sampled linearly or nearest as
+    ``modes`` (first, second) says, one paired hat launch (K1) per pass.
+    Returns the pair in the storage scope's type (f32 outside it);
+    ``maxspan`` has no effect (module docstring)."""
+    del maxspan
+    U, L = ul_decompose(A)
+    t = t.to(torch.float32)
+    OD, OH, OW = out_shape if out_shape is not None else va.shape[1:]
+    zero = torch.zeros_like(t[:, 0])
+    one = torch.ones_like(zero)
+    io = io_dtype()
+    nearest_a, nearest_b = (bool(m) for m in modes)
+
+    def hat(a, b, ci, cj, ck, bias, out_len=None):
+        coefs = torch.stack([ci, cj, ck, bias], dim=1).contiguous()
+        return hat_pass_pair(a.to(io).contiguous(), b.to(io).contiguous(), coefs, None, nearest_b, out_len, nearest_a)
+
+    def tp(a, b, perm):
+        return a.permute(perm), b.permute(perm)
+
+    a, b = hat(va.to(torch.float32), vb.to(torch.float32), zero, zero, U[:, 2, 2], t[:, 2], OW)
+    a, b = hat(*tp(a, b, (0, 1, 3, 2)), zero, U[:, 1, 2], U[:, 1, 1], t[:, 1], OH)  # (i, k, j)
+    a, b = hat(*tp(a, b, (0, 3, 2, 1)), U[:, 0, 1], U[:, 0, 2], U[:, 0, 0], t[:, 0], OD)  # (j, k, i)
+    a, b = hat(*tp(a, b, (0, 3, 2, 1)), L[:, 1, 0], zero, one, zero)  # (i, k, j)
+    return hat(*tp(a, b, (0, 1, 3, 2)), L[:, 2, 0], L[:, 2, 1], one, zero)  # (i, j, k)
+
+
+def warp_displacement_separable(vol, dx, dy, dz, nearest=False):
+    """``out[o] = V[o + d(o)]`` of a (B, D, H, W) volume for small smooth
+    (B, D, H, W) displacements, clipped to +-FIELD_LIM voxels: three hat
+    passes with a displacement volume, along k, j and i."""
+    lim = FIELD_LIM
+    dx, dy, dz = (torch.clamp(d.to(torch.float32), -lim, lim) for d in (dx, dy, dz))
+    zero = torch.zeros(vol.shape[0], dtype=torch.float32, device=vol.device)
+    one = torch.ones_like(zero)
+    x = _hat(vol.to(torch.float32), zero, zero, one, zero, nearest, dz)
+    x = _hat(x.permute(0, 1, 3, 2), zero, zero, one, zero, nearest, dy.permute(0, 1, 3, 2))  # (i, k, j)
+    x = _hat(x.permute(0, 3, 2, 1), zero, zero, one, zero, nearest, dx.permute(0, 2, 3, 1))  # (j, k, i)
+    return x.permute(0, 3, 1, 2).to(vol.dtype)
 
 
 def warp_affine_field_separable(vol, A, t, Fx, Fy, Fz, nearest=False):

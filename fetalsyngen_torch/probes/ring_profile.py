@@ -162,13 +162,14 @@ def _hat_launcher(lib, x, coefs, disp, nearest, out):
     disp_mode = 0 if disp is None else (2 if disp.dim() == 3 else 1)
     bf16 = x.dtype == torch.bfloat16
     fn = lib.fsg_hat_pass_bf16 if bf16 else lib.fsg_hat_pass_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    OW = out.shape[-1]
     args = (x.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(), out.data_ptr(), B, D * H,
-            H, S, int(nearest), coef_mode, disp_mode, torch.cuda.current_stream(x.device).cuda_stream)
+            H, S, OW, int(nearest), coef_mode, disp_mode, torch.cuda.current_stream(x.device).cuda_stream)
     geo = lib.fsg_hat_geometry
-    geo.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    geo.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
     g = (ctypes.c_int * 4)()
-    if geo(B, D * H, S, int(nearest), coef_mode, disp_mode, int(bf16), g):
+    if geo(B, D * H, S, OW, int(nearest), coef_mode, disp_mode, int(bf16), g):
         raise RuntimeError("fsg_hat_geometry failed")
     return _checked(fn, args, "K2"), g[2]
 
@@ -182,14 +183,15 @@ def _pair_launcher(lib, xa, xb, coefs, disp, nearest_b, oa, ob):
     disp_mode = 0 if disp is None else (2 if disp.dim() == 3 else 1)
     bf16 = xa.dtype == torch.bfloat16
     fn = lib.fsg_hat_pass_pair_bf16 if bf16 else lib.fsg_hat_pass_pair_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    OW = oa.shape[-1]
     args = (xa.data_ptr(), xb.data_ptr(), None if disp is None else disp.data_ptr(), coefs.data_ptr(),
-            oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, oa.shape[-1], int(nearest_b), coef_mode, disp_mode,
+            oa.data_ptr(), ob.data_ptr(), B, D * H, H, S, OW, 0, int(nearest_b), coef_mode, disp_mode,
             torch.cuda.current_stream(xa.device).cuda_stream)
     geo = lib.fsg_hat_pair_geometry
-    geo.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    geo.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
     g = (ctypes.c_int * 4)()
-    if geo(B, D * H, S, int(nearest_b), coef_mode, disp_mode, int(bf16), g):
+    if geo(B, D * H, S, OW, 0, int(nearest_b), coef_mode, disp_mode, int(bf16), g):
         raise RuntimeError("fsg_hat_pair_geometry failed")
     return _checked(fn, args, "K1"), g[2]
 

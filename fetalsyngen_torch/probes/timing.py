@@ -28,17 +28,18 @@ def bound(nbytes: float, ops: float):
     return (b, "bytes") if b >= o else (o, "operations")
 
 
-def hat_bound(pair: bool, B, D, H, S, OW, disp=None, nearest=False, esize: int = 4):
+def hat_bound(pair: bool, B, D, H, S, OW, disp=None, nearest=False, esize: int = 4, nearest_a: bool = False):
     """:func:`bound` of one hat pass over (B, D, H, S) rows to OW lanes: each
     input read once (the rows of one or two operands, the displacement volume
     or lane-affine table, the coefficients), each output written once; per
     output element the position polynomial (6 operations, +1 with a volume,
     +5 with a table) and 5 per linear sample (the second operand of a pair
-    is nearest if ``nearest``, the single operand too). ``esize``: the bytes
-    of a row and output element (4: f32, 2: the bf16 forms; displacements,
-    tables and coefficients are f32 either way)."""
+    is nearest if ``nearest``, its first if ``nearest_a``, the single
+    operand if ``nearest``). ``esize``: the bytes of a row and output element
+    (4: f32, 2: the bf16 forms; displacements, tables and coefficients are
+    f32 either way)."""
     n_in, out = (2 if pair else 1), B * D * H * OW
-    n_lin = n_in - int(nearest)
+    n_lin = n_in - int(nearest) - int(pair and nearest_a)
     disp_elems, pos_ops = 0, 6
     if disp is not None:
         disp_elems, pos_ops = (disp.numel(), 7) if disp.dim() == 4 else (disp.numel(), 11)

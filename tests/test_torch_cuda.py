@@ -111,7 +111,9 @@ def test_wrapper_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="coefs"):
         hat.hat_pass_pair(x, x, torch.zeros((2, 4), device=dev), x)
     with pytest.raises(ValueError, match="disp"):
-        hat.hat_pass(x, coefs, torch.zeros((1, 2, 3, 9), device=dev))
+        hat.hat_pass(x, coefs, torch.zeros((1, 2, 4, 9), device=dev))
+    with pytest.raises(ValueError, match="out_len=8 but the displacement has 9 lanes"):
+        hat.hat_pass(x, coefs, torch.zeros((1, 2, 3, 9), device=dev), out_len=8)
     with pytest.raises(TypeError, match="float32"):
         hat.hat_pass(x.double(), coefs)
 
@@ -902,7 +904,8 @@ def test_train_step_through_ddp_world_one(dev, tmp_path, monkeypatch):
 # K1's bf16 forms (displacement kind, nearest second operand) and K2's
 # (coef mode, nearest, displacement kind)
 K1_BF16_FORMS = [("volume", True), ("lane", False)]
-K2_BF16_FORMS = [("sample", False, None), ("sample", True, None), ("sample", False, "lane"), ("slice", False, None)]
+K2_BF16_FORMS = [("sample", False, None), ("sample", True, None), ("sample", False, "lane"), ("slice", False, None),
+                 ("sample", False, "volume"), ("sample", True, "volume")]
 
 
 def _bf16_view(t: torch.Tensor, off_bytes: int) -> torch.Tensor:
@@ -965,6 +968,10 @@ def test_single_kernel_bf16_bits(dev, S, form, off):
     disp = None
     if disp_kind == "lane":
         disp = torch.randn((B, 3, S), generator=g, device=dev) * torch.tensor([[[0.3], [0.3], [S / 8]]], device=dev)
+    elif disp_kind == "volume":
+        disp = (torch.rand((B, D, H, S), generator=g, device=dev) - 0.5) * (S / 2)
+        disp[..., ::5] = torch.round(disp[..., ::5]) + 0.5
+        disp[..., 1::7] = -0.0
     copies = hat.COPIES["hat_pass"]
     got, want = hat.hat_pass(x, coefs, disp, nearest), hat.hat_pass_ref(x, coefs, disp, nearest)
     torch.cuda.synchronize()
@@ -973,13 +980,23 @@ def test_single_kernel_bf16_bits(dev, S, form, off):
 
 
 def test_bf16_forms_not_instantiated_raise(dev):
-    """A bf16 operand launches a bf16 kernel or raises: never the f32 one."""
+    """A bf16 operand launches a bf16 kernel or raises: never the f32 one.
+    Every f32 form has a bf16 twin, so the forms that raise are those
+    without a kernel in either type: K2's nearest per-slice and lane-affine
+    forms, K1's nearest lane-affine pair and K1's (nearest, nearest) pair
+    with a displacement volume."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros((1, 2, 3, 16), dtype=dtype, device=dev)
+        coefs = torch.zeros((1, 4), device=dev)
+        with pytest.raises(ValueError, match="no kernel"):
+            hat.hat_pass(x, torch.zeros((1, 2, 4), device=dev), nearest=True)
+        with pytest.raises(ValueError, match="no kernel"):
+            hat.hat_pass(x, coefs, torch.zeros((1, 3, 16), device=dev), nearest=True)
+        with pytest.raises(ValueError, match="no kernel"):
+            hat.hat_pass_pair(x, x, coefs, torch.zeros((1, 3, 16), device=dev), nearest_b=True)
+        with pytest.raises(ValueError, match="no kernel"):
+            hat.hat_pass_pair(x, x, coefs, torch.zeros((1, 2, 3, 16), device=dev), nearest_b=True, nearest_a=True)
     x = torch.zeros((1, 2, 3, 16), dtype=torch.bfloat16, device=dev)
-    coefs = torch.zeros((1, 4), device=dev)
-    with pytest.raises(ValueError, match="no kernel"):
-        hat.hat_pass(x, coefs, torch.zeros((1, 2, 3, 16), device=dev))
-    with pytest.raises(ValueError, match="no kernel"):
-        hat.hat_pass_pair(x, x, coefs, None)
     with pytest.raises(TypeError, match="operand 2 must be bfloat16"):
         hat.hat_pass_pair(x, x.float(), coefs, torch.zeros((1, 2, 3, 16), device=dev))
 
@@ -1179,6 +1196,191 @@ def test_production_core_card_vs_cpu(dev, reduced):
     d = (out.cpu() - out_c).abs()
     assert float(d.max()) <= 2 * 2.0**-8 * scale
     assert float(d.norm() / out_c.norm()) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the separable-warp surface: K1's per-operand modes, the forms writing
+# OW != S, and the warps that launch them
+# ---------------------------------------------------------------------------
+
+MODE_PAIRS = [(False, False), (False, True), (True, False), (True, True)]
+# (B, D, H, S) of the new forms' bit tests: tiles (13 f32 rows of 301) span
+# samples and slices and the last is partial; OW = S, below and above it
+SEP_SHAPE = (3, 20, 21, 301)
+SEP_OW = [None, 77, 413]
+
+
+def _sep_operand(dev, g, shape, nearest, off_bytes, dtype):
+    """A (B, D, H, S) operand ``off_bytes`` into a larger tensor: labels
+    0..49 if ``nearest``, else 100 * N(0, 1); -0.0 among the values."""
+    if nearest:
+        x = torch.randint(-1, 50, shape, generator=g, device=dev).float()
+        x[x < 0] = -0.0
+    else:
+        x = _with_negative_zeros(100.0 * torch.randn(shape, generator=g, device=dev))
+    if dtype == torch.bfloat16:
+        return _bf16_view(x, off_bytes)
+    flat = torch.empty(x.numel() + 4, device=dev)
+    view = flat[off_bytes // 4 : off_bytes // 4 + x.numel()].view(shape)
+    view.copy_(x)
+    return view
+
+
+def _bits(got, want):
+    return _bits16(got, want) if got[0].dtype == torch.bfloat16 else _bits_equal(got, want)
+
+
+def _sep_coefs(dev, S, OW):
+    """Quarter-voxel rows (exact halves at OW = S), general slopes, a reversed
+    row; lane slopes S / OW so the rows span the input."""
+    r = S / OW
+    return torch.tensor([[0.25, -0.5, r, 0.5], [0.05, -0.04, 1.02 * r, -0.3 * S], [0.0, 0.0, -r, S - 1.0]], device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("OW", SEP_OW)
+@pytest.mark.parametrize("modes", MODE_PAIRS, ids=lambda m: "".join("n" if v else "l" for v in m))
+def test_pair_modes_bits(dev, modes, OW, dtype):
+    """K1 with per-sample coefficients and no displacement in each (first,
+    second) mode, OW = S, below and above it, bit for bit with its plain
+    version (the sign of zero kept), the operands off 16 bytes; one launch
+    of the form's own count."""
+    B, D, H, S = SEP_SHAPE
+    g = torch.Generator(device=dev).manual_seed(S + (OW or 0) + 2 * modes[0] + modes[1])
+    xa = _sep_operand(dev, g, SEP_SHAPE, modes[0], 4, dtype)
+    xb = _sep_operand(dev, g, SEP_SHAPE, modes[1], 12, dtype)
+    coefs = _sep_coefs(dev, S, OW or S)
+    key = hat.launch_key(True, modes[1], coefs, None, dtype, nearest_a=modes[0])
+    before = hat.LAUNCHES[key]
+    got = hat.hat_pass_pair(xa, xb, coefs, None, modes[1], OW, modes[0])
+    want = hat.hat_pass_pair_ref(xa, xb, coefs, None, modes[1], OW, modes[0])
+    torch.cuda.synchronize()
+    assert got[0].shape == (B, D, H, OW or S) and got[0].dtype == dtype
+    assert hat.LAUNCHES[key] == before + 1
+    assert _bits(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("OW", [77, 413])
+@pytest.mark.parametrize("form", K2_FORMS, ids=lambda f: "-".join(str(v) for v in f))
+def test_single_kernel_out_len_bits(dev, form, OW, dtype):
+    """K2 in every form writing OW != S lanes (below and above S), bit for
+    bit with its plain version: the ring stages S-lane rows and stores
+    OW-lane ones (rows of 77 lanes start off 16 bytes)."""
+    coef, nearest, disp_kind = form
+    B, D, H, S = SEP_SHAPE
+    g = torch.Generator(device=dev).manual_seed(OW + len(str(form)))
+    x = _sep_operand(dev, g, SEP_SHAPE, nearest, 0, dtype)
+    coefs = _sep_coefs(dev, S, OW)
+    if coef == "slice":
+        coefs = (torch.rand((B, D, 4), generator=g, device=dev) - 0.5) * torch.tensor([0.0, 0.5, 0.2, S / 2],
+                                                                                       device=dev)
+        coefs[..., 2] += S / OW
+    disp = None
+    if disp_kind == "volume":
+        disp = (torch.rand((B, D, H, OW), generator=g, device=dev) - 0.5) * (S / 2)
+        disp[..., ::5] = torch.round(disp[..., ::5]) + 0.5
+        disp[..., 1::7] = -0.0
+    elif disp_kind == "lane":
+        disp = torch.randn((B, 3, OW), generator=g, device=dev) * torch.tensor([[[0.3], [0.3], [S / 8]]], device=dev)
+    got = hat.hat_pass(x, coefs, disp, nearest, out_len=OW)
+    want = hat.hat_pass_ref(x, coefs, disp, nearest, out_len=OW)
+    torch.cuda.synchronize()
+    assert got.shape == (B, D, H, OW) and got.dtype == dtype
+    assert _bits((got,), (want,))
+
+
+def test_separable_geometry(dev):
+    """The new forms' launches. K2 writing OW != S, and its bf16 forms with
+    a displacement volume, plan as the per-sample form at OW = S: only the
+    staged rows are tiled. K1's (nearest, nearest) and (nearest, linear)
+    pairs plan as its (linear, nearest) one, at any OW, and so does its f32
+    linear pair. Its bf16 linear pairs without a displacement run the lanes
+    kernel: 16 KB per operand in tiles of a multiple of the 480 /
+    ceil(OW / 8) rows computed at once, one block an SM."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shape = (4, 256, 256, 256)
+    bf = torch.bfloat16
+    for dtype in (torch.float32, bf):
+        for nearest in (False, True):
+            same = hat.hat_geometry(shape, nearest, dtype=dtype)
+            for OW in (240, 272):
+                assert hat.hat_geometry(shape, nearest, dtype=dtype, out_len=OW) == same
+                assert hat.hat_geometry(shape, nearest, disp="volume", dtype=dtype, out_len=OW) == same
+    main = hat.hat_pair_geometry(shape, True, False, "none")
+    assert main == {"tile_rows": 16, "stages": 3, "grid": main["grid"], "smem_bytes": 128 + 3 * 2 * 4100 * 4}
+    for nearest_a, nearest_b in MODE_PAIRS:
+        for OW in (None, 240, 272):
+            assert hat.hat_pair_geometry(shape, nearest_b, False, "none", out_len=OW, nearest_a=nearest_a) == main
+    main16 = hat.hat_pair_geometry(shape, True, False, "none", dtype=bf)
+    assert main16 == {"tile_rows": 32, "stages": 3, "grid": main16["grid"], "smem_bytes": 128 + 3 * 2 * 8200 * 2}
+    for nearest_a in (False, True):
+        assert hat.hat_pair_geometry(shape, True, False, "none", dtype=bf, out_len=272, nearest_a=nearest_a) == main16
+    assert hat.hat_pair_geometry(shape, False, False, "none", dtype=bf, nearest_a=True) == main16
+    # (OW, tile rows, buffer pitch): 16, 15 and 14 rows computed at once
+    for OW, rows, pitch in ((240, 32, 8200), (256, 30, 7688), (272, 28, 7176)):
+        geo = hat.hat_pair_geometry(shape, False, False, "none", dtype=bf, out_len=OW)
+        assert geo == {"tile_rows": rows, "stages": 3, "grid": sms, "smem_bytes": 128 + 3 * 2 * pitch * 2}, (OW, geo)
+    geo = hat.hat_pair_geometry((1, 128, 384, 384), False, True, "none", dtype=bf)
+    assert geo == {"tile_rows": 20, "stages": 3, "grid": sms, "smem_bytes": 128 + 3 * 2 * 7688 * 2}
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_separable_warps_card_vs_cpu(dev, bf16):
+    """The three warps at B=2 48^3 on the card against the port's CPU path:
+    ``warp_affine_separable`` onto another grid (5 K2 launches), the pair in
+    each mode (5 K1 launches of its form) and the displacement warp past
+    FIELD_LIM (3 K2 launches with a volume); images within 1e-5 of their
+    scale, labels equal; f32 and under ``storage_scope(bf16)``."""
+    from fetalsyngen_torch.ops import linops, warp
+    from fetalsyngen_torch.ops.affine import make_affine_matrix
+
+    g = torch.Generator().manual_seed(5 + bf16)
+    shape, out_shape = (48, 48, 48), (44, 52, 56)
+
+    def smooth():  # zero mean, unit variance
+        v = torch.nn.functional.avg_pool3d(torch.rand((2, 1, 56, 56, 56), generator=g), 9, 1)[:, 0]
+        return (v - v.mean()) / v.std()
+
+    img = smooth()
+    img = 100.0 * (img - img.min()) / (img.max() - img.min())
+    lab = torch.floor(img * 0.0799)
+    A = make_affine_matrix(torch.rand((2, 3), generator=g) * 0.6 - 0.3, torch.rand((2, 3), generator=g) * 0.04 - 0.02,
+                           torch.rand((2, 3), generator=g) * 0.2 + 0.9)
+    t = (torch.tensor(shape) - 1) / 2 - torch.einsum("bij,j->bi", A, (torch.tensor(out_shape) - 1) / 2)
+    fields = [10.0 * smooth() for _ in range(3)]
+    assert all(bool((f.abs() > warp.FIELD_LIM).any()) for f in fields)
+
+    def run(device):
+        im, lb, a, tt, dx, dy, dz = (v.to(device) for v in (img, lab, A, t, *fields))
+        return {
+            ("affine", False): (warp.warp_affine_separable(im, a, tt, False, out_shape),),
+            ("affine", True): (warp.warp_affine_separable(lb, a, tt, True, out_shape),),
+            ("displacement", False): (warp.warp_displacement_separable(im, dx, dy, dz),),
+            ("displacement", True): (warp.warp_displacement_separable(lb, dx, dy, dz, True),),
+            **{("pair", m): warp.warp_affine_separable_pair(lb if m[0] else im, lb if m[1] else im, a, tt, m, out_shape)
+               for m in MODE_PAIRS},
+        }
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    # K2: 5 launches an affine warp, 3 a displacement warp, two of each
+    want = {"hat_pass_bf16": 10, "hat_pass_field_bf16": 6} if bf16 else {"hat_pass": 16}
+    for m in MODE_PAIRS:
+        want[hat.launch_key(True, m[1], torch.zeros((2, 4)), None, dtype, nearest_a=m[0])] = 5
+    with linops.storage_scope(torch.bfloat16 if bf16 else None):
+        before = dict(hat.LAUNCHES)
+        card = run(dev)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in hat.LAUNCHES.items() if v != before[k]} == want
+        cpu = run("cpu")
+    for (name, mode), outs in card.items():
+        modes = mode if name == "pair" else (mode,)
+        for got, ref, nearest in zip(outs, cpu[(name, mode)], modes):
+            assert got.device.type == "cuda" and got.shape[1:] == (shape if name == "displacement" else out_shape)
+            if nearest:
+                assert torch.equal(got.cpu(), ref), (name, mode)
+            else:
+                torch.testing.assert_close(got.cpu().float(), ref.float(), rtol=0, atol=1e-5 * 100.0)
 
 
 # ---------------------------------------------------------------------------

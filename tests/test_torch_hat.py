@@ -130,31 +130,32 @@ def test_wrapper_rejects_other_devices():
 
 
 def _bad_inputs(case):
-    """(x, others, coefs, disp, ow_free) of a launch the wrappers' check
+    """(x, others, coefs, disp, out_len) of a launch the wrappers' check
     refuses, one fault per ``case``."""
     x = torch.zeros((2, 3, 4, 8))
     coefs = torch.zeros((2, 4))
     return {
-        "operand shape": (x, (torch.zeros((2, 3, 4, 9)),), coefs, None, True),
-        "three-axis x": (x[0], (), coefs, None, False),
-        "disp lanes": (x, (), coefs, torch.zeros((2, 3, 4, 9)), False),
-        "disp rows": (x, (), coefs, torch.zeros((2, 3, 5, 8)), True),
-        "table lead": (x, (), coefs, torch.zeros((2, 4, 8)), False),
-        "coefs": (x, (), torch.zeros((3, 4)), None, False),
-        "slice coefs": (x, (), torch.zeros((2, 4, 4)), None, False),
-        "short rows": (torch.zeros((2, 3, 4, 1)), (), coefs, None, False),
-        "long rows": (torch.zeros((1, 1, 1, 6145)), (), coefs[:1], None, False),
-        "dtype": (x.double(), (), coefs, None, False),
-        "coefs dtype": (x, (), coefs.double(), None, False),
-        "disp device": (x, (), coefs, torch.zeros((2, 3, 4, 8), device="meta"), False),
-        "strides": (x.transpose(1, 2).contiguous().transpose(1, 2), (), coefs, None, False),
-        "operand strides": (x, (x.transpose(2, 3).contiguous().transpose(2, 3),), coefs, None, True),
+        "operand shape": (x, (torch.zeros((2, 3, 4, 9)),), coefs, None, None),
+        "three-axis x": (x[0], (), coefs, None, None),
+        "disp lanes": (x, (), coefs, torch.zeros((2, 3, 4, 9)), 8),
+        "disp rows": (x, (), coefs, torch.zeros((2, 3, 5, 8)), None),
+        "table lead": (x, (), coefs, torch.zeros((2, 4, 8)), None),
+        "coefs": (x, (), torch.zeros((3, 4)), None, None),
+        "slice coefs": (x, (), torch.zeros((2, 4, 4)), None, None),
+        "short rows": (torch.zeros((2, 3, 4, 1)), (), coefs, None, None),
+        "long rows": (torch.zeros((1, 1, 1, 6145)), (), coefs[:1], None, None),
+        "dtype": (x.double(), (), coefs, None, None),
+        "coefs dtype": (x, (), coefs.double(), None, None),
+        "disp device": (x, (), coefs, torch.zeros((2, 3, 4, 8), device="meta"), None),
+        "strides": (x.transpose(1, 2).contiguous().transpose(1, 2), (), coefs, None, None),
+        "operand strides": (x, (x.transpose(2, 3).contiguous().transpose(2, 3),), coefs, None, None),
     }[case]
 
 
 _BAD = {
     "operand shape": (ValueError, "volumes must be equal"), "three-axis x": (ValueError, "volumes must be equal"),
-    "disp lanes": (ValueError, r"disp must be \(B, D, H, 8\)"), "disp rows": (ValueError, r"disp must be \(B, D, H, OW\)"),
+    "disp lanes": (ValueError, "out_len=8 but the displacement has 9 lanes"),
+    "disp rows": (ValueError, r"disp must be \(B, D, H, OW\)"),
     "table lead": (ValueError, "disp must be"), "coefs": (ValueError, r"coefs must be \(2, 4\) or \(2, 3, 4\)"),
     "slice coefs": (ValueError, "coefs must be"), "short rows": (ValueError, "S=1 outside"),
     "long rows": (ValueError, "S=6145 outside"), "dtype": (TypeError, "x must be float32"),
@@ -179,11 +180,11 @@ def test_wrapper_check_accepts_every_form():
     x = torch.zeros((2, 3, 4, 8))
     per_sample, per_slice = torch.zeros((2, 4)), torch.zeros((2, 3, 4))
     volume, table = torch.zeros((2, 3, 4, 8)), torch.zeros((2, 3, 8))
-    for others, coefs, disp, ow_free in (((), per_sample, None, False), ((), per_sample, volume, False),
-                                         ((), per_sample, table, False), ((), per_slice, None, False),
-                                         ((x,), per_sample, torch.zeros((2, 3, 4, 5)), True),
-                                         ((x,), per_sample, torch.zeros((2, 3, 12)), True)):
-        assert hat._check(x, others, coefs, disp, ow_free) is None
+    for others, coefs, disp, out_len, OW in (((), per_sample, None, None, 8), ((), per_sample, volume, None, 8),
+                                             ((), per_sample, table, 8, 8), ((), per_slice, None, 13, 13),
+                                             ((x,), per_sample, torch.zeros((2, 3, 4, 5)), None, 5),
+                                             ((x,), per_sample, torch.zeros((2, 3, 12)), 12, 12)):
+        assert hat._check(x, others, coefs, disp, out_len) == OW
     assert hat._form(True, per_sample, volume, hat._SINGLE_FORMS, "hat_pass") == (True, 0, 1)
     assert hat._form(False, per_slice, None, hat._SINGLE_FORMS, "hat_pass") == (False, 1, 0)
     with pytest.raises(ValueError, match="hat_pass: no kernel for .* = \\(True, 0, 2\\)"):

@@ -228,7 +228,7 @@ def test_port_imports_no_jax():
         for m in pkgutil.walk_packages(fetalsyngen_torch.__path__, "fetalsyngen_torch.")
     ]
     for m in ("kernels.hat", "convert", "config", "io.nifti", "data.transforms", "data.datasets",
-              "generator.model", "testing", "test", "test_dl", "ops.morphology", "ops.noise",
+              "generator.model", "testing", "test", "test_dl", "ops.morphology", "ops.noise", "ops.blur",
               "generator.artifacts.draws", "generator.artifacts.transforms", "generator.artifacts.motion",
               "generator.artifacts.psf", "generator.artifacts.quality", "generator.artifacts.scanner",
               "kernels.probes", "probes.timing", "probes.microbench_warp", "probes.probe_blocktp",
