@@ -20,10 +20,10 @@
 // .to(bfloat16)); a nearest or edge sample is the row's value as it is.
 //
 // Two kernels run the forms: hat_ring_kernel (every f32 form, and the bf16
-// forms with a nearest operand or a displacement volume, and K2's linear
-// per-sample form) and hat_lanes_kernel (the linear bf16 lane-affine and
-// per-slice forms and K1's linear pair without a displacement, designed for
-// 2-byte rows; below).
+// forms with a nearest operand or a displacement volume) and
+// hat_lanes_kernel (the other linear bf16 forms: lane-affine, per-slice and
+// per-sample without a displacement, K1's and K2's; designed for 2-byte
+// rows; below).
 
 #pragma once
 
@@ -305,11 +305,12 @@ cudaError_t hat_ring_run(const T* xa, const T* xb, const float* disp, const floa
 
 // --- the linear bf16 forms: a thread keeps its lanes across rows ------------
 //
-// hat_lanes_kernel computes the linear bf16 forms of the scanner and the
-// stream (K2's lane-affine and per-slice forms, K1's lane-affine pair) and
-// K1's other linear pairs (per-slice, and per-sample without a displacement:
-// the separable pair warp's), the same function bit for bit, with a design
-// for 2-byte rows. A bf16 element
+// hat_lanes_kernel computes the linear bf16 forms without a displacement
+// volume: those of the scanner and the stream (K2's lane-affine and
+// per-slice forms, K1's lane-affine pair), K2's per-sample form (the affine
+// warp's, without the nonlinear field) and K1's other linear pairs
+// (per-slice, and per-sample: the separable pair warp's), the same function
+// bit for bit on finite rows, with a design for 2-byte rows. A bf16 element
 // moves 4 bytes (K2), so the card's memory leaves some 35 issued
 // instructions per element; the f32 ring kernel spent about as many on
 // re-deriving each group of four lanes' row, coefficients, table and lane
@@ -408,9 +409,9 @@ __host__ __device__ constexpr int lanes_rows(int OW) {
   return lanes_tpr(OW) <= kRingConsumers ? kRingConsumers / lanes_tpr(OW) : 1;
 }
 
-// kOps linear bf16 operands (K2: one, per-slice or lane-affine; K1: a pair,
-// lane-affine, per-slice or per-sample without a displacement); nrows <
-// 2^31 - 512 rows of S lanes in, of OW lanes out
+// kOps linear bf16 operands (K2: one; K1: a pair), lane-affine, per-slice or
+// per-sample without a displacement; nrows < 2^31 - 512 rows of S lanes in,
+// of OW lanes out
 template <int kOps, int kCoef, int kDisp>
 __global__ void __launch_bounds__(kRingThreads, 1) hat_lanes_kernel(
     const __nv_bfloat16* __restrict__ xa, const __nv_bfloat16* __restrict__ xb, const float* __restrict__ disp,

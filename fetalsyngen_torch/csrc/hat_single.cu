@@ -42,11 +42,16 @@
 // memory, so OW != S changes the stores, not the ring. K2's tiles are whole
 // 16-byte units (4 / gcd(S, 4) rows, x on 16 bytes: the wrapper copies an x
 // that is not), so at S = 6143 two stages of its 4-row tiles (197 KB) fit
-// where three do not. The bf16 lane-affine and per-slice forms run
+// where three do not. The linear bf16 forms without a displacement volume
+// (lane-affine, per-slice, and per-sample without a displacement) run
 // hat_lanes_kernel (hat_common.cuh): a thread keeps eight lanes across the
 // rows of its tiles, their terms in registers, and the taps' index comes
 // from one rounding add; 4 bytes an element leave too few instructions for
-// the ring kernel's per-group work.
+// the ring kernel's per-group work. Its tiles too are whole 16-byte units of
+// an x on 16 bytes. On finite rows it gives the plain version's bits; a NaN
+// row value that a saturated lane selects comes out as bf16's canonical NaN
+// (the edge value is widened and rounded, as an interior sample is), where
+// the plain version and the ring kernel keep the NaN's own bits.
 
 // The second kernel, hat_variant_kernel, replaces the TPU cost probe
 // scripts/profile_kernel_variants.py::make_kernel (K7): the hat kernel's
@@ -105,36 +110,35 @@ cudaError_t run(const T* x, const float* disp, const float* coefs, T* out, long 
                                                     st, g);
 }
 
+// K2's linear form (kCoef, kDisp) without a displacement volume: the lanes
+// kernel (hat_common.cuh) on bf16 rows, the ring kernel on f32 rows
+template <typename T, int kCoef, int kDisp>
+cudaError_t run_linear(const T* x, const float* disp, const float* coefs, T* out, long long nrows, int R, int H, int S,
+                       int OW, bool launch, cudaStream_t st, Geometry* g) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return hat_lanes_run<1, kCoef, kDisp>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S, OW, launch, st, g);
+  } else {
+    return run<T, false, kCoef, kDisp>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
+  }
+}
+
 // K2's instantiated forms of element type T (every one in f32 and bf16):
-// cudaErrorInvalidValue for another one. The linear bf16 lane-affine and
-// per-slice forms run the lanes kernel (hat_common.cuh), the others the ring
-// kernel.
+// cudaErrorInvalidValue for another one.
 template <typename T>
 cudaError_t hat_run(const T* x, const float* disp, const float* coefs, T* out, long long nrows, int R, int H, int S,
                     int OW, int nearest, int coef_mode, int disp_mode, bool launch, cudaStream_t st, Geometry* g) {
-  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   if (coef_mode == kCoefPerSlice) {
     if (nearest || disp_mode != kDispNone) return cudaErrorInvalidValue;
-    if constexpr (kBf16) {
-      return hat_lanes_run<1, kCoefPerSlice, kDispNone>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S, OW,
-                                                        launch, st, g);
-    } else {
-      return run<T, false, kCoefPerSlice, kDispNone>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
-    }
+    return run_linear<T, kCoefPerSlice, kDispNone>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
   }
   if (coef_mode != kCoefPerSample) return cudaErrorInvalidValue;
   if (disp_mode == kDispLaneAffine) {
     if (nearest) return cudaErrorInvalidValue;
-    if constexpr (kBf16) {
-      return hat_lanes_run<1, kCoefPerSample, kDispLaneAffine>(x, nullptr, disp, coefs, out, nullptr, nrows, R, H, S,
-                                                               OW, launch, st, g);
-    } else {
-      return run<T, false, kCoefPerSample, kDispLaneAffine>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
-    }
+    return run_linear<T, kCoefPerSample, kDispLaneAffine>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
   }
   if (disp_mode == kDispNone) {
     if (nearest) return run<T, true, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
-    return run<T, false, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
+    return run_linear<T, kCoefPerSample, kDispNone>(x, disp, coefs, out, nrows, R, H, S, OW, launch, st, g);
   }
   if (disp_mode == kDispVolume) {
     if (nearest) {

@@ -33,7 +33,7 @@ lane-affine tables are f32 either way, and so is the tap arithmetic: a linear
 sample widens its two taps to f32 and rounds its result to bf16 once, a
 nearest sample is the gathered value as it is (``_hat_pass_jnp``'s
 semantics). Every form has a bf16 twin. The linear bf16 forms without a
-displacement volume, but K2's per-sample one, run a kernel of their own
+displacement volume, K1's and K2's, run a kernel of their own
 (``hat_lanes_kernel`` in ``csrc/hat_common.cuh``, a thread keeping its lanes
 across rows), the others the ring kernel both dtypes share.
 

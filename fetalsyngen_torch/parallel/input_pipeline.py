@@ -40,6 +40,7 @@ from ..generator.params import sample_params
 from ..io import native, nifti
 from ..ops.linops import DEFAULT, precision_scope, storage_scope
 from ..ops.numerics import device_const
+from ..train.step import resolve_device
 
 
 @contextlib.contextmanager
@@ -182,19 +183,21 @@ class SeedBankCache:
     """Seed banks in device memory, an LRU keyed by subject name.
 
     Eviction is by a byte budget, not a subject count: a bank is
-    ``n_options * 4 * D*H*W`` int8 (~400 MB for 6 options at 256^3). On CUDA
-    a bank is uploaded through pinned host memory with a non-blocking copy on
-    the current stream; the pinned buffer is kept until that copy completes.
+    ``n_options * 4 * D*H*W`` int8 (~400 MB for 6 options at 256^3). The
+    banks live on ``device``: None means CUDA, which raises without a card
+    (``device="cpu"`` keeps them in host memory). On CUDA a bank is uploaded
+    through pinned host memory with a non-blocking copy on the current
+    stream; the pinned buffer is kept until that copy completes.
     ``records[name]`` says how the bank was built: ``reader`` ("native" or
     "python"), ``decode_s``, ``to_ras_s``, ``pin_s`` (host seconds),
     ``upload`` (the copy's start and end CUDA events, None on the CPU) and
     ``bytes``.
     """
 
-    def __init__(self, seed_paths: dict, max_bytes: int = 1_200_000_000, device="cpu"):
+    def __init__(self, seed_paths: dict, max_bytes: int = 1_200_000_000, device=None):
         self.seed_paths = seed_paths
         self.max_bytes = max_bytes
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.records: dict[str, dict] = {}
         self._cache: collections.OrderedDict[str, _Ready] = collections.OrderedDict()
         self._bytes = 0

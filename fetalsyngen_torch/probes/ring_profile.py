@@ -44,8 +44,10 @@ production mode, :data:`BF16_FORMS`): K2's lane-affine form on the
 extraction's (cube, cube, cube), the recon value's (cube, cube, 128) and
 the pooled weight's 128^3, its per-slice form on (96, cube, cube), K1's
 lane-affine pair on (cube, cube, 128), cubes 256 to 640; K1's main form and
-K2's per-sample forms at B=4 256^3. It too times another checkout's kernels
-from that checkout's sources when run as a file with it first on the path.
+K2's per-sample forms at B=4 256^3, K2's linear one also writing 272 lanes
+(the separable warp's U-z pass). It too times another checkout's kernels
+from that checkout's sources when run as a file with it first on the path,
+where that checkout's C entry points take the same arguments.
 
 Needs a CUDA device and ``nvcc``.
 """
@@ -100,9 +102,10 @@ K1_FORMS = (
 K1_RING_FORMS = tuple(f for f in K1_FORMS if f[0] == "main B=4 256^3" or f[0].endswith("cube 384"))
 CUBES = (256, 384, 512, 640)  # the stream's motion engines' cubes
 # the bf16 forms at the stream's shapes: (name, pair, nearest (second)
-# operand, coefficient kind, disp kind, shape); "scanner": the scanner's unit
-# coefficients with a lane-affine table of its magnitudes (row slopes up to
-# 0.02 lanes, shifts up to 3 lanes); inputs from :func:`bf16_inputs`
+# operand, coefficient kind, disp kind, shape[, output lanes, default the
+# rows' S]); "scanner": the scanner's unit coefficients with a lane-affine
+# table of its magnitudes (row slopes up to 0.02 lanes, shifts up to 3
+# lanes); inputs from :func:`bf16_inputs`
 BF16_FORMS = (
     *((f"K2 lane bf16 extraction cube {c}", False, False, "sample", "scanner", (1, c, c, c)) for c in CUBES),
     *((f"K2 lane bf16 recon value cube {c}", False, False, "sample", "scanner", (1, c, c, 128)) for c in CUBES),
@@ -112,6 +115,7 @@ BF16_FORMS = (
     ("K1 main bf16 B=4 256^3", True, True, "sample", "volume", (4, 256, 256, 256)),
     ("K2 per-sample bf16 linear B=4 256^3", False, False, "sample", None, (4, 256, 256, 256)),
     ("K2 per-sample bf16 nearest B=4 256^3", False, True, "sample", None, (4, 256, 256, 256)),
+    ("K2 per-sample bf16 linear B=4 256^3 to 272 lanes", False, False, "sample", None, (4, 256, 256, 256), 272),
 )
 
 
@@ -340,12 +344,13 @@ def k1_inputs(form, dev, g):
 
 
 def bf16_inputs(form, dev, g):
-    """(xa, xb or None, coefs, disp, nearest, bound ms) of a
+    """(xa, xb or None, coefs, disp, nearest, bound ms, output lanes) of a
     :data:`BF16_FORMS` entry: bf16 rows in [0, 100) (labels in 0..49 where
     nearest); the scanner's unit coefficients and a table of its
-    magnitudes, per-slice coefficients, or a shear row with or without a
-    field displacement."""
-    _, pair, nearest, coef, disp_kind, (b, d, h, s) = form
+    magnitudes, per-slice coefficients, or a shear row (its lane slope
+    scaled by S / OW) with or without a field displacement."""
+    _, pair, nearest, coef, disp_kind, (b, d, h, s), *lanes = form
+    ow = lanes[0] if lanes else s
     bf = torch.bfloat16
     xa = (torch.rand((b, d, h, s), generator=g, device=dev) * 100.0).to(bf)
     xb = None
@@ -360,7 +365,7 @@ def bf16_inputs(form, dev, g):
     elif disp_kind == "scanner":
         coefs = torch.tensor([[0.0, 0.0, 1.0, 0.0]], device=dev).expand(b, 4)
     else:
-        coefs = torch.tensor([[0.05, -0.04, 1.02, -3.1]], device=dev).expand(b, 4)
+        coefs = torch.tensor([[0.05, -0.04, 1.02 * s / ow, -3.1]], device=dev).expand(b, 4)
     coefs = coefs.contiguous()
     disp = None
     if disp_kind == "volume":
@@ -368,19 +373,19 @@ def bf16_inputs(form, dev, g):
     elif disp_kind == "scanner":
         disp = (torch.rand((b, 3, s), generator=g, device=dev) * 2 - 1) * torch.tensor([[[0.02], [0.02], [3.0]]],
                                                                                        device=dev)
-    bnd = timing.hat_bound(pair, b, d, h, s, s, disp, nearest, esize=2)[0]
-    return xa, xb, coefs, disp, nearest, bnd
+    bnd = timing.hat_bound(pair, b, d, h, s, ow, disp, nearest, esize=2)[0]
+    return xa, xb, coefs, disp, nearest, bnd, ow
 
 
 def _bf16_calls(form, dev, g):
     """The inputs of a :data:`BF16_FORMS` entry, its wrapper's call and its
     plain version's."""
-    xa, xb, coefs, disp, nearest, bnd = bf16_inputs(form, dev, g)
+    xa, xb, coefs, disp, nearest, bnd, ow = inputs = bf16_inputs(form, dev, g)
     if xb is None:
-        return (xa, xb, coefs, disp, nearest, bnd), lambda: hat.hat_pass(xa, coefs, disp, nearest), \
-            lambda: hat.hat_pass_ref(xa, coefs, disp, nearest)
-    return (xa, xb, coefs, disp, nearest, bnd), lambda: hat.hat_pass_pair(xa, xb, coefs, disp, nearest), \
-        lambda: hat.hat_pass_pair_ref(xa, xb, coefs, disp, nearest)
+        return inputs, lambda: hat.hat_pass(xa, coefs, disp, nearest, ow), \
+            lambda: hat.hat_pass_ref(xa, coefs, disp, nearest, ow)
+    return inputs, lambda: hat.hat_pass_pair(xa, xb, coefs, disp, nearest, ow), \
+        lambda: hat.hat_pass_pair_ref(xa, xb, coefs, disp, nearest, ow)
 
 
 def bf16_forms(dev):
@@ -391,14 +396,13 @@ def bf16_forms(dev):
     libs = {stem: _profile_build(stem) for stem in ("hat_single", "hat_pass")}
     g = torch.Generator(device=dev).manual_seed(51)
     for form in BF16_FORMS:
-        (xa, xb, coefs, disp, nearest, bnd), run, plain = _bf16_calls(form, dev, g)
+        (xa, xb, coefs, disp, nearest, bnd, ow), run, plain = _bf16_calls(form, dev, g)
         want = plain()
         want = want if isinstance(want, tuple) else (want,)
+        outs = tuple(torch.empty_like(w) for w in want)
         if xb is None:
-            outs = (torch.empty_like(xa),)
             call, grid = _hat_launcher(libs["hat_single"], xa, coefs, disp, nearest, outs[0])
         else:
-            outs = (torch.empty_like(xa), torch.empty_like(xb))
             call, grid = _pair_launcher(libs["hat_pass"], xa, xb, coefs, disp, nearest, *outs)
         call()
         torch.cuda.synchronize()

@@ -942,15 +942,22 @@ def test_pair_kernel_bf16_bits(dev, form, case, off):
     assert got[0].dtype == torch.bfloat16
 
 
+# K2_ROWS and a 256-lane row, from which the per-sample forms without a
+# displacement also write 240 and 272 lanes (the separable warp's U passes)
+K2_BF16_ROWS = {**K2_ROWS, 256: (5, 7)}
+
+
 @pytest.mark.parametrize("off", [0, 2, 4, 8])
 @pytest.mark.parametrize("form", K2_BF16_FORMS, ids=lambda f: "-".join(str(v) for v in f))
-@pytest.mark.parametrize("S", sorted(K2_ROWS))
+@pytest.mark.parametrize("S", sorted(K2_BF16_ROWS))
 def test_single_kernel_bf16_bits(dev, S, form, off):
     """K2's bf16 forms bit for bit (as int16) with their plain version, -0.0
     among the values, positions at half-integers and past both edges; an
-    ``x`` off 16 bytes is copied to 16 bytes first (``hat.COPIES``)."""
+    ``x`` off 16 bytes is copied to 16 bytes first (``hat.COPIES``). From
+    256-lane rows the per-sample forms without a displacement write 256, 240
+    and 272 lanes."""
     coef, nearest, disp_kind = form
-    B, (D, H) = 3, K2_ROWS[S]
+    B, (D, H) = 3, K2_BF16_ROWS[S]
     g = torch.Generator(device=dev).manual_seed(S * 10 + len(str(form)) + off)
     if nearest:
         x = torch.randint(-1, 50, (B, D, H, S), generator=g, device=dev).float()
@@ -972,11 +979,15 @@ def test_single_kernel_bf16_bits(dev, S, form, off):
         disp = (torch.rand((B, D, H, S), generator=g, device=dev) - 0.5) * (S / 2)
         disp[..., ::5] = torch.round(disp[..., ::5]) + 0.5
         disp[..., 1::7] = -0.0
-    copies = hat.COPIES["hat_pass"]
-    got, want = hat.hat_pass(x, coefs, disp, nearest), hat.hat_pass_ref(x, coefs, disp, nearest)
-    torch.cuda.synchronize()
-    assert _bits16((got,), (want,))
-    assert hat.COPIES["hat_pass"] - copies == (1 if off % 16 else 0)
+    out_lens = (None, 240, 272) if S == 256 and coef == "sample" and disp_kind is None else (None,)
+    for out_len in out_lens:
+        copies = hat.COPIES["hat_pass"]
+        got = hat.hat_pass(x, coefs, disp, nearest, out_len)
+        want = hat.hat_pass_ref(x, coefs, disp, nearest, out_len)
+        torch.cuda.synchronize()
+        assert got.shape[-1] == (out_len or S)
+        assert _bits16((got,), (want,))
+        assert hat.COPIES["hat_pass"] - copies == (1 if off % 16 else 0)
 
 
 def test_bf16_forms_not_instantiated_raise(dev):
@@ -1002,24 +1013,27 @@ def test_bf16_forms_not_instantiated_raise(dev):
 
 
 def test_hat_geometry_bf16(dev):
-    """K2's bf16 launches. The per-sample forms (the ring kernel): 16 KB
-    tiles hold twice the rows of f32 ones, in whole 16-byte units (eight
-    bf16), two stages where three do not fit. The lane-affine and per-slice
-    forms (the lanes kernel): one 512-thread block an SM, 32 KB tiles of a
-    multiple of the rows its 480 consumer threads compute at once
-    (480 / ceil(OW / 8)) where that fits, and a pass of fewer than three
-    tiles a block takes tiles of half the bytes, down to those rows."""
+    """K2's bf16 launches. The nearest per-sample form (the ring kernel): 16
+    KB tiles hold twice the rows of f32 ones, in whole 16-byte units (eight
+    bf16), two stages where three do not fit. The linear forms without a
+    displacement volume, per-sample, lane-affine and per-slice (the lanes
+    kernel): one 512-thread block an SM, 32 KB tiles of a multiple of the
+    rows its 480 consumer threads compute at once (480 / ceil(OW / 8)) where
+    that fits, and a pass of fewer than three tiles a block takes tiles of
+    half the bytes, down to those rows."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bf = torch.bfloat16
-    for nearest in (False, True):
-        geo = hat.hat_geometry((1, 256, 256, 256), nearest, dtype=bf)
-        assert geo == {"tile_rows": 32, "stages": 3, "grid": geo["grid"], "smem_bytes": 128 + 3 * 16384}
-        assert geo["grid"] % sms == 0 and geo["grid"] < 2048
-    assert hat.hat_geometry((3, 40, 30, 5), dtype=bf) == {"tile_rows": 1632, "stages": 3, "grid": 3,
-                                                          "smem_bytes": 128 + 3 * 16320}
-    geo = hat.hat_geometry((1, 1, 8, 6143), dtype=bf)
+    geo = hat.hat_geometry((1, 256, 256, 256), True, dtype=bf)
+    assert geo == {"tile_rows": 32, "stages": 3, "grid": geo["grid"], "smem_bytes": 128 + 3 * 16384}
+    assert geo["grid"] % sms == 0 and geo["grid"] < 2048
+    assert hat.hat_geometry((3, 40, 30, 5), True, dtype=bf) == {"tile_rows": 1632, "stages": 3, "grid": 3,
+                                                                "smem_bytes": 128 + 3 * 16320}
+    geo = hat.hat_geometry((1, 1, 8, 6143), True, dtype=bf)
     assert geo == {"tile_rows": 8, "stages": 2, "grid": 1, "smem_bytes": 128 + 2 * 8 * 6143 * 2}
-    for per_slice, disp in ((False, "lane"), (True, "none")):
+    # the per-sample form at the stream's B=4 256^3
+    geo = hat.hat_geometry((4, 256, 256, 256), dtype=bf)
+    assert geo == {"tile_rows": 60, "stages": 3, "grid": sms, "smem_bytes": 128 + 3 * 60 * 256 * 2}
+    for per_slice, disp in ((False, "none"), (False, "lane"), (True, "none")):
         # (shape, tile rows): 15, 10, 6, 30 and 30 rows at once; 128^3 and
         # the 6144-lane rows a small pass
         for shape, rows in (((1, 256, 256, 256), 60), ((1, 96, 384, 384), 40), ((1, 640, 640, 640), 24),
@@ -1058,10 +1072,12 @@ def test_hat_pair_geometry_bf16(dev):
                                                               "smem_bytes": 128 + 3 * 2 * 6152 * 2}
 
 
-# the lanes kernel's forms: (K1 pair, coefficient kind); and the output
-# widths of its tests: the stream's 128-640, widths that are not a multiple
-# of 8 (rows off 16 bytes) and an odd one (rows off 4 bytes)
-LANES_FORMS = [(False, "lane"), (False, "slice"), (True, "lane")]
+# the lanes kernel's forms: (K1 pair, coefficient kind: "lane" per-sample
+# with a lane-affine table, "slice", "sample" per-sample without a
+# displacement); and the output widths of its tests: the stream's 128-640,
+# widths that are not a multiple of 8 (rows off 16 bytes) and an odd one
+# (rows off 4 bytes)
+LANES_FORMS = [(False, "lane"), (False, "slice"), (True, "lane"), (False, "sample")]
 LANES_OW = [128, 256, 384, 512, 640, 100, 77]
 
 
@@ -1070,9 +1086,12 @@ def _lanes_case(dev, pair, kind, OW, seed):
     span samples and slices), bf16 rows with -0.0 among them, OW lanes out
     (K2: S = OW; K1: S = OW + 37). Lane-affine: general coefficients and a
     table whose lanes 3 mod 11 give exact half-integer positions, 5 mod 13
-    and 6 mod 17 positions past either edge. Per-slice: the scanner's
-    in-plane coefficients, slice 1 of sample 1 past the low edge, slice 3
-    of sample 2 past the high one. Returns (xa, xb or None, coefs, disp)."""
+    and 6 mod 17 positions past either edge. Per-sample without a
+    displacement: the same coefficients (sample 0's first row at exact
+    half-integers, sample 1 past the low edge, sample 2 from edge to edge).
+    Per-slice: the scanner's in-plane coefficients, slice 1 of sample 1 past
+    the low edge, slice 3 of sample 2 past the high one. Returns (xa, xb or
+    None, coefs, disp)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     B, D, H = 3, 5, 7
     S = OW + 37 if pair else OW
@@ -1089,6 +1108,8 @@ def _lanes_case(dev, pair, kind, OW, seed):
         return xa, xb, coefs, None
     coefs = torch.tensor([[0.25, -0.5, S / OW, 0.5], [0.05, -0.04, 1.02 * S / OW, -0.3 * S], [0.0, 0.0, 1.0, 0.0]],
                          device=dev)
+    if kind == "sample":
+        return xa, xb, coefs, None
     disp = (torch.rand((B, 3, OW), generator=g, device=dev) - 0.5) * torch.tensor([[[0.04], [0.04], [6.0]]],
                                                                                  device=dev)
     lanes = torch.arange(OW, device=dev)
@@ -1110,8 +1131,8 @@ def _lanes_run(pair, xa, xb, coefs, disp, plain=False):
 @pytest.mark.parametrize("OW", LANES_OW)
 @pytest.mark.parametrize("pair, kind", LANES_FORMS, ids=lambda v: str(v))
 def test_lanes_forms_bits(dev, pair, kind, OW):
-    """The lanes kernel's forms (K2 lane-affine and per-slice, K1's
-    lane-affine pair, bf16) bit for bit (as int16) with their plain versions
+    """The lanes kernel's forms (K2 lane-affine, per-slice and per-sample
+    without a displacement, K1's lane-affine pair, bf16) bit for bit (as int16) with their plain versions
     at the stream's widths and at widths whose rows lie off 16 and 4 bytes,
     on tiles that span samples and slices, with exact half-integer positions
     and positions past both edges (the sign of zero kept)."""
@@ -1131,10 +1152,10 @@ def test_lanes_forms_bits(dev, pair, kind, OW):
 
 @pytest.mark.parametrize("pair, kind", LANES_FORMS, ids=lambda v: str(v))
 def test_lanes_forms_nan_positions(dev, pair, kind):
-    """A NaN position (a NaN table lane, or a slice's NaN bias) stays in the
-    row: the lane is row[0] * 1 + row[1] * 0 in f32, rounded once, as the
-    ring kernel computed it; every other lane bit for bit with the plain
-    version on the same inputs made finite."""
+    """A NaN position (a NaN table lane, a slice's or a sample's NaN bias)
+    stays in the row: the lane is row[0] * 1 + row[1] * 0 in f32, rounded
+    once, as the ring kernel computed it; every other lane bit for bit with
+    the plain version on the same inputs made finite."""
     OW = 300
     xa, xb, coefs, disp = _lanes_case(dev, pair, kind, OW, 99 + pair)
     B, D, H, S = xa.shape
@@ -1143,6 +1164,10 @@ def test_lanes_forms_nan_positions(dev, pair, kind):
         nan_coefs[0, 2, 3] = float("nan")
         bad = torch.zeros((B, D, H, OW), dtype=torch.bool, device=dev)
         bad[0, 2] = True
+    elif kind == "sample":
+        nan_coefs[1, 3] = float("nan")
+        bad = torch.zeros((B, D, H, OW), dtype=torch.bool, device=dev)
+        bad[1] = True
     else:
         nan_disp[1, 2, 7::29] = float("nan")
         bad = torch.zeros((B, D, H, OW), dtype=torch.bool, device=dev)
@@ -1291,22 +1316,28 @@ def test_single_kernel_out_len_bits(dev, form, OW, dtype):
 
 
 def test_separable_geometry(dev):
-    """The new forms' launches. K2 writing OW != S, and its bf16 forms with
-    a displacement volume, plan as the per-sample form at OW = S: only the
-    staged rows are tiled. K1's (nearest, nearest) and (nearest, linear)
-    pairs plan as its (linear, nearest) one, at any OW, and so does its f32
-    linear pair. Its bf16 linear pairs without a displacement run the lanes
-    kernel: 16 KB per operand in tiles of a multiple of the 480 /
-    ceil(OW / 8) rows computed at once, one block an SM."""
+    """The new forms' launches. K2 on the ring kernel writing OW != S, and
+    its bf16 forms with a displacement volume, plan as the per-sample form at
+    OW = S: only the staged rows are tiled. Its bf16 linear per-sample form
+    runs the lanes kernel: 32 KB tiles of a multiple of the 480 /
+    ceil(OW / 8) rows computed at once, one block an SM. K1's (nearest,
+    nearest) and (nearest, linear) pairs plan as its (linear, nearest) one,
+    at any OW, and so does its f32 linear pair. Its bf16 linear pairs
+    without a displacement run the lanes kernel: 16 KB per operand."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shape = (4, 256, 256, 256)
     bf = torch.bfloat16
     for dtype in (torch.float32, bf):
+        same = hat.hat_geometry(shape, True, dtype=dtype)
         for nearest in (False, True):
-            same = hat.hat_geometry(shape, nearest, dtype=dtype)
             for OW in (240, 272):
-                assert hat.hat_geometry(shape, nearest, dtype=dtype, out_len=OW) == same
+                if nearest or dtype == torch.float32:
+                    assert hat.hat_geometry(shape, nearest, dtype=dtype, out_len=OW) == same
                 assert hat.hat_geometry(shape, nearest, disp="volume", dtype=dtype, out_len=OW) == same
+    # (OW, tile rows): 16, 15 and 14 rows computed at once
+    for OW, rows in ((240, 64), (256, 60), (272, 56)):
+        geo = hat.hat_geometry(shape, dtype=bf, out_len=OW)
+        assert geo == {"tile_rows": rows, "stages": 3, "grid": sms, "smem_bytes": 128 + 3 * rows * 256 * 2}, (OW, geo)
     main = hat.hat_pair_geometry(shape, True, False, "none")
     assert main == {"tile_rows": 16, "stages": 3, "grid": main["grid"], "smem_bytes": 128 + 3 * 2 * 4100 * 4}
     for nearest_a, nearest_b in MODE_PAIRS:

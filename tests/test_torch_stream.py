@@ -142,11 +142,11 @@ def test_failed_build_is_reported_and_banks_fall_back(ds, tmp_path, monkeypatch)
     assert "no-such-compiler" in native.build_error()
     assert not list((tmp_path / "native").glob("*.so"))
     name = sorted(ds.seed_paths)[0]
-    cache = tstream.SeedBankCache(ds.seed_paths)
+    cache = tstream.SeedBankCache(ds.seed_paths, device="cpu")
     bank = cache.bank(name)
     assert cache.records[name]["reader"] == "python"
     monkeypatch.undo()
-    native_cache = tstream.SeedBankCache(ds.seed_paths)
+    native_cache = tstream.SeedBankCache(ds.seed_paths, device="cpu")
     assert torch.equal(native_cache.bank(name), bank)
     assert native_cache.records[name]["reader"] == "native"
 
@@ -157,7 +157,7 @@ def test_failed_build_is_reported_and_banks_fall_back(ds, tmp_path, monkeypatch)
 
 
 def test_banks_equal_jax_byte_for_byte(ds, jds):
-    port = tstream.SeedBankCache(ds.seed_paths)
+    port = tstream.SeedBankCache(ds.seed_paths, device="cpu")
     ref = jpipe.SeedBankCache(jds.seed_paths)
     assert port.max_bytes == ref.max_bytes
     for name in sorted(ds.seed_paths):
@@ -176,17 +176,17 @@ def test_bank_cache_evicts_by_bytes_in_lru_order(ds, jds):
     last; with a budget of two banks, the least recently used goes, in the
     same order as JAX's cache."""
     names = sorted(ds.seed_paths)
-    one = tstream.SeedBankCache(ds.seed_paths).bank(names[0]).numel()
-    cache = tstream.SeedBankCache(ds.seed_paths, max_bytes=one)
+    one = tstream.SeedBankCache(ds.seed_paths, device="cpu").bank(names[0]).numel()
+    cache = tstream.SeedBankCache(ds.seed_paths, max_bytes=one, device="cpu")
     cache.bank(names[0])
     cache.bank(names[1])
     assert list(cache._cache) == [names[1]] and cache.nbytes <= one
     # a third subject (an alias of the first) makes an LRU order observable
     order = [names[0], names[1], names[0], "sub-ccc", names[1]]
     kept = []
-    for mod, paths in ((tstream, dict(ds.seed_paths)), (jpipe, dict(jds.seed_paths))):
+    for mod, paths, kw in ((tstream, dict(ds.seed_paths), {"device": "cpu"}), (jpipe, dict(jds.seed_paths), {})):
         paths["sub-ccc"] = paths[names[0]]
-        c = mod.SeedBankCache(paths, max_bytes=2 * one)
+        c = mod.SeedBankCache(paths, max_bytes=2 * one, **kw)
         steps = []
         for n in order:
             c.bank(n)
@@ -197,10 +197,20 @@ def test_bank_cache_evicts_by_bytes_in_lru_order(ds, jds):
     assert kept[0][3] == [names[0], "sub-ccc"]
 
 
+def test_bank_cache_default_device_is_cuda(ds, monkeypatch):
+    """As the JAX cache puts its banks on the default accelerator, a bank
+    cache built with no device means CUDA: without a card it raises, naming
+    the CPU's spelling."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tstream.SeedBankCache(ds.seed_paths)
+    assert tstream.SeedBankCache(ds.seed_paths, device="cpu").device == torch.device("cpu")
+
+
 @pytest.mark.parametrize("choices", [(0, 1, 0, 1), (1, 1, 1, 1), (1, 0, 0, 1)])
 def test_compose_seeds_matches_jax(ds, jds, choices):
     name = sorted(ds.seed_paths)[1]
-    bank = tstream.SeedBankCache(ds.seed_paths).bank(name)
+    bank = tstream.SeedBankCache(ds.seed_paths, device="cpu").bank(name)
     got = tstream.compose_seeds(bank, torch.tensor(choices, dtype=torch.int32))
     jbank = jpipe.SeedBankCache(jds.seed_paths).bank(name)
     want = np.asarray(jpipe.compose_seeds(jbank, jnp.asarray(choices, jnp.int32)))
