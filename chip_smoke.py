@@ -87,8 +87,9 @@ operations over 67 TFLOP/s.
     them, with phase 5's generator config; B, ``data/sub-sta21`` with phase
     7's ``synth_train`` generator. Each with prefetch on and off: vol/s over
     24 batches after 2 warm-ups (the host clock around a read of each
-    batch) beside phase 5's core vol/s, the first seed bank's build (native
-    decode, ``to_ras``, pinning, the copy's CUDA events) and reader, peak
+    batch) beside phase 5's core vol/s, the first seed bank's build (its
+    ``bank.*`` spans: native decode, ``to_ras``, pinning, the copy's card
+    time) and reader, peak
     memory, K1's launches (3 a batch generated); prefetch on and off
     bit-identical (every batch's digests), a recorded batch replayed bit for
     bit on the same stream and a fresh one, ``compose_seeds`` on the card
@@ -108,7 +109,8 @@ operations over 67 TFLOP/s.
     Then one B=4 batch with every artifact forced on, and one B=1 batch per
     engine through ``resolution_slice`` pins (0.7 / 0.5 / 0.35 / 0.25 mm),
     each with the dz-split and the coarse weight as they default, and with
-    each turned off: per-artifact CUDA events, K1/K2 launches per form, peak
+    each turned off: per-artifact card time (``chain.*`` spans), K1/K2
+    launches per form, peak
     memory; each replayed with every K1/K2 launch held against its plain
     version on the same inputs (bit-identical). One forced batch under sync
     debug mode "error" (the chain lifts it around its one planned read of the
@@ -230,6 +232,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fetalsyngen_torch import trace
 from fetalsyngen_torch.data.datasets import FetalSynthDataset
 from fetalsyngen_torch.data.transforms import scale_intensity
 from fetalsyngen_torch.generator import pipeline as tpipe
@@ -356,6 +359,35 @@ def core_mode(mode: str):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def traced(into: list):
+    """The port's spans (``fetalsyngen_torch.trace``) recorded while the
+    block runs, drained into ``into`` once the card is done."""
+    trace.drain()
+    trace.enable()
+    try:
+        yield into
+    finally:
+        trace.disable()
+        torch.cuda.synchronize()
+        into.extend(trace.drain())
+
+
+def first_bank(spans: list, nbytes: int) -> dict:
+    """The first seed bank's build from its ``bank.*`` spans: host seconds of
+    its decode, ``to_ras`` and pinning, and its upload's card milliseconds
+    (the bank's pin and upload are those of ``nbytes``; earlier decode and
+    ``to_ras`` spans are its own)."""
+    pin = next(r for r in spans if r["name"] == "bank.pin" and r["attrs"]["bytes"] == nbytes)
+    upload = next(r for r in spans if r["name"] == "bank.upload" and r["attrs"]["bytes"] == nbytes)
+
+    def host_s(name):
+        return sum(r["t1"] - r["t0"] for r in spans if r["name"] == name and r["t1"] <= pin["t0"])
+
+    return {"decode_s": host_s("bank.decode"), "to_ras_s": host_s("bank.to_ras"), "pin_s": pin["t1"] - pin["t0"],
+            "upload_ms": upload["ms"]}
 
 
 def reset_counts() -> None:
@@ -1678,12 +1710,13 @@ def _drive_stream(dev, ds, prefetch, iters, mode):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     it = iter(stream)
-    digests = []
+    digests, spans = [], []
     t0 = time.perf_counter()
-    for _ in range(2):
-        b = next(it)
-        float(b["image"][..., ::64, ::64, ::64].sum())
-        digests.append(torch.stack([digest(b["image"]), digest(b["label"])]))
+    with traced(spans):  # the first bank's build
+        for _ in range(2):
+            b = next(it)
+            float(b["image"][..., ::64, ::64, ::64].sum())
+            digests.append(torch.stack([digest(b["image"]), digest(b["label"])]))
     warm_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -1701,18 +1734,13 @@ def _drive_stream(dev, ds, prefetch, iters, mode):
         raise RuntimeError(f"stream ({mode}): expected {3 * generated} {k1} launches and no other, got {launches}")
     name = next(iter(stream.banks.records))  # the first bank built
     rec = stream.banks.records[name]
-    start, end = rec["upload"]
     numbers = {
         "mode": mode,
         "prefetch": prefetch,
         "vol_per_s": BATCH * iters / dt,
         "batches": iters,
         "warmup_s": warm_s,
-        "first_bank": {
-            "name": name, "reader": rec["reader"], "decode_s": rec["decode_s"],
-            "to_ras_s": rec["to_ras_s"], "pin_s": rec["pin_s"], "upload_ms": start.elapsed_time(end),
-            "bytes": rec["bytes"],
-        },
+        "first_bank": {"name": name, "reader": rec["reader"], **first_bank(spans, rec["bytes"]), "bytes": rec["bytes"]},
         "peak_mem_bytes": peak,
         "k1_launches": launches[k1],
     }
@@ -2009,25 +2037,28 @@ def _drive_artifact_stream(dev, ds, prefetch, iters):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    before = dict(tba.COUNTS)
+    reads = tba.COUNTS["transfers"]
     it = iter(stream)
-    digests, metas = [], []
-    for _ in range(2):
-        b = next(it)
-        float(b["image"][..., ::64, ::64, ::64].sum())
-        digests.append(torch.stack([digest(b["image"]), digest(b["label"])]))
-        metas.append(b["meta"])
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        b = next(it)
-        float(b["image"][..., ::64, ::64, ::64].sum())
-        digests.append(torch.stack([digest(b["image"]), digest(b["label"])]))
-        metas.append(b["meta"])
-    dt = time.perf_counter() - t0
-    it.close()
-    torch.cuda.synchronize()
+    digests, metas, spans = [], [], []
+    with traced(spans):  # the motion engine's stacks (chain.motion), the timed batches with them
+        for _ in range(2):
+            b = next(it)
+            float(b["image"][..., ::64, ::64, ::64].sum())
+            digests.append(torch.stack([digest(b["image"]), digest(b["label"])]))
+            metas.append(b["meta"])
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            b = next(it)
+            float(b["image"][..., ::64, ::64, ::64].sum())
+            digests.append(torch.stack([digest(b["image"]), digest(b["label"])]))
+            metas.append(b["meta"])
+        dt = time.perf_counter() - t0
+        it.close()
     launches = dict(hat.LAUNCHES)
-    counted = {k: tba.COUNTS[k] - before[k] for k in before}
+    motion = [r["attrs"] for r in spans if r["name"] == "chain.motion" and r["attrs"]]
+    counted = {"transfers": tba.COUNTS["transfers"] - reads, "motion_samples": len(motion),
+               "stacks_attempted": sum(a["stacks_attempted"] for a in motion),
+               "stacks_accepted": sum(a["stacks_accepted"] for a in motion)}
     engines = collections.Counter(engine_of(m["pack"], i, stream) for m in metas for i in range(BATCH))
     numbers = {
         "prefetch": prefetch, "vol_per_s": BATCH * iters / dt, "batches": iters,
@@ -2064,7 +2095,8 @@ def checked_replay(stream, batch, check, what):
 
 def engine_batch(dev, stream, name, rs, split, coarse, check):
     """One B=1 batch of phase 12 routed to one engine by its pinned slice
-    resolution (the motion gate forced on): its per-artifact CUDA events, the
+    resolution (the motion gate forced on): its per-artifact card time (the
+    ``chain.*`` spans), the
     K1/K2 launches per form and peak memory; then the batch replayed with
     every K1/K2 launch held against its plain version, bit-identical to the
     first run. Returns the launches."""
@@ -2072,11 +2104,11 @@ def engine_batch(dev, stream, name, rs, split, coarse, check):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
-        events = []
+        spans = []
         t0 = time.perf_counter()
-        batch = stream._generate(events=events)
-        host_ms = 1e3 * (time.perf_counter() - t0)
-        torch.cuda.synchronize()
+        with traced(spans):
+            batch = stream._generate()
+            host_ms = 1e3 * (time.perf_counter() - t0)
         launches = dict(hat.LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
         pack = batch["meta"]["pack"]
@@ -2084,7 +2116,7 @@ def engine_batch(dev, stream, name, rs, split, coarse, check):
         if got != name:
             raise RuntimeError(f"stream engine {name}: resolution_slice {rs} routed the sample to {got}")
         checked_replay(stream, batch, check, f"stream engine {name}")
-    per = {a: round(s.elapsed_time(e), 3) for _, a, s, e in events}
+    per = {r["name"]: round(r["ms"], 3) for r in spans if r["name"].startswith("chain.") and "ms" in r}
     log(json.dumps({"stream_engine": name, "resolution_slice": rs, "dz_split": split, "coarse_w": coarse,
                     "artifact_events_ms": per, "host_ms": host_ms, "launches": {k: v for k, v in launches.items() if v},
                     "peak_mem_bytes": peak, "dz_ok": pack["dz_ok"][0].tolist(), "num_stacks": int(pack["num_stacks"][0])}))
@@ -2093,21 +2125,23 @@ def engine_batch(dev, stream, name, rs, split, coarse, check):
 
 def stream_forced_batch(dev, stream, check):
     """Phase 12: one B=4 batch with every artifact forced on (the motion
-    artifact by ``{"apply": True}``, its geometry drawn): per-artifact events
-    per sample, launches, peak memory; then replayed under the check."""
+    artifact by ``{"apply": True}``, its geometry drawn): per-artifact card
+    time per sample (the ``chain.*`` spans), launches, peak memory; then
+    replayed under the check."""
     with pinned(stream, BATCH, {"apply": True}, np.ones(3, np.int32)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
-        events = []
-        batch = stream._generate(events=events)
-        torch.cuda.synchronize()
+        spans = []
+        with traced(spans):
+            batch = stream._generate()
         launches = dict(hat.LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
         checked_replay(stream, batch, check, "stream forced batch")
     per = collections.defaultdict(list)
-    for _, a, s, e in events:
-        per[a].append(round(s.elapsed_time(e), 3))
+    for r in spans:
+        if r["name"].startswith("chain.") and "ms" in r:
+            per[r["name"]].append(round(r["ms"], 3))
     pack = batch["meta"]["pack"]
     log(json.dumps({"stream_forced": True, "engines": [engine_of(pack, b, stream) for b in range(BATCH)],
                     "artifact_events_ms_per_sample": per, "launches": {k: v for k, v in launches.items() if v},

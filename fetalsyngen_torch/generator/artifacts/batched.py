@@ -44,6 +44,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ... import trace as spans
 from ...ops.linops import toeplitz_blur_matrix
 from ...ops.noise import draw_fractal_uniforms, fractal_noise_3d, mog_3d
 from ...ops.numerics import device_const
@@ -79,10 +80,8 @@ MAX_FUZZY_ROUNDS = 4  # randint(2, 5) upper bound (artifacts.py:560)
 MAX_DILATE = 18  # 6 * (n_fuzzy - 1) <= 18 (artifacts.py:582)
 _SEED_TAG = 77  # the chain's seed: derive_seed(sample seed, 77), as JAX's fold_in(key, 77)
 
-# host counters of the motion engine: apply_chain's device-to-host reads
-# (one a batch with motion), motion-on samples run, attempt stacks they
-# had, stacks accepted
-COUNTS = {"transfers": 0, "motion_samples": 0, "stacks_attempted": 0, "stacks_accepted": 0}
+# apply_chain's device-to-host reads (one a batch with motion)
+COUNTS = {"transfers": 0}
 
 
 def _to(v, device):
@@ -688,7 +687,9 @@ def motion_t(out, seg, row, sm, shape, cube, ns_grid: int, draws: Draws, small_c
     ``coarse_w``: the coarse weight chain where the cube is a multiple of
     128 and the shape even. ``drow``: the row's float arrays on the device
     (:func:`upload_pack`). ``trace`` (a dict) receives the validity flags,
-    the accepted stacks and the final weight.
+    the accepted stacks and the final weight. With tracing on, a motion-on
+    sample annotates the open span with ``stacks_attempted`` and
+    ``stacks_accepted``, and each accepted stack is a ``motion.stack`` span.
     """
     if not bool(row["motion_on"]):
         return out
@@ -702,9 +703,7 @@ def motion_t(out, seg, row, sm, shape, cube, ns_grid: int, draws: Draws, small_c
     if valid_host is None:
         valid_host = valid.cpu().numpy()
     kept = accept_stacks(valid_host.sum(1), int(row["num_stacks"]), float(sp.max_num_slices))
-    COUNTS["motion_samples"] += 1
-    COUNTS["stacks_attempted"] += len(valid_host)
-    COUNTS["stacks_accepted"] += len(kept)
+    spans.annotate(stacks_attempted=len(valid_host), stacks_accepted=len(kept))
     if trace is not None:
         trace.update(accepted=kept, valid=valid_host)
     if not kept:
@@ -716,39 +715,40 @@ def motion_t(out, seg, row, sm, shape, cube, ns_grid: int, draws: Draws, small_c
     mis_on, mis_idx = bool(row["mis_on"]), int(row["mis_idx"])
     value = weight = None
     for k in kept:
-        hit_stack = mis_on and mis_idx // ns_grid == k
-        split_f = float(row["dz_ok"][k]) * (0.0 if hit_stack else 1.0) if split_dz else False
-        thr, gamma, gamma_on, sigma = (float(v) for v in row["scal"][k])
-        d = draws.dev(f"motion.slices.{k}", lambda g: draw_slice_artifacts(g, ns_grid, cube_s, dev, fast=True))
-        fwd = (int(row["q_idx"][k]), drow["angles"][k], drow["wscale"][k], drow["wdelta"][k])
-        args = (thr, ns, gamma, gamma_on > 0.5, sigma, float(np.float32(sp.prob_void)),
-                float(np.float32(sp.slice_noise_threshold)))
-        if small:
-            slices, _ = _acquire_one_small(vol_p, fwd, drow["G"][k], gap, z0, drow["sig"], *args, cube_s,
-                                           ns_grid, None, d, split_f, valid=valid[k])
-        else:
-            slices, _ = _acquire_one(vol_p, None, fwd, drow["G"][k], rs, gap, z0, drow["sig"], *args, cube_s,
-                                     ns_grid, d, split_dz=split_f, valid=valid[k])
-        u_rm = draws.dev(f"motion.rm.{k}", lambda g: torch.rand(ns_grid, generator=g, device=dev))
-        keep = valid[k] * (1.0 - (u_rm < float(row["rm_ratio"])).to(F32) * float(bool(row["rm_on"])))
-        # the misregistered slice, if it is a valid slice of this stack,
-        # takes the reset transform's table row
-        j = mis_idx % ns_grid
-        if hit_stack and valid_host[k, j] > 0:
-            grec = np.array(row["Grec"][k])
-            grec[j] = row["Greset"][k][j]
-            grec = device_const(grec, F32, dev)
-        else:
-            grec = drow["Grec"][k]
-        inv = (int(row["qinv"][k]), drow["iang"][k], drow["iscl"][k], drow["idlt"][k])
-        cinv = (int(row["cqinv"][k]), drow["ciang"][k], drow["ciscl"][k], drow["cidlt"][k]) if use_coarse else None
-        v_s, w_s = _recon_one(slices, keep, grec, rs, gap, z0, drow["sig_rec"], inv, cube_s, ns_grid,
-                              tuple(shape), split_dz=split_f, coarse_inv=cinv)
-        del slices
-        # summed in f32: in the production mode the pooled weight chain
-        # hands bf16 (the JAX engine sums into f32 zeros)
-        value = v_s if value is None else value + v_s
-        weight = w_s.float() if weight is None else weight + w_s
+        with spans.span("motion.stack", stack=k):
+            hit_stack = mis_on and mis_idx // ns_grid == k
+            split_f = float(row["dz_ok"][k]) * (0.0 if hit_stack else 1.0) if split_dz else False
+            thr, gamma, gamma_on, sigma = (float(v) for v in row["scal"][k])
+            d = draws.dev(f"motion.slices.{k}", lambda g: draw_slice_artifacts(g, ns_grid, cube_s, dev, fast=True))
+            fwd = (int(row["q_idx"][k]), drow["angles"][k], drow["wscale"][k], drow["wdelta"][k])
+            args = (thr, ns, gamma, gamma_on > 0.5, sigma, float(np.float32(sp.prob_void)),
+                    float(np.float32(sp.slice_noise_threshold)))
+            if small:
+                slices, _ = _acquire_one_small(vol_p, fwd, drow["G"][k], gap, z0, drow["sig"], *args, cube_s,
+                                               ns_grid, None, d, split_f, valid=valid[k])
+            else:
+                slices, _ = _acquire_one(vol_p, None, fwd, drow["G"][k], rs, gap, z0, drow["sig"], *args, cube_s,
+                                         ns_grid, d, split_dz=split_f, valid=valid[k])
+            u_rm = draws.dev(f"motion.rm.{k}", lambda g: torch.rand(ns_grid, generator=g, device=dev))
+            keep = valid[k] * (1.0 - (u_rm < float(row["rm_ratio"])).to(F32) * float(bool(row["rm_on"])))
+            # the misregistered slice, if it is a valid slice of this stack,
+            # takes the reset transform's table row
+            j = mis_idx % ns_grid
+            if hit_stack and valid_host[k, j] > 0:
+                grec = np.array(row["Grec"][k])
+                grec[j] = row["Greset"][k][j]
+                grec = device_const(grec, F32, dev)
+            else:
+                grec = drow["Grec"][k]
+            inv = (int(row["qinv"][k]), drow["iang"][k], drow["iscl"][k], drow["idlt"][k])
+            cinv = (int(row["cqinv"][k]), drow["ciang"][k], drow["ciscl"][k], drow["cidlt"][k]) if use_coarse else None
+            v_s, w_s = _recon_one(slices, keep, grec, rs, gap, z0, drow["sig_rec"], inv, cube_s, ns_grid,
+                                  tuple(shape), split_dz=split_f, coarse_inv=cinv)
+            del slices
+            # summed in f32: in the production mode the pooled weight chain
+            # hands bf16 (the JAX engine sums into f32 zeros)
+            value = v_s if value is None else value + v_s
+            weight = w_s.float() if weight is None else weight + w_s
     if trace is not None:
         trace["weight"] = weight
     mw = _merge_weight(seg, row, drow, rp.merge_params, tuple(shape), draws) if bool(row["merge_on"]) else None
@@ -776,29 +776,32 @@ class ChainSpec:
 
 
 def _planned_transfer(t: torch.Tensor) -> np.ndarray:
-    """The chain's one device-to-host read a batch (the validity flags);
-    CUDA's sync debug mode is lifted around it alone."""
+    """The chain's one device-to-host read a batch (the validity flags), the
+    span ``chain.sync``; CUDA's sync debug mode is lifted around it alone."""
     COUNTS["transfers"] += 1
-    if t.device.type != "cuda":
-        return t.numpy()
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
-    try:
-        return t.cpu().numpy()
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
+    with spans.span("chain.sync"):
+        if t.device.type != "cuda":
+            return t.numpy()
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return t.cpu().numpy()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
 
 
-def apply_chain(out, seg, spec: ChainSpec, pack: dict, draws: list[Draws], events=None, traces=None):
+def apply_chain(out, seg, spec: ChainSpec, pack: dict, draws: list[Draws], traces=None):
     """The artifact chain on a (B, D, H, W) batch, one sample after another
     (one sample's scanner buffers live at a time): blur_cortex ->
     struct_noise -> simulate_motion -> boundaries.
 
     ``pack``: :func:`pack_motion`'s host arrays (and ``"gates"``, a (B, 3)
     row of pins, if any). The motion-on samples' stack validity is computed
-    first and read back in one transfer. ``events`` (a list) receives
-    ``(sample, artifact, start, end)`` CUDA events; ``traces`` (a list)
-    one dict per sample, filled by :func:`motion_t` and :func:`boundaries_t`.
+    first and read back in one transfer. ``traces`` (a list) receives one
+    dict per sample, filled by :func:`motion_t` and :func:`boundaries_t`.
+    With tracing on, each artifact of each sample is a span
+    (``chain.blur_cortex``, ``chain.struct_noise``, ``chain.motion``,
+    ``chain.boundaries``).
     """
     B = out.shape[0]
     dev = out.device
@@ -817,16 +820,7 @@ def apply_chain(out, seg, spec: ChainSpec, pack: dict, draws: list[Draws], event
             valid_host = dict(zip(on, _planned_transfer(valid)))
             valid = dict(zip(on, valid))
 
-    def timed(b, name, fn, o):
-        if events is None or dev.type != "cuda":
-            return fn(o)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        o = fn(o)
-        end.record()
-        events.append((b, name, start, end))
-        return o
-
+    cuda = dev.type == "cuda"
     res = []
     for b in range(B):
         o, s, d = out[b], seg[b], draws[b]
@@ -834,17 +828,19 @@ def apply_chain(out, seg, spec: ChainSpec, pack: dict, draws: list[Draws], event
         qa = spec.qa
         tr = {} if traces is not None else None
         if qa is not None and qa.blur_cortex is not None:
-            o = timed(b, "blur_cortex", lambda x: blur_cortex_t(x, s, qa.blur_cortex, d, None if g is None else g[0]), o)
+            with spans.span("chain.blur_cortex", cuda=cuda):
+                o = blur_cortex_t(o, s, qa.blur_cortex, d, None if g is None else g[0])
         if qa is not None and qa.struct_noise is not None:
-            o = timed(b, "struct_noise", lambda x: struct_noise_t(x, s, qa.struct_noise, d, None if g is None else g[1]), o)
+            with spans.span("chain.struct_noise", cuda=cuda):
+                o = struct_noise_t(o, s, qa.struct_noise, d, None if g is None else g[1])
         if motion:
-            o = timed(b, "simulate_motion", lambda x: motion_t(
-                x, s, row_of(pack, b), spec.sm, spec.shape, spec.cube, spec.ns_grid, d, spec.small_cube,
-                spec.split_dz, spec.coarse_w, drow=drows[b], valid=None if valid is None else valid.get(b),
-                valid_host=None if valid_host is None else valid_host.get(b), trace=tr), o)
+            with spans.span("chain.motion", cuda=cuda):
+                o = motion_t(o, s, row_of(pack, b), spec.sm, spec.shape, spec.cube, spec.ns_grid, d, spec.small_cube,
+                             spec.split_dz, spec.coarse_w, drow=drows[b], valid=None if valid is None else valid.get(b),
+                             valid_host=None if valid_host is None else valid_host.get(b), trace=tr)
         if qa is not None and qa.boundaries is not None:
-            o = timed(b, "boundaries", lambda x: boundaries_t(
-                x, s, qa.boundaries, d, None if g is None else g[2], trace=tr), o)
+            with spans.span("chain.boundaries", cuda=cuda):
+                o = boundaries_t(o, s, qa.boundaries, d, None if g is None else g[2], trace=tr)
         if traces is not None:
             traces.append(tr)
         res.append(o)

@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from .. import trace
 from ..ops.affine import centered_grid, make_affine_matrix
 from ..ops.interp import nearest_interp, trilinear_interp, zoom_coords
 from ..ops.linops import apply_separable, f32_scope, gaussian_blur_mm, interp_matrix, zoom_mm
@@ -401,20 +402,26 @@ def synth_core(
     image or None). The output starts as the GMM intensities of ``seeds``,
     or as ``intensity_prior`` when given (image as intensity, or augment
     alone; ``seeds`` is then unused). An ``image`` is co-deformed with the
-    output.
+    output. With tracing on, each stage is a span (``core.<stage>``).
     """
+    cuda = seg.is_cuda
     if intensity_prior is not None:
         output = intensity_prior
     elif "intensity" in stages:
-        output = intensity_stage(seeds, p, fields.intensity)
+        with trace.span("core.intensity", cuda=cuda):
+            output = intensity_stage(seeds, p, fields.intensity)
     else:
         raise ValueError(f"stages {stages} without 'intensity' need an intensity_prior")
     if "deform" in stages:
-        output, seg, image = deform_stage(p, fields.nonlin, cfg, output, seg, image)
+        with trace.span("core.deform", cuda=cuda):
+            output, seg, image = deform_stage(p, fields.nonlin, cfg, output, seg, image)
     if "augment" in stages:
-        output = gamma_stage(output, p)
-        output = bias_stage(output, p, fields.bias, cfg)
-        output = resample_noise_stage(output, p, fields.noise, cfg)
+        with trace.span("core.gamma", cuda=cuda):
+            output = gamma_stage(output, p)
+        with trace.span("core.bias", cuda=cuda):
+            output = bias_stage(output, p, fields.bias, cfg)
+        with trace.span("core.resample_noise", cuda=cuda):
+            output = resample_noise_stage(output, p, fields.noise, cfg)
     return output, seg, image
 
 

@@ -28,11 +28,11 @@ import contextlib
 import heapq
 import os
 import threading
-import time
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..generator.artifacts.batched import ChainSpec, QualityArtifacts, apply_chain, chain_draws, pack_motion
 from ..generator.artifacts.scanner import slice_grid
 from ..generator.pipeline import draw_fields, make_generators, synth_core
@@ -155,12 +155,13 @@ def batch_program(mega, segs, hi, subj, u, p, fields, cfg, lo: int, chain=None):
     """
     S, n_opt = mega.shape[:2]
     vol = mega.shape[3:]
-    ch = choose_options(u, hi[subj], lo)
-    rows = (subj[:, None] * n_opt + ch.long()) * 4 + torch.arange(4, device=mega.device)
-    picked = _take_rows(mega.reshape(S * n_opt * 4, -1), rows)  # (B, 4, D*H*W) int8
-    seeds = picked.sum(1, dtype=torch.int32).reshape(-1, *vol)
-    del picked
-    seg = _take_rows(segs.reshape(S, -1), subj).reshape(-1, *vol).to(torch.int32)
+    with trace.span("stream.compose", cuda=mega.is_cuda):
+        ch = choose_options(u, hi[subj], lo)
+        rows = (subj[:, None] * n_opt + ch.long()) * 4 + torch.arange(4, device=mega.device)
+        picked = _take_rows(mega.reshape(S * n_opt * 4, -1), rows)  # (B, 4, D*H*W) int8
+        seeds = picked.sum(1, dtype=torch.int32).reshape(-1, *vol)
+        del picked
+        seg = _take_rows(segs.reshape(S, -1), subj).reshape(-1, *vol).to(torch.int32)
     with _production_scopes():
         out, seg, _ = synth_core(p, fields, seeds, seg, cfg)
         out = out.float()
@@ -189,9 +190,9 @@ class SeedBankCache:
     through pinned host memory with a non-blocking copy on the current
     stream; the pinned buffer is kept until that copy completes.
     ``records[name]`` says how the bank was built: ``reader`` ("native" or
-    "python"), ``decode_s``, ``to_ras_s``, ``pin_s`` (host seconds),
-    ``upload`` (the copy's start and end CUDA events, None on the CPU) and
-    ``bytes``.
+    "python") and ``bytes``. With tracing on (:mod:`fetalsyngen_torch.trace`)
+    a build records the spans ``bank.decode``, ``bank.to_ras`` and, on
+    CUDA, ``bank.pin`` and ``bank.upload``.
     """
 
     def __init__(self, seed_paths: dict, max_bytes: int = 1_200_000_000, device=None):
@@ -210,10 +211,9 @@ class SeedBankCache:
     def options(self, name: str) -> list[int]:
         return sorted(self.seed_paths[name].keys())
 
-    def _load_all(self, name: str) -> tuple[np.ndarray, dict]:
+    def _load_all(self, name: str) -> tuple[np.ndarray, str]:
         """Decode every (option, meta-label) seed volume of one subject:
-        ((n_options, 4, D, H, W) int8 oriented RAS, the build record less
-        the upload).
+        ((n_options, 4, D, H, W) int8 oriented RAS, the reader used).
 
         The native loader decodes all volumes at once, oriented by the first
         volume's affine; without it, or where it refuses a volume, the
@@ -222,48 +222,39 @@ class SeedBankCache:
         per_sub = self.seed_paths[name]
         opts = self.options(name)
         paths = [str(per_sub[n][m]) for n in opts for m in range(1, 5)]
-        arrs = None
-        have_native = native.available()  # builds the library at first use
-        t0 = time.perf_counter()
-        if have_native:
-            probe = nifti.load(paths[0])
-            raw = native.load_labels_batch(paths, probe.data.shape)
+        if native.available():  # builds the library at first use
+            with trace.span("bank.decode", volumes=len(paths)):
+                probe = nifti.load(paths[0])
+                raw = native.load_labels_batch(paths, probe.data.shape)
             if raw is not None:
-                t1 = time.perf_counter()
-                arrs = [nifti.to_ras(_c_int8(a), probe.affine)[0] for a in raw]
-                record = {"reader": "native", "decode_s": t1 - t0}
-        if arrs is None:
-            arrs, decode_s = [], 0.0
-            for p in paths:
-                t1 = time.perf_counter()
+                with trace.span("bank.to_ras", volumes=len(paths)):
+                    arrs = [nifti.to_ras(_c_int8(a), probe.affine)[0] for a in raw]
+                    return np.stack(arrs).reshape(len(opts), 4, *arrs[0].shape), "native"
+        arrs = []
+        for p in paths:
+            with trace.span("bank.decode", volumes=1):
                 img = nifti.load(p)
-                decode_s += time.perf_counter() - t1
+            with trace.span("bank.to_ras", volumes=1):
                 arrs.append(nifti.to_ras(_c_int8(img.data), img.affine)[0])
-            record = {"reader": "python", "decode_s": decode_s}
-            t1 = t0 + decode_s
-        host = np.stack(arrs).reshape(len(opts), 4, *arrs[0].shape)
-        record["to_ras_s"] = time.perf_counter() - t1
-        return host, record
+        return np.stack(arrs).reshape(len(opts), 4, *arrs[0].shape), "python"
 
-    def upload(self, host: np.ndarray):
-        """``host`` on the cache's device: (tensor, host seconds spent pinning,
-        the copy's (start, end) CUDA events or None). On CUDA through a
-        pinned buffer, copied without blocking on the current stream; the
-        buffer is kept until the copy completes."""
+    def upload(self, host: np.ndarray) -> torch.Tensor:
+        """``host`` on the cache's device. On CUDA through a pinned buffer,
+        copied without blocking on the current stream; the buffer is kept
+        until the copy completes."""
         t = torch.from_numpy(host)
         if self.device.type == "cpu":
-            return t, 0.0, None
+            return t
         self._staging = [(ev, buf) for ev, buf in self._staging if not ev.query()]
-        t0 = time.perf_counter()
-        pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        pinned.copy_(t)
-        pin_s = time.perf_counter() - t0
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = pinned.to(self.device, non_blocking=True)
-        end.record()
-        self._staging.append((end, pinned))
-        return out, pin_s, (start, end)
+        with trace.span("bank.pin", bytes=t.nbytes):
+            pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            pinned.copy_(t)
+        with trace.span("bank.upload", cuda=True, bytes=t.nbytes):
+            out = pinned.to(self.device, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+        self._staging.append((copied, pinned))
+        return out
 
     def bank(self, name: str) -> torch.Tensor:
         """The (n_options, 4, D, H, W) int8 bank of subject ``name``, ready
@@ -271,10 +262,9 @@ class SeedBankCache:
         if name in self._cache:
             self._cache.move_to_end(name)
             return self._cache[name].get()[0]
-        host, record = self._load_all(name)
-        arr, record["pin_s"], record["upload"] = self.upload(host)
-        record["bytes"] = arr.numel()
-        self.records[name] = record
+        host, reader = self._load_all(name)
+        arr = self.upload(host)
+        self.records[name] = {"reader": reader, "bytes": arr.numel()}
         self._cache[name] = _Ready(arr)
         self._bytes += arr.numel()
         while self._bytes > self.max_bytes and len(self._cache) > 1:
@@ -454,7 +444,7 @@ class SyntheticStream:
         if name not in self._segs:
             idx = [self.dataset._sub_ses_idx(i) for i in range(len(self.dataset.sub_ses))].index(name)
             seg = nifti.load_ras(str(self.dataset.segm_paths[idx])).data.astype(np.int16)
-            self._segs[name] = _Ready(self.banks.upload(seg)[0])
+            self._segs[name] = _Ready(self.banks.upload(seg))
         return self._segs[name].get()[0]
 
     def _stack_banks(self, names: list[str]):
@@ -485,17 +475,17 @@ class SyntheticStream:
             self._mega = _Ready(*self._stack_banks(self._resident))
         return self._mega.get()
 
-    def make_chain(self, meta: dict, draws=None, events=None, traces=None):
+    def make_chain(self, meta: dict, draws=None, traces=None):
         """The batch program's artifact chain for ``meta`` (None without
         artifacts): :func:`apply_chain` with the batch's pack and the
         elements' :func:`chain_draws` (or ``draws``, a list of ``Draws``);
-        ``events`` and ``traces`` as :func:`apply_chain` takes them."""
+        ``traces`` as :func:`apply_chain` takes it."""
         if self.chain is None:
             return None
         if draws is None:
             draws = chain_draws(meta["seeds"], self.device)
         pack = meta.get("pack", {})
-        return lambda out, seg: apply_chain(out, seg, self.chain, pack, draws, events, traces)
+        return lambda out, seg: apply_chain(out, seg, self.chain, pack, draws, traces)
 
     def _run(self, meta: dict, mega, segs, hi, **chain_kw):
         dev = self.device
@@ -554,15 +544,18 @@ class SyntheticStream:
         they are drawn. A box whose iterator closed before the draw draws
         nothing (None); one closed while its batch ran hands the meta back
         when the batch is done. A batch that fails hands nothing back: its
-        draws are dropped."""
-        with self._lock:
+        draws are dropped. With tracing on, the whole call is the span
+        ``stream.produce`` of the batch's draw index."""
+        with trace.span("stream.produce", cuda=self.device.type == "cuda", volumes=self.batch_size) as sp, \
+                self._lock:
             with self._meta_lock:
                 if box is not None and box.get("closed"):
                     return None
                 index, meta = self._draw()
                 if box is not None:
                     box["index"], box["meta"] = index, meta
-            batch = self._run(meta, *self._banks_for(meta["resident"]), **chain_kw)
+            sp.set(batch=index)
+            batch =self._run(meta, *self._banks_for(meta["resident"]), **chain_kw)
             if box is not None:
                 with self._meta_lock:
                     box["ran"] = True
@@ -627,7 +620,9 @@ class SyntheticStream:
         t, box = self._start()
         try:
             while True:
-                t.join()
+                with trace.span("stream.join") as sp:
+                    t.join()
+                    sp.set(batch=box.get("index"))
                 batch = self._receive(box)
                 t, box = self._start()
                 yield batch

@@ -30,6 +30,7 @@ from fetalsyngen_tpu.generator import model as jmodel
 from fetalsyngen_tpu.generator import params as jparams
 from fetalsyngen_tpu.io import native as jnative
 from fetalsyngen_tpu.parallel import input_pipeline as jpipe
+from fetalsyngen_torch import trace
 from fetalsyngen_torch.convert import fields_from_numpy, params_from_numpy
 from fetalsyngen_torch.data.datasets import FetalSynthDataset
 from fetalsyngen_torch.generator import pipeline as tpipe
@@ -161,13 +162,21 @@ def test_banks_equal_jax_byte_for_byte(ds, jds):
     ref = jpipe.SeedBankCache(jds.seed_paths)
     assert port.max_bytes == ref.max_bytes
     for name in sorted(ds.seed_paths):
-        got, want = port.bank(name), np.asarray(ref.bank(name))
+        trace.drain()
+        trace.enable()
+        try:
+            got = port.bank(name)
+        finally:
+            trace.disable()
+        want = np.asarray(ref.bank(name))
         assert got.dtype == torch.int8 and got.device.type == "cpu"
         assert tuple(got.shape) == want.shape == (2, 4, *SHAPE)
         assert got.numpy().tobytes() == want.tobytes()
-        rec = port.records[name]
-        assert rec["reader"] == "native" and rec["upload"] is None
-        assert min(rec["decode_s"], rec["to_ras_s"]) >= 0.0
+        assert port.records[name] == {"reader": "native", "bytes": got.numel()}
+        spans = trace.drain()
+        # decoded and oriented on the host, nothing pinned or uploaded on the CPU
+        assert [r["name"] for r in spans] == ["bank.decode", "bank.to_ras"]
+        assert all(r["t1"] >= r["t0"] and r["attrs"] == {"volumes": 8} for r in spans)
     assert port.nbytes == ref.nbytes
 
 
