@@ -175,6 +175,19 @@ operations over 67 TFLOP/s.
     distinct operands for a pair), timed with its bound and ``grid_sample``:
     the kernel entries ``separable:<form>``.
 
+16. the row-affine pair pass (``kernels.row_affine``, the pair warp's U
+    passes and L21 peel): at B=16 256^3 in the production mode, each of the
+    five passes on its own inputs (the chain's outputs; the L-z peel on a
+    transposed view as it reads the hat pass's output) against its plain
+    version, the banded-operator einsum the pass ran before: labels
+    bit-identical, the image within one bf16 ulp; kernel, fenced, bound
+    and plain ms; one ``warp_affine_field_pair_pre`` call's launches (5);
+    then the f32 and the precision scope's forms at B=2 against theirs.
+    Its launches are counted where the main paths run it, five a pair warp
+    in the mode's form (phases 4, 7, 11–14); the ``kernels`` line sums
+    those, its ``max_abs_err`` is the image's absolute difference and
+    ``max_bf16_ulps`` the same in bf16 ulps.
+
 Phase 3 also holds K1's form without a displacement (the probes'
 ``pair_l_nodisp`` and ``pair_u`` coefficients, and crafted half-integers)
 and K2's lane-affine form (K7's inputs, and a wide table at 256^3) against
@@ -253,7 +266,7 @@ from fetalsyngen_torch.generator.model import (
 )
 from fetalsyngen_torch.generator.params import genparams_to_dict, sample_params
 from fetalsyngen_torch.io import native, nifti
-from fetalsyngen_torch.kernels import build, hat, probes
+from fetalsyngen_torch.kernels import build, hat, probes, row_affine
 from fetalsyngen_torch.ops.affine import make_affine_matrix
 from fetalsyngen_torch.ops.morphology import box_sum
 from fetalsyngen_torch.ops.numerics import device_const
@@ -299,6 +312,11 @@ KERNELS = {
        for m in probes.SINGLE_MODES},
     **{f"hat_variant_v{v}": ("fetalsyngen_torch/csrc/hat_single.cu", "scripts/profile_kernel_variants.py:35")
        for v in probes.VARIANTS},
+    # no Pallas kernel: the JAX package's banded-operator einsum; the f32
+    # contract's form and the storage scope's (the precision scope's alone
+    # runs on no main path: phase 16 checks it)
+    "row_affine_pair_f32": ("fetalsyngen_torch/csrc/row_affine.cu", "none (einsum, fetalsyngen_tpu/ops/warp.py:854)"),
+    "row_affine_pair_bf16": ("fetalsyngen_torch/csrc/row_affine.cu", "none (einsum, fetalsyngen_tpu/ops/warp.py:854)"),
 }
 
 
@@ -320,6 +338,8 @@ BF16 = torch.bfloat16
 # and "f32" (FSG_STREAM_BF16=0, the rollback); K1's form in each
 MODES = ("production", "f32")
 K1_FORM = {"production": "hat_pass_pair_bf16", "f32": "hat_pass_pair"}
+# the row-affine form the pair warp launches beside each of K1's volume forms
+RA_FORM = {"hat_pass_pair": "row_affine_pair_f32", "hat_pass_pair_bf16": "row_affine_pair_bf16"}
 # the production mode against the f32 mode on the card: JAX's own bars, the
 # core's (tests/test_pipeline.py:108-128) and one motion call's
 # (tests/test_batched_artifacts.py:341-371)
@@ -391,14 +411,36 @@ def first_bank(spans: list, nbytes: int) -> dict:
 
 
 def reset_counts() -> None:
-    for d in (hat.LAUNCHES, probes.LAUNCHES):
+    for d in (hat.LAUNCHES, probes.LAUNCHES, row_affine.LAUNCHES):
         for k in d:
             d[k] = 0
 
 
+def launched() -> dict:
+    """The hat kernels' and the row-affine pass's launches by form since
+    :func:`reset_counts`."""
+    return {**hat.LAUNCHES, **row_affine.LAUNCHES}
+
+
 def counts(**nonzero) -> dict:
-    """A full LAUNCHES dict: zero but for ``nonzero``."""
-    return {**dict.fromkeys(hat.LAUNCHES, 0), **nonzero}
+    """A full :func:`launched` dict: zero but for ``nonzero``."""
+    return {**dict.fromkeys(hat.LAUNCHES, 0), **dict.fromkeys(row_affine.LAUNCHES, 0), **nonzero}
+
+
+def row_affine_per_batch(launches: dict, batches: range, where: str) -> None:
+    """Raise unless the row-affine pass launched five times a batch (one
+    pair warp each) for one of the batch counts ``batches``, all in one
+    form."""
+    ra = {k: v for k, v in launches.items() if k in row_affine.LAUNCHES and v}
+    if len(ra) != 1 or sum(ra.values()) not in [5 * n for n in batches]:
+        raise RuntimeError(f"{where}: expected {[5 * n for n in batches]} row-affine launches of one form, got {ra}")
+
+
+def pair_warps(n: int, k1: str = "hat_pass_pair") -> dict:
+    """The launches of ``n`` pair warps (``warp_affine_field_pair_pre``)
+    whose K1 passes take the form ``k1``: three K1 passes and five
+    row-affine passes each."""
+    return {k1: 3 * n, RA_FORM[k1]: 5 * n}
 
 
 def cuda_ms(fn, n: int = 20) -> float:
@@ -1007,12 +1049,12 @@ def run_slice(dev, cfg, seeds_np, seg_np):
     torch.cuda.set_sync_debug_mode("error")
     reset_counts()
     out, seg, p = tpipe.synth_batch(seeds, segs, cfg, sample_seeds, dev)
-    launches = dict(hat.LAUNCHES)
+    launches = launched()
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     log(f"synth_batch: launches {launches}")
-    if launches != counts(hat_pass_pair=3):
-        raise RuntimeError(f"expected 3 hat_pass_pair launches and no other, got {launches}")
+    if launches != counts(**pair_warps(1)):
+        raise RuntimeError(f"expected {pair_warps(1)} launches and no other, got {launches}")
 
     if tuple(out.shape) != (BATCH, *SHAPE) or tuple(seg.shape) != (BATCH, *SHAPE):
         raise RuntimeError(f"bad output shapes {tuple(out.shape)} {tuple(seg.shape)}")
@@ -1084,10 +1126,11 @@ def production_core(dev, cfg, seeds, segs):
     reset_counts()
     with core_mode("production"):
         out, seg, _ = tpipe.synth_batch(seeds, segs, cfg, sps, dev)
-    launches = dict(hat.LAUNCHES)
+    launches = launched()
     torch.cuda.set_sync_debug_mode(0)
-    if launches != counts(hat_pass_pair_bf16=3):
-        raise RuntimeError(f"production core: expected 3 hat_pass_pair_bf16 launches and no other, got {launches}")
+    want = pair_warps(1, "hat_pass_pair_bf16")
+    if launches != counts(**want):
+        raise RuntimeError(f"production core: expected {want} launches and no other, got {launches}")
     with core_mode("production"):
         again, seg_again, _ = tpipe.synth_batch(seeds, segs, cfg, sps, dev)
     if not (torch.equal(again, out) and torch.equal(seg_again, seg)):
@@ -1324,8 +1367,8 @@ def api_generator(device, nonlinear_transform=True, seed=0, artifacts=None):
 # per sample): synth_train.yaml's seed path, real_train.yaml's image as
 # intensity with the co-deformed T2w, and that without the nonlinear field
 API_CONFIGS = {
-    "synth_train": (dict(seed_path=str(DATA / "derivatives" / "seeds")), True, dict(hat_pass_pair=3)),
-    "real_train": (dict(load_image=True, image_as_intensity=True), True, dict(hat_pass_pair=3, hat_pass=6)),
+    "synth_train": (dict(seed_path=str(DATA / "derivatives" / "seeds")), True, pair_warps(1)),
+    "real_train": (dict(load_image=True, image_as_intensity=True), True, dict(**pair_warps(1), hat_pass=6)),
     "real_train_affine": (dict(load_image=True, image_as_intensity=True), False, dict(hat_pass=15)),
 }
 
@@ -1342,7 +1385,7 @@ def api_path(dev, name):
     torch.cuda.synchronize()
     reset_counts()
     item = ds.sample_with_meta(0)
-    launches = dict(hat.LAUNCHES)
+    launches = launched()
     gp = item["generation_params"]
     img, lab = item["image"], item["label"]
     log(f"api {name}: launches {launches}, seed {gp['seed']}, image {img.shape} {img.dtype} "
@@ -1636,7 +1679,7 @@ def api_artifacts_phase(dev, forced: bool):
     torch.cuda.synchronize()
     reset_counts()
     item = ds.sample_with_meta(0)
-    launches = dict(hat.LAUNCHES)
+    launches = launched()
     gp = item["generation_params"]
     img = item["image"]
     log(f"api {name}: launches {launches}, artifacts {json.dumps(gp['artifacts'])[:600]}")
@@ -1726,12 +1769,13 @@ def _drive_stream(dev, ds, prefetch, iters, mode):
     dt = time.perf_counter() - t0
     it.close()  # joins the producer of the batch in flight
     torch.cuda.synchronize()
-    launches = dict(hat.LAUNCHES)
+    launches = launched()
     peak = torch.cuda.max_memory_allocated(dev)
     generated = 2 + iters + (1 if prefetch else 0)
     k1 = K1_FORM[mode]
-    if launches != counts(**{k1: 3 * generated}):
-        raise RuntimeError(f"stream ({mode}): expected {3 * generated} {k1} launches and no other, got {launches}")
+    if launches != counts(**pair_warps(generated, k1)):
+        raise RuntimeError(f"stream ({mode}): expected {pair_warps(generated, k1)} launches and no other, "
+                           f"got {launches}")
     name = next(iter(stream.banks.records))  # the first bank built
     rec = stream.banks.records[name]
     numbers = {
@@ -1743,6 +1787,7 @@ def _drive_stream(dev, ds, prefetch, iters, mode):
         "first_bank": {"name": name, "reader": rec["reader"], **first_bank(spans, rec["bytes"]), "bytes": rec["bytes"]},
         "peak_mem_bytes": peak,
         "k1_launches": launches[k1],
+        "row_affine_launches": launches[RA_FORM[k1]],
     }
     return stream, numbers, torch.stack(digests).cpu(), b
 
@@ -1789,7 +1834,9 @@ def stream_phase(dev, tree: str, ds) -> collections.Counter:
                                           "compose_seeds_equal_host": True}
         log(json.dumps({"stream": tree, **n, **checked}))
     return collections.Counter({"hat_pass_pair_bf16": n_on["k1_launches"] + n_off["k1_launches"],
-                                "hat_pass_pair": n_f32["k1_launches"]})
+                                "hat_pass_pair": n_f32["k1_launches"],
+                                "row_affine_pair_bf16": n_on["row_affine_launches"] + n_off["row_affine_launches"],
+                                "row_affine_pair_f32": n_f32["row_affine_launches"]})
 
 
 def stream_affine_drive(dev, root) -> collections.Counter:
@@ -1817,7 +1864,7 @@ def stream_affine_drive(dev, root) -> collections.Counter:
         with check.on(warp):
             batches.append(next(it))
         it.close()
-    launches = dict(hat.LAUNCHES)
+    launches = launched()
     if launches != counts(hat_pass_bf16=40):
         raise RuntimeError(f"stream without the field: expected 40 hat_pass_bf16 launches and no other, got {launches}")
     if set(check.calls) != {"hat_pass_bf16"} or check.calls["hat_pass_bf16"] != 10:
@@ -2054,7 +2101,10 @@ def _drive_artifact_stream(dev, ds, prefetch, iters):
             metas.append(b["meta"])
         dt = time.perf_counter() - t0
         it.close()
-    launches = dict(hat.LAUNCHES)
+    launches = launched()
+    # the batch a prefetching producer has in flight at close may be dropped
+    # before its warp (the producer is slower than the core stream's)
+    row_affine_per_batch(launches, range(2 + iters, 3 + iters + (1 if prefetch else 0)), "stream with artifacts")
     motion = [r["attrs"] for r in spans if r["name"] == "chain.motion" and r["attrs"]]
     counted = {"transfers": tba.COUNTS["transfers"] - reads, "motion_samples": len(motion),
                "stacks_attempted": sum(a["stacks_attempted"] for a in motion),
@@ -2109,7 +2159,8 @@ def engine_batch(dev, stream, name, rs, split, coarse, check):
         with traced(spans):
             batch = stream._generate()
             host_ms = 1e3 * (time.perf_counter() - t0)
-        launches = dict(hat.LAUNCHES)
+        launches = launched()
+        row_affine_per_batch(launches, range(1, 2), f"stream engine {name}")
         peak = torch.cuda.max_memory_allocated(dev)
         pack = batch["meta"]["pack"]
         got = engine_of(pack, 0, stream)
@@ -2135,7 +2186,8 @@ def stream_forced_batch(dev, stream, check):
         spans = []
         with traced(spans):
             batch = stream._generate()
-        launches = dict(hat.LAUNCHES)
+        launches = launched()
+        row_affine_per_batch(launches, range(1, 2), "stream forced batch")
         peak = torch.cuda.max_memory_allocated(dev)
         checked_replay(stream, batch, check, "stream forced batch")
     per = collections.defaultdict(list)
@@ -2448,7 +2500,7 @@ def drive_trainer(dev, cfg, seeds, segs):
             starts.append(ev0)
             ends.append(ev1)
         dt = time.perf_counter() - t0
-        launches = dict(hat.LAUNCHES)
+        launches = launched()
     finally:
         tstep.train_on = train_on_plain
     gen_ms = [a.elapsed_time(m) for a, m in zip(starts, marks)]
@@ -2606,8 +2658,8 @@ def train_phase(dev, t_start):
     tail = statistics.mean(losses[-(len(losses) // 3):])
     log(json.dumps({"train": f"UNet3D(16, 32, 64) bf16, {SHAPE[0]}^3 x 1", **numbers, "losses": losses,
                     "loss_first_third": head, "loss_last_third": tail}))
-    if launches != counts(hat_pass_pair=3 * TRAIN_STEPS):
-        raise RuntimeError(f"train: expected {3 * TRAIN_STEPS} hat_pass_pair launches and no other, got {launches}")
+    if launches != counts(**pair_warps(TRAIN_STEPS)):
+        raise RuntimeError(f"train: expected {pair_warps(TRAIN_STEPS)} launches and no other, got {launches}")
     if not all(np.isfinite(losses)) or not tail < head:
         raise RuntimeError(f"train: losses not finite or not trending down ({head} -> {tail})")
     for sps, (images, labels) in zip(step_seeds, kept):
@@ -2858,15 +2910,15 @@ def seeds_phase(dev, t_start):
         torch.cuda.synchronize()
         reset_counts()
         item = ds.sample_with_meta(0)
-        drawn = dict(hat.LAUNCHES)
+        drawn = launched()
         reset_counts()
         again = ds.sample_with_meta(0, genparams=item["generation_params"])
-        replayed = dict(hat.LAUNCHES)
+        replayed = launched()
         img = item["image"]
         log(f"seeds: synth_train draw from the fresh tree: launches {drawn}, replay {replayed}, image {img.shape} "
             f"[{img.min():.6f}, {img.max():.6f}], labels {sorted(np.unique(item['label']).tolist())}")
-        if drawn != counts(hat_pass_pair=3) or replayed != drawn:
-            raise RuntimeError(f"seeds: expected 3 hat_pass_pair launches a draw, got {drawn}, {replayed}")
+        if drawn != counts(**pair_warps(1)) or replayed != drawn:
+            raise RuntimeError(f"seeds: expected {pair_warps(1)} launches a draw, got {drawn}, {replayed}")
         if img.shape != (1, *SHAPE) or not np.isfinite(img).all() or img.min() < 0.0 or img.max() > 1.0:
             raise RuntimeError(f"seeds: bad image from the fresh tree {img.shape}")
         if not (np.array_equal(again["image"], img) and np.array_equal(again["label"], item["label"])):
@@ -2901,26 +2953,26 @@ for _form in SEP_FORMS:
     KERNELS[f"separable:{_form}"] = KERNELS["hat_pass_pair" if "pair" in _form else "hat_pass"]
 
 
-def separable_inputs(dev, shape, out_shape, seed=15):
-    """Phase 15's inputs at ``shape``, B=4: a smooth image in [0, 100], its
-    labels (8 levels), a near-identity affine of the generator's ranges
-    mapping the ``out_shape`` grid's centre onto the input's, and three
-    smooth displacement components with a standard deviation of 10 voxels
-    (their peaks pass +-FIELD_LIM)."""
+def separable_inputs(dev, shape, out_shape, seed=15, batch=BATCH):
+    """Phase 15's inputs at ``shape``, B=4 (or ``batch``): a smooth image in
+    [0, 100], its labels (8 levels), a near-identity affine of the
+    generator's ranges mapping the ``out_shape`` grid's centre onto the
+    input's, and three smooth displacement components with a standard
+    deviation of 10 voxels (their peaks pass +-FIELD_LIM)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     big = tuple(n + 8 for n in shape)
 
     def smooth():
-        v = F.avg_pool3d(torch.rand((BATCH, 1, *big), generator=g, device=dev), 9, 1)[:, 0]
+        v = F.avg_pool3d(torch.rand((batch, 1, *big), generator=g, device=dev), 9, 1)[:, 0]
         return (v - v.mean()) / v.std()
 
     img = smooth()
     img = 100.0 * (img - img.min()) / (img.max() - img.min())
     lab = torch.floor(img * 0.0799)
     A = make_affine_matrix(
-        (torch.rand((BATCH, 3), generator=g, device=dev) - 0.5) * (40.0 / 180.0 * np.pi),
-        (torch.rand((BATCH, 3), generator=g, device=dev) - 0.5) * 0.04,
-        1.0 + (torch.rand((BATCH, 3), generator=g, device=dev) - 0.5) * 0.2)
+        (torch.rand((batch, 3), generator=g, device=dev) - 0.5) * (40.0 / 180.0 * np.pi),
+        (torch.rand((batch, 3), generator=g, device=dev) - 0.5) * 0.04,
+        1.0 + (torch.rand((batch, 3), generator=g, device=dev) - 0.5) * 0.2)
     def centre(grid):
         return (torch.tensor(grid, dtype=torch.float32, device=dev) - 1) / 2
 
@@ -3084,6 +3136,107 @@ def separable_phase(dev, t_start):
     return launches, separable_kernel_checks(dev)
 
 
+ROW_AFFINE_BATCH = 16  # the benchmark's core cell
+
+
+def row_affine_passes(A, t):
+    """The pair warp's five row-affine passes: (name, slope, amount, bias,
+    out_order), as ``warp_affine_field_pair_pre`` runs them."""
+    U, L = ul_decompose(A)
+    return [("U-z", U[:, 2, 2], 0.0, t[:, 2], "ikj"), ("U-y", U[:, 1, 1], U[:, 1, 2], t[:, 1], "kji"),
+            ("U-x i+U02*k", 1.0, U[:, 0, 2], 0.0, "jik"), ("U-x", U[:, 0, 0], U[:, 0, 1], t[:, 0], "kij"),
+            ("L-z peel", 1.0, L[:, 2, 1], 0.0, "ijk")]
+
+
+def bf16_ulps(got, want) -> int:
+    """The largest distance of two bf16 tensors in units in the last place."""
+    def ordered(x):
+        v = x.view(torch.int16).to(torch.int32)
+        return torch.where(v < 0, -(v + 32768), v)
+
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def row_affine_check(name, form, run, plain, nbytes, n=20, n_plain=5):
+    """One pass: ``run()`` (the kernel) against ``plain()`` (the einsum):
+    labels bit-identical, the image within one bf16 ulp (bf16) or 2^-22 of
+    its scale (f32 results), or raise; then kernel, fenced and plain ms
+    and the bound of ``nbytes``. ``err`` is the image's largest absolute
+    difference, ``ulps`` its largest in bf16 ulps (bf16 results)."""
+    (ka, kb), (pa, pb) = run(), plain()
+    torch.cuda.synchronize()
+    err = float((ka.float() - pa.float()).abs().max())
+    ulps = None
+    if form == "bf16":
+        ulps = bf16_ulps(ka, pa)
+        ok = ulps <= 1
+    else:
+        ok = err <= 2.0**-22 * max(float(pa.abs().max()), 1e-30)
+    labels = int((kb != pb).sum())
+    del ka, kb, pa, pb
+    if labels or not ok:
+        raise RuntimeError(f"row_affine {name} {form}: {labels} labels differ, image max|d| {err} ulps {ulps}")
+    bound_ms, bound_by = bound(nbytes, 0)
+    ms, plain_ms = cuda_ms(run, n), cuda_ms(plain, n_plain)
+    fenced_ms = ring_profile.one_ms(run, True)
+    log(f"kernel row_affine_pair_{form} {name}: labels differing=0 image max|d|={err:.3e} ulps={ulps} "
+        f"kernel {ms:.4f} ms (fenced {fenced_ms:.4f} ms, {100 * bound_ms / fenced_ms:.1f}% of bound {bound_ms:.4f} "
+        f"ms, host wait {1e3 * (ms - fenced_ms):.1f} us) plain {plain_ms:.4f} ms bound ({bound_by}, {nbytes} bytes)")
+    return dict(key=f"row_affine_pair_{form}", err=err, ulps=ulps, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, fenced_ms=fenced_ms)
+
+
+def row_affine_phase(dev):
+    """Phase 16: the row-affine pair pass against the einsum in each form.
+    Returns its checks (the main paths count its launches)."""
+    B = ROW_AFFINE_BATCH
+    img, lab, A, t, _ = separable_inputs(dev, SHAPE, SHAPE, seed=160, batch=B)
+    lab = lab.to(torch.int32)
+    results = []
+    with linops.storage_scope(BF16):
+        a, b = img, lab
+        for i, (name, slope, amount, bias, order) in enumerate(row_affine_passes(A, t)):
+            if i == 4:  # the hat pass's (B, D, W, H) output, read as (B, D, H, W)
+                a, b = a.permute(0, 1, 3, 2), b.permute(0, 1, 3, 2)
+            xa, xb = a, b
+            args = (slope, amount, bias)
+            nbytes = (xa.element_size() + xb.element_size() + 2 * 2) * xa.numel()
+            results.append(row_affine_check(
+                name, "bf16", lambda: warp.row_affine_pass_pair(xa, xb, *args, out_order=order),
+                # the parent's path: the first pass on f32 operands (its two copies included)
+                lambda: warp._row_affine_matmul_pair(xa.float() if i == 0 else xa, xb.float() if i == 0 else xb,
+                                                     *args, out_order=order),
+                nbytes))
+            a, b = warp.row_affine_pass_pair(xa, xb, *args, out_order=order)
+        del a, b, xa, xb
+        D, H, W = SHAPE
+        zeros = [torch.zeros((B, *sh), device=dev) for sh in ((D, W, H), (D, H, W), (H, W, D))]  # gyT, gz, gxT
+        torch.cuda.synchronize()
+        reset_counts()
+        oa, ob = warp.warp_affine_field_pair_pre(img, lab, A, t, *zeros)
+        torch.cuda.synchronize()
+    got = {k: v for k, v in row_affine.LAUNCHES.items() if v}
+    log(f"row_affine: one warp_affine_field_pair_pre call at B={B} {SHAPE} launched {json.dumps(got)}")
+    if got != {"row_affine_pair_bf16": 5} or oa.dtype != BF16 or ob.dtype != torch.int32:
+        raise RuntimeError(f"row_affine: pair warp launched {got}, wrote {oa.dtype} {ob.dtype}")
+    del oa, ob, zeros, img, lab
+    img, lab, A, t, _ = separable_inputs(dev, SHAPE, SHAPE, seed=161, batch=2)
+    lab = lab.to(torch.int32)
+    for form, scope in (("f32", linops.f32_scope), ("default", lambda: linops.precision_scope(linops.DEFAULT))):
+        with scope():
+            a, b = img, lab
+            for i, (name, slope, amount, bias, order) in enumerate(row_affine_passes(A, t)):
+                if i == 4:
+                    a, b = a.permute(0, 1, 3, 2), b.permute(0, 1, 3, 2)
+                xa, xb, args = a, b, (slope, amount, bias)
+                results.append(row_affine_check(
+                    f"{name} B=2", form, lambda: warp.row_affine_pass_pair(xa, xb, *args, out_order=order),
+                    lambda: warp._row_affine_matmul_pair(xa.float(), xb.float(), *args, out_order=order),
+                    (xa.element_size() + xb.element_size() + 2 * 4) * xa.numel(), n=5, n_plain=3))
+                a, b = warp.row_affine_pass_pair(xa, xb, *args, out_order=order)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU")
@@ -3160,9 +3313,13 @@ def main() -> int:
     launches.update(sep_launches)
     checks += sep_checks
     log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t15:.1f} s)")
+    t16 = time.perf_counter()
+    checks += row_affine_phase(dev)
+    log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t16:.1f} s)")
     missing = [k for k in KERNELS if not launches.get(k)]
     if missing:
         raise RuntimeError(f"kernel forms never launched on the main paths: {missing}")
+
 
     entries = []
     for key, (source, replaces) in KERNELS.items():
@@ -3177,6 +3334,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[key],
             "max_abs_err": max(r["err"] for r in rs),
+            **({"max_bf16_ulps": max(r["ulps"] for r in rs)} if rs[0].get("ulps") is not None else {}),
             "ms": mid["ms"],
             "plain_ms": mid["plain_ms"],
             "bound_ms": mid["bound_ms"],

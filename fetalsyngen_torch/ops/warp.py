@@ -4,7 +4,9 @@ The affine map ``o -> A o + t`` factors as ``A = U L`` (upper x unit-lower),
 so the warp runs as single-axis resampling passes with closed-form positions.
 
 - The (image, labels) pair: passes without a displacement or a ``row_i``
-  term are batched matmuls with a banded (B, J, K, S) operator
+  term go through :func:`row_affine_pass_pair`: on the card the two-tap
+  kernel (:mod:`fetalsyngen_torch.kernels.row_affine`), on the CPU batched
+  matmuls with a banded (B, J, K, S) operator
   (:func:`_row_affine_matmul_pair`); the three displacement-carrying passes
   go through the paired hat kernel
   (:func:`fetalsyngen_torch.kernels.hat.hat_pass_pair`).
@@ -43,8 +45,11 @@ import itertools
 import numpy as np
 import torch
 
+from ..kernels import row_affine
 from ..kernels.hat import hat_pass, hat_pass_pair
-from .linops import axis_mm, einsum_store, interp_matrix_1d, io_dtype, prec_matmul
+from .linops import (
+    DEFAULT, axis_mm, current_precision, current_storage, einsum_store, interp_matrix_1d, io_dtype, prec_matmul,
+)
 
 # Displacement fields are clipped to +-FIELD_LIM voxels: ~3.5 sigma of the
 # largest default nonlin_std (4.0), beyond the field's realizable range.
@@ -121,6 +126,26 @@ def _row_affine_matmul_pair(xa, xb, slope, amount, bias, out_order="ijk"):
     m_lin, m_near = _shear_matrices(J, S, amount, bias + amount * c_fix, c_fix, slope)
     spec = f"bjks,bijs->b{out_order}"
     return einsum_store(spec, m_lin, xa), einsum_store(spec, m_near, xb)
+
+
+def row_affine_pass_pair(xa, xb, slope, amount, bias, out_order="ijk"):
+    """:func:`_row_affine_matmul_pair` of any operand types (f32 or bf16
+    images, integer labels). CPU tensors take it as it is, on the operands
+    converted to f32; CUDA tensors launch the two-tap kernel
+    (:func:`fetalsyngen_torch.kernels.row_affine.row_affine_pair`), which
+    computes the same function without the operators and writes the
+    output contiguous in ``out_order``, in the form of this thread's scopes:
+    the storage scope's bf16 chain, else the precision scope's one bf16
+    pass (the public ``precision_scope(DEFAULT)`` alone, which no path of the
+    port enters by itself), else the f32 contract."""
+    if xa.device.type == "cpu":
+        return _row_affine_matmul_pair(xa.to(torch.float32), xb.to(torch.float32), slope, amount, bias, out_order)
+    B, _, J, _ = xa.shape
+    slope, amount, bias = (_as_batch(v, B, xa.device) for v in (slope, amount, bias))
+    c_fix = (J - 1) / 2.0
+    form = "bf16" if current_storage() is not None else ("default" if current_precision() == DEFAULT else "f32")
+    coefs = torch.stack([slope, amount, bias + amount * c_fix], 1)
+    return row_affine.row_affine_pair(xa, xb, coefs, out_order, form)
 
 
 def _field_combos(L, Fx, Fy, Fz):
@@ -544,15 +569,16 @@ def warp_affine_field_pair_pre(va, vb, A, t, gyT, gz, gxT):
     - ``gxT`` = clip(Fx, ...) in (B, H, W, D) layout,
 
     with L from :func:`ul_decompose` of the (B, 3, 3) ``A`` and (B, 3)
-    offsets ``t``. The U passes and the L21 peel are batched matmuls; the L-y,
-    L-z and x passes launch the hat kernel, three launches per call. Under the
-    storage scope the matmuls and the hat passes keep the pair in bf16 (the
-    labels too: below 257 they are exact), and the image comes out bf16.
+    offsets ``t``. The U passes and the L21 peel are row-affine passes
+    (:func:`row_affine_pass_pair`: on the card five launches of the two-tap
+    kernel, the first reading the image and the labels as they arrive); the
+    L-y, L-z and x passes launch the hat kernel, three launches per call.
+    Under the storage scope the row-affine and hat passes keep the pair in
+    bf16 (the labels too: below 257 they are exact), and the image comes out
+    bf16.
     """
     U, L = ul_decompose(A)
     t = t.to(torch.float32)
-    a = va.to(torch.float32)
-    b = vb.to(torch.float32)
     B = va.shape[0]
     zero = torch.zeros(B, dtype=torch.float32, device=va.device)
     one = torch.ones_like(zero)
@@ -566,19 +592,19 @@ def warp_affine_field_pair_pre(va, vb, A, t, gyT, gz, gxT):
         return hat_pass_pair(a.to(io).contiguous(), b.to(io).contiguous(), coefs(ci), disp.contiguous())
 
     # U-z on (i,j,k): pos_k = U22*k + t2
-    a, b = _row_affine_matmul_pair(a, b, U[:, 2, 2], 0.0, t[:, 2], out_order="ikj")
+    a, b = row_affine_pass_pair(va, vb, U[:, 2, 2], 0.0, t[:, 2], out_order="ikj")
     # U-y on (i,k,j): pos_j = U11*j + U12*k + t1
-    a, b = _row_affine_matmul_pair(a, b, U[:, 1, 1], U[:, 1, 2], t[:, 1], out_order="kji")
+    a, b = row_affine_pass_pair(a, b, U[:, 1, 1], U[:, 1, 2], t[:, 1], out_order="kji")
     # U-x has two row terms, split into two single-row-term passes:
     # i <- i + U02*k on (j,k,i), then i <- U00*i + U01*j + t0 on (k,j,i)
-    a, b = _row_affine_matmul_pair(a, b, 1.0, U[:, 0, 2], 0.0, out_order="jik")
-    a, b = _row_affine_matmul_pair(a, b, U[:, 0, 0], U[:, 0, 1], t[:, 0], out_order="kij")
+    a, b = row_affine_pass_pair(a, b, 1.0, U[:, 0, 2], 0.0, out_order="jik")
+    a, b = row_affine_pass_pair(a, b, U[:, 0, 0], U[:, 0, 1], t[:, 0], out_order="kij")
     # L-y on (i,k,j): pos_j = j + L10*i + gy
     a, b = hat(a, b, L[:, 1, 0], gyT)
     a, b = a.permute(0, 1, 3, 2), b.permute(0, 1, 3, 2)
-    # L-z peel: k <- k + L21*j as a matmul, then the hat pass carries the
-    # row_i term L20*i and the field
-    a, b = _row_affine_matmul_pair(a, b, 1.0, L[:, 2, 1], 0.0, out_order="ijk")
+    # L-z peel: k <- k + L21*j as a row-affine pass, then the hat pass
+    # carries the row_i term L20*i and the field
+    a, b = row_affine_pass_pair(a, b, 1.0, L[:, 2, 1], 0.0, out_order="ijk")
     a, b = hat(a, b, L[:, 2, 0], gz)
     a, b = a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1)
     # x on (j,k,i): pos_i = i + gx

@@ -13,7 +13,7 @@ import torch
 from fetalsyngen_torch.generator import pipeline as tpipe
 from fetalsyngen_torch.generator.config import GeneratorCfg, IntensityCfg
 from fetalsyngen_torch.generator.params import sample_params
-from fetalsyngen_torch.kernels import hat
+from fetalsyngen_torch.kernels import hat, row_affine
 from fetalsyngen_torch.testing import phantom_seeds_and_seg
 
 pytestmark = pytest.mark.cuda
@@ -1412,6 +1412,109 @@ def test_separable_warps_card_vs_cpu(dev, bf16):
                 assert torch.equal(got.cpu(), ref), (name, mode)
             else:
                 torch.testing.assert_close(got.cpu().float(), ref.float(), rtol=0, atol=1e-5 * 100.0)
+
+
+# ---------------------------------------------------------------------------
+# the row-affine pair pass: the pair warp's U passes and L21 peel
+# ---------------------------------------------------------------------------
+
+RA_ORDERS = ["ikj", "kji", "jik", "kij", "ijk"]  # the pair warp's five passes
+
+
+def _ra_scope(form):
+    from fetalsyngen_torch.ops import linops
+
+    return {"f32": linops.f32_scope, "bf16": lambda: linops.storage_scope(torch.bfloat16),
+            "default": lambda: linops.precision_scope(linops.DEFAULT)}[form]()
+
+
+def _bf16_ulps(got, want):
+    """Elementwise distance of two bf16 tensors in units in the last place
+    (their bit patterns ordered as integers; -0 and +0 at the same place)."""
+    def ordered(x):
+        v = x.view(torch.int16).to(torch.int32)
+        return torch.where(v < 0, -(v + 32768), v)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+@pytest.mark.parametrize("rows", ["s", "j"])
+@pytest.mark.parametrize("form", ["f32", "bf16", "default"])
+@pytest.mark.parametrize("out_order", RA_ORDERS)
+@pytest.mark.parametrize("shape", [(256, 256, 256), (5, 37, 71)], ids=["256", "odd"])
+def test_row_affine_kernel_matches_plain(dev, shape, out_order, form, rows):
+    """The row-affine kernel (``ops.warp.row_affine_pass_pair`` on the card)
+    against its plain version, the banded-operator einsum on the card, at
+    B=2 in each scope's form, on operands contiguous along S (an f32 image
+    and int32 labels, as the first pass reads them) or along J (the form's
+    own type, as the L-z peel reads the hat pass's output): one launch of
+    the form, a contiguous output, labels bit-identical; the image within
+    one bf16 ulp (bf16) or f32 rounding. Sample 0 clamps at both ends,
+    sample 1 puts every other lane at a half-integer."""
+    from fetalsyngen_torch.ops import warp
+
+    g = torch.Generator(device=dev).manual_seed(len(out_order) * 7 + shape[0] + len(form))
+    I, J, S = shape
+    out_dtype = torch.bfloat16 if form == "bf16" else torch.float32
+    dtypes = (torch.float32, torch.int32) if rows == "s" else (out_dtype, out_dtype)
+    base = (2, I, J, S) if rows == "s" else (2, I, S, J)
+    xa = (100.0 * torch.rand(base, generator=g, device=dev)).to(dtypes[0])
+    xb = torch.randint(0, 50, base, generator=g, device=dev).to(dtypes[1])
+    if rows == "j":
+        xa, xb = xa.permute(0, 1, 3, 2), xb.permute(0, 1, 3, 2)
+    coefs = [torch.tensor(v, device=dev) for v in ((1.07, 0.5), (0.21, 1.0), (-2.3, 0.0))]
+    key = f"row_affine_pair_{form}"
+    with _ra_scope(form):
+        before = row_affine.LAUNCHES[key]
+        ka, kb = warp.row_affine_pass_pair(xa, xb, *coefs, out_order=out_order)
+        assert row_affine.LAUNCHES[key] == before + 1
+        pa, pb = warp._row_affine_matmul_pair(xa.float(), xb.float(), *coefs, out_order=out_order)
+    torch.cuda.synchronize()
+    assert ka.is_contiguous() and kb.is_contiguous()
+    assert ka.shape == pa.shape and ka.dtype == pa.dtype == kb.dtype == pb.dtype == out_dtype
+    assert torch.equal(kb, pb)
+    if form == "bf16":
+        assert int(_bf16_ulps(ka, pa).max()) <= 1
+    else:
+        torch.testing.assert_close(ka, pa, rtol=2**-22, atol=2**-22 * 100.0)
+
+
+def test_row_affine_production_core_labels_match_einsum(dev, monkeypatch):
+    """``synth_core`` in the production mode at 256^3, B=4: the pair warp
+    launches the row-affine kernel's bf16 form five times and builds no
+    banded operator; its labels are bit-identical to those of the same
+    batch through the banded-operator einsum on the card, and the image,
+    whose bf16 roundings may fall the other way where the GEMM sums in
+    another order, within a relative L2 of 1e-3."""
+    from fetalsyngen_torch.ops import warp
+    from fetalsyngen_torch.parallel.input_pipeline import _production_scopes
+
+    shape = (256, 256, 256)
+    cfg = GeneratorCfg(shape=shape, resolution=(0.5, 0.5, 0.5), intensity=IntensityCfg(
+        1, 6, tuple([0] + list(range(10, 50))), tuple([0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50)))))
+    seeds, seg = phantom_seeds_and_seg(shape, seed=2)
+    seeds = torch.from_numpy(np.stack([seeds] * 4).astype(np.int32)).to(dev)
+    segs = torch.from_numpy(np.stack([seg] * 4).astype(np.int32)).to(dev)
+    gens = tpipe.make_generators([5, 6, 7, 8], dev)
+    p = sample_params(gens, cfg)
+    f = tpipe.draw_fields(gens, cfg, dev)
+    built = []
+    shear = warp._shear_matrices
+    monkeypatch.setattr(warp, "_shear_matrices", lambda *a: built.append(a[:2]) or shear(*a))
+    before = dict(row_affine.LAUNCHES)
+    with _production_scopes():
+        out, lab, _ = tpipe.synth_core(p, f, seeds, segs, cfg)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in row_affine.LAUNCHES.items()} == {
+            "row_affine_pair_f32": 0, "row_affine_pair_bf16": 5, "row_affine_pair_default": 0}
+        assert built == []
+        monkeypatch.setattr(warp, "row_affine_pass_pair", lambda xa, xb, *a, **kw: warp._row_affine_matmul_pair(
+            xa.float(), xb.float(), *a, **kw))
+        out_e, lab_e, _ = tpipe.synth_core(p, f, seeds, segs, cfg)
+        torch.cuda.synchronize()
+    assert len(built) == 5
+    assert lab.dtype == lab_e.dtype and torch.equal(lab, lab_e)
+    assert float((out.float() - out_e.float()).norm() / out_e.float().norm()) < 1e-3
 
 
 # ---------------------------------------------------------------------------

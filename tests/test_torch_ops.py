@@ -17,6 +17,7 @@ from fetalsyngen_tpu.ops import interp as jinterp
 from fetalsyngen_tpu.ops import linops as jlinops
 from fetalsyngen_tpu.ops import numerics as jnumerics
 from fetalsyngen_tpu.ops import warp as jwarp
+from fetalsyngen_torch.kernels import row_affine
 from fetalsyngen_torch.ops import affine, interp, linops, numerics, warp
 
 RTOL = dict(rtol=1e-5, atol=1e-6)
@@ -157,6 +158,161 @@ def test_shear_matrices(J, S):
         np.testing.assert_allclose(lin[b].numpy(), np.asarray(ref[False]), **RTOL)
         np.testing.assert_array_equal(near[b].numpy(), np.asarray(ref[True]))
     np.testing.assert_array_equal(near.sum(-1).numpy(), 1.0)
+
+
+PASS_ORDERS = ["ikj", "kji", "jik", "kij", "ijk"]  # the pair warp's five passes
+# (name, (I, J, S), slope, amount, bias) of the row-affine pass cases, B=2:
+# positions between the taps; clamping at both ends; exact half-integers
+# (rounded half to even) and integers; J != S both ways
+ROW_AFFINE_CASES = [
+    ("general", (6, 10, 12), (0.93, 1.08), (0.31, -0.47), (0.6, -1.2)),
+    ("clamped", (3, 13, 9), (1.3, 0.7), (0.9, -1.4), (-3.0, 4.0)),
+    ("half", (4, 9, 14), (1.0, 0.5), (0.0, 1.0), (0.5, 0.0)),
+]
+ROW_AFFINE_SCOPES = {
+    "f32": lambda: linops.f32_scope(),
+    "bf16": lambda: linops.storage_scope(torch.bfloat16),
+    "default": lambda: linops.precision_scope(linops.DEFAULT),
+}
+
+
+def _row_affine_operands(shape, seed, rows="s", dtypes=(torch.float32, torch.int32)):
+    """A (B=2, I, J, S) image in [0, 100) and labels 0..49 of ``dtypes``,
+    contiguous along S (``rows`` "s") or along J (a permuted view, as the
+    L-z peel reads the hat pass's output)."""
+    g = torch.Generator().manual_seed(seed)
+    I, J, S = shape
+    base = (2, I, J, S) if rows == "s" else (2, I, S, J)
+    xa = (100.0 * torch.rand(base, generator=g)).to(dtypes[0])
+    xb = torch.randint(0, 50, base, generator=g).to(dtypes[1])
+    if rows == "j":
+        xa, xb = xa.permute(0, 1, 3, 2), xb.permute(0, 1, 3, 2)
+    return xa, xb
+
+
+def _row_affine_emulated(xa, xb, slope, amount, bias, out_order, form):
+    """The row-affine kernel modelled on the CPU: ``row_affine.plan``'s tile
+    slots and strides address the operands' storage and the contiguous
+    output, and each output sample reads its two taps (one nearest) in the
+    kernel's arithmetic and roundings."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    xa, xb = row_affine._operands(xa, xb)
+    B, _, J, S = xa.shape
+    lay = row_affine.plan(xa.shape, xa.stride(), out_order)
+    grid = torch.meshgrid(*(torch.arange(n) for n in lay["n"]), indexing="ij")
+    bb = torch.arange(B).view(B, 1, 1, 1)
+    j, k = (grid[lay[c]].to(f32)[None] for c in ("jslot", "kslot"))
+    sl, am, bi = (v.view(B, 1, 1, 1) for v in (slope, amount, bias + amount * ((J - 1) / 2.0)))
+    pos = torch.clamp(sl * k + am * (j - (J - 1) / 2.0) + bi, 0.0, S - 1.0)
+    # the kernel's taps: s0 = min(floor(pos), S - 2) and s0 + 1, weights
+    # without the operator's clamp and |.|
+    f = torch.clamp(torch.floor(pos), max=S - 2.0)
+    s0 = f.long()
+    taps = (s0, s0 + 1, torch.round(pos).long())
+    w = [1.0 - (pos - f), 1.0 - ((f + 1.0) - pos)]
+    row = bb * lay["in_b"] + sum(g[None] * st for g, st in zip(grid, lay["is"]))
+
+    def tap(x, s):
+        flat = x.as_strided((x.untyped_storage().nbytes() // x.element_size(),), (1,), 0)
+        return flat[row + s * lay["in_s"]].to(f32)
+
+    a0, a1, bn = tap(xa, taps[0]), tap(xa, taps[1]), tap(xb, taps[2])
+    if form != "f32":
+        w, (a0, a1, bn) = [v.to(bf16).to(f32) for v in w], (v.to(bf16).to(f32) for v in (a0, a1, bn))
+    out_dtype = bf16 if form == "bf16" else f32
+    o = (bb * lay["out_b"] + sum(g[None] * st for g, st in zip(grid, lay["os"]))).flatten()
+    outs = []
+    for v in (w[0] * a0 + w[1] * a1, bn):
+        out = torch.full((B * lay["out_b"],), float("nan"), dtype=out_dtype)
+        out[o] = v.flatten().to(out_dtype)
+        outs.append(out.view(lay["out_shape"]))
+    return tuple(outs)
+
+
+@pytest.mark.parametrize("rows", ["s", "j"])
+@pytest.mark.parametrize("form", sorted(ROW_AFFINE_SCOPES))
+@pytest.mark.parametrize("out_order", PASS_ORDERS)
+def test_row_affine_kernel_model_matches_plain(out_order, form, rows):
+    """The kernel's two-tap arithmetic, addressed as ``row_affine.plan``
+    lays out its launch (operands contiguous along S, or along J as the L-z
+    peel reads them), equals the banded-operator einsum in each scope's
+    form: bit for bit where the operands are rounded to bf16 (two exact
+    products, one rounding), labels always, the f32 image within f32
+    rounding."""
+    dtypes = (torch.float32, torch.int32) if rows == "s" else (torch.bfloat16, torch.bfloat16)
+    for seed, (name, shape, slope, amount, bias) in enumerate(ROW_AFFINE_CASES):
+        xa, xb = _row_affine_operands(shape, seed, rows, dtypes)
+        coefs = [torch.tensor(v, dtype=torch.float32) for v in (slope, amount, bias)]
+        with ROW_AFFINE_SCOPES[form]():
+            pa, pb = warp._row_affine_matmul_pair(xa.float(), xb.float(), *coefs, out_order=out_order)
+        ka, kb = _row_affine_emulated(xa, xb, *coefs, out_order, form)
+        assert ka.shape == pa.shape and ka.dtype == pa.dtype == kb.dtype == pb.dtype, name
+        assert torch.equal(kb, pb), name
+        if form == "f32":
+            torch.testing.assert_close(ka, pa, rtol=2**-22, atol=2**-22 * 100.0, msg=name)
+        else:
+            assert torch.equal(ka, pa), name
+
+
+@pytest.mark.parametrize("storage", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("out_order", PASS_ORDERS)
+def test_row_affine_pass_pair_cpu(out_order, storage):
+    """On CPU tensors the wrapper is ``_row_affine_matmul_pair`` on the
+    operands converted to f32 (f32 images and int32 labels, as the pair
+    warp's first pass receives them), in and outside the storage scope."""
+    for seed, (name, shape, slope, amount, bias) in enumerate(ROW_AFFINE_CASES):
+        xa, xb = _row_affine_operands(shape, 10 + seed)
+        coefs = [torch.tensor(v, dtype=torch.float32) for v in (slope, amount, bias)]
+        with linops.storage_scope(storage):
+            got = warp.row_affine_pass_pair(xa, xb, *coefs, out_order=out_order)
+            want = warp._row_affine_matmul_pair(xa.float(), xb.float(), *coefs, out_order=out_order)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def test_row_affine_plan_of_the_pair_warp():
+    """The five passes' launch plans at (D, H, W) = (5, 6, 7): reads along
+    the input's contiguous axis (s as k; j for the L-z peel's transposed
+    view) and writes along the output's, or straight from registers where
+    the two coincide (the first half of U-x)."""
+    B, D, H, W = 2, 5, 6, 7
+    passes = [  # input (B, I, J, S) shape and strides, out_order -> slots
+        ((B, D, H, W), (D * H * W, H * W, W, 1), "ikj", ("k", "j", "i")),
+        ((B, D, W, H), (D * H * W, H * W, H, 1), "kji", ("k", "i", "j")),
+        ((B, H, W, D), (D * H * W, W * D, D, 1), "jik", ("k", "i", "j")),
+        ((B, W, H, D), (D * H * W, H * D, D, 1), "kij", ("k", "j", "i")),
+        ((B, D, H, W), (D * H * W, H * W, 1, H), "ijk", ("j", "k", "i")),
+    ]
+    for shape, strides, order, slots in passes:
+        lay = row_affine.plan(shape, strides, order)
+        assert lay["slots"] == slots, order
+        assert lay["out_shape"] == (B, *(dict(zip("ijk", shape[1:]))[c] for c in order))
+        assert lay["os"][0] == 1 if order == "jik" else lay["os"][1] == 1
+    with pytest.raises(ValueError, match="permutation"):
+        row_affine.plan((B, D, H, W), (1, 1, 1, 1), "iik")
+
+
+def test_warp_affine_field_pair_pre_takes_five_row_affine_passes(monkeypatch):
+    """Each call of the pair warp runs its U passes and the L21 peel through
+    ``row_affine_pass_pair``: five calls, the first on the operands as they
+    arrive (f32 image, int32 labels)."""
+    calls = []
+    plain = warp.row_affine_pass_pair
+
+    def counted(xa, xb, *args, **kw):
+        calls.append((xa.dtype, xb.dtype, kw["out_order"]))
+        return plain(xa, xb, *args, **kw)
+
+    monkeypatch.setattr(warp, "row_affine_pass_pair", counted)
+    rng = np.random.default_rng(7)
+    shape = (12, 10, 14)
+    va = _t(rng.random((2, *shape), np.float32))
+    vb = _t(rng.integers(0, 8, (2, *shape)).astype(np.int32))
+    A = torch.eye(3).expand(2, 3, 3) * 1.05
+    F = [torch.zeros((2, *shape)) for _ in range(3)]
+    warp.warp_affine_field_pair(va, vb, A, torch.zeros((2, 3)), *F)
+    assert [c[2] for c in calls] == PASS_ORDERS
+    assert calls[0][:2] == (torch.float32, torch.int32)
 
 
 def test_warp_affine_field_pair():
