@@ -272,7 +272,9 @@ from fetalsyngen_torch.ops.morphology import box_sum
 from fetalsyngen_torch.ops.numerics import device_const
 from fetalsyngen_torch.ops import linops, warp
 from fetalsyngen_torch.ops.warp import FIELD_LIM, ul_decompose
-from fetalsyngen_torch.parallel.input_pipeline import SyntheticStream, _production_scopes, batch_program, compose_seeds
+from fetalsyngen_torch.parallel.input_pipeline import (
+    BANK_COUNTS, SyntheticStream, _production_scopes, batch_program, compose_seeds,
+)
 from fetalsyngen_torch.probes import microbench_warp, probe_blocktp, profile_kernel_variants, ring_profile
 from fetalsyngen_torch.probes.timing import bound, hat_bound
 from fetalsyngen_torch.scripts import generate_seeds, gmm, resample, resize_seeds
@@ -397,14 +399,18 @@ def traced(into: list):
 
 def first_bank(spans: list, nbytes: int) -> dict:
     """The first seed bank's build from its ``bank.*`` spans: host seconds of
-    its decode, ``to_ras`` and pinning, and its upload's card milliseconds
-    (the bank's pin and upload are those of ``nbytes``; earlier decode and
-    ``to_ras`` spans are its own)."""
+    its staging set's making or wait (``bank.pin``), decode and ``to_ras``, and its
+    upload's card milliseconds (the pin and upload are those of ``nbytes``;
+    the decode and ``to_ras`` spans between them on their thread are its
+    own, its segmentation's included: a fill builds banks on threads of its
+    own at once)."""
     pin = next(r for r in spans if r["name"] == "bank.pin" and r["attrs"]["bytes"] == nbytes)
-    upload = next(r for r in spans if r["name"] == "bank.upload" and r["attrs"]["bytes"] == nbytes)
+    upload = next(r for r in spans if r["name"] == "bank.upload" and r["attrs"]["bytes"] == nbytes
+                  and r["thread"] == pin["thread"] and r["t0"] >= pin["t1"])
 
     def host_s(name):
-        return sum(r["t1"] - r["t0"] for r in spans if r["name"] == name and r["t1"] <= pin["t0"])
+        return sum(r["t1"] - r["t0"] for r in spans if r["name"] == name and r["thread"] == pin["thread"]
+                   and pin["t1"] <= r["t0"] and r["t1"] <= upload["t0"])
 
     return {"decode_s": host_s("bank.decode"), "to_ras_s": host_s("bank.to_ras"), "pin_s": pin["t1"] - pin["t0"],
             "upload_ms": upload["ms"]}
@@ -1786,6 +1792,7 @@ def _drive_stream(dev, ds, prefetch, iters, mode):
         "warmup_s": warm_s,
         "first_bank": {"name": name, "reader": rec["reader"], **first_bank(spans, rec["bytes"]), "bytes": rec["bytes"]},
         "peak_mem_bytes": peak,
+        "bank_counts": dict(BANK_COUNTS),
         "k1_launches": launches[k1],
         "row_affine_launches": launches[RA_FORM[k1]],
     }
@@ -1873,7 +1880,8 @@ def stream_affine_drive(dev, root) -> collections.Counter:
         raise RuntimeError(f"stream without the field: a K2 launch differs from its plain version "
                            f"({check.differ['hat_pass_bf16']}, {check.err['hat_pass_bf16']})")
     shapes = sorted({shape for _, shape in check.kept})
-    in_labels = set(torch.unique(torch.stack([stream._seg(n) for n in stream._names])).tolist())
+    stream.banks.fill(stream._names)
+    in_labels = set(torch.unique(stream.banks.segs[stream.banks.slots(stream._names)]).tolist())
     for b in batches:
         if not bool(torch.isfinite(b["image"]).all()) or not set(torch.unique(b["label"]).tolist()) <= in_labels:
             raise RuntimeError("stream without the field: non-finite image or labels not in the input")
@@ -1964,10 +1972,10 @@ def _stream_cpu_check(dev, ds):
     gens = tpipe.make_generators(meta["seeds"], dev)
     p = sample_params(gens, stream.cfg)
     f = tpipe.draw_fields(gens, stream.cfg, dev)
-    mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+    banks = stream._banks_for(meta["resident"])
     t0 = time.perf_counter()
     out_cpu, seg_cpu = batch_program(
-        mega.cpu(), segs.cpu(), hi.cpu(), torch.from_numpy(meta["subj"]), torch.from_numpy(meta["u"]),
+        *(t.cpu() for t in banks), torch.from_numpy(meta["subj"]), torch.from_numpy(meta["u"]),
         p.to("cpu"), f.to("cpu"), stream.cfg, stream._lo,
     )
     cpu_s = time.perf_counter() - t0
@@ -2278,13 +2286,13 @@ def stream_artifacts_cpu_check(dev, stream):
         gens = tpipe.make_generators(meta["seeds"], dev)
         p = sample_params(gens, stream.cfg)
         f = tpipe.draw_fields(gens, stream.cfg, dev)
-        mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+        banks = stream._banks_for(meta["resident"])
         args = (torch.from_numpy(meta["subj"]), torch.from_numpy(meta["u"]))
-        gpu, _ = batch_program(mega, segs, hi, *(a.to(dev) for a in args), p, f, stream.cfg, stream._lo, chain)
+        gpu, _ = batch_program(*banks, *(a.to(dev) for a in args), p, f, stream.cfg, stream._lo, chain)
         if not torch.equal(gpu, batch["image"]):
             raise RuntimeError("stream GPU vs CPU: the recorded rerun differs from the batch")
         t0 = time.perf_counter()
-        _, seg_cpu = batch_program(mega.cpu(), segs.cpu(), hi.cpu(), *args, p.to("cpu"), f.to("cpu"), stream.cfg,
+        _, seg_cpu = batch_program(*(t.cpu() for t in banks), *args, p.to("cpu"), f.to("cpu"), stream.cfg,
                                    stream._lo)
         chain_cpu = stream.make_chain(meta, draws=[tba.Draws(d.seed, "cpu", given=d.recorded) for d in rec],
                                       traces=tr_cpu)
@@ -2327,9 +2335,9 @@ def motion_mode_check(dev, stream):
         gens = tpipe.make_generators(meta["seeds"], dev)
         p = sample_params(gens, stream.cfg)
         f = tpipe.draw_fields(gens, stream.cfg, dev)
-        mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+        banks = stream._banks_for(meta["resident"])
         args = (torch.from_numpy(meta["subj"]).to(dev), torch.from_numpy(meta["u"]).to(dev))
-        core, seg = batch_program(mega, segs, hi, *args, p, f, stream.cfg, stream._lo,
+        core, seg = batch_program(*banks, *args, p, f, stream.cfg, stream._lo,
                                   chain=lambda out, seg: out.clone())
     row = tba.row_of(meta["pack"], 0)
     outs, traces = {}, {}

@@ -108,19 +108,21 @@ def build_error() -> str | None:
     return _error
 
 
-def load_labels_batch(paths: list[str], shape: tuple[int, int, int]):
+def load_labels_batch(paths: list[str], shape: tuple[int, int, int], out: np.ndarray | None = None):
     """Concurrently decode a batch of int-label NIfTIs.
 
     Returns a list of n (D, H, W) int32 arrays (Fortran-ordered views), or
     None if the native path is unavailable or any volume mismatches ``shape``
-    (callers fall back to the Python reader).
+    (callers fall back to the Python reader). ``out``: an int32 buffer of at
+    least n * prod(shape) elements to decode into (a caller that decodes
+    many batches reuses one, rather than faulting in a new one each time).
     """
     lib = get_lib()
     if lib is None:
         return None
     n = len(paths)
     stride = int(np.prod(shape))
-    out = np.empty((n, stride), dtype=np.int32)
+    out = np.empty((n, stride), dtype=np.int32) if out is None else out.reshape(-1)[: n * stride].reshape(n, stride)
     shapes = np.zeros((n, 3), dtype=np.int64)
     affines = np.zeros((n, 12), dtype=np.float32)
 

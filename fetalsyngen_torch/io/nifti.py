@@ -117,6 +117,35 @@ def _parse_header(raw: bytes) -> dict:
     }
 
 
+def _shape(hdr: dict) -> tuple[int, ...]:
+    ndim = hdr["dim"][0]
+    shape = tuple(int(s) for s in hdr["dim"][1 : 1 + ndim])
+    # Drop trailing singleton dims (common for 3D volumes stored as 4D).
+    while len(shape) > 3 and shape[-1] == 1:
+        shape = shape[:-1]
+    return shape
+
+
+def _affine(hdr: dict) -> np.ndarray:
+    if hdr["sform_code"] > 0:
+        affine = np.eye(4)
+        affine[:3, :] = hdr["srow"]
+    elif hdr["qform_code"] > 0:
+        affine = _quaternion_affine(hdr)
+    else:
+        affine = np.diag([hdr["pixdim"][1], hdr["pixdim"][2], hdr["pixdim"][3], 1.0])
+    return affine.astype(np.float64)
+
+
+def load_header(path: str | Path) -> tuple[tuple[int, ...], np.ndarray]:
+    """A volume's shape and affine, as :func:`load` gives them, from its
+    header alone (a ``.nii.gz`` is decompressed no further than the header)."""
+    path = str(path)
+    with (gzip.open(path, "rb") if path.endswith(".gz") else open(path, "rb")) as f:
+        hdr = _parse_header(f.read(348))
+    return _shape(hdr), _affine(hdr)
+
+
 def load(path: str | Path) -> NiftiImage:
     """Load a ``.nii`` / ``.nii.gz`` volume.
 
@@ -126,11 +155,7 @@ def load(path: str | Path) -> NiftiImage:
     raw = _read_bytes(path)
     hdr = _parse_header(raw)
 
-    ndim = hdr["dim"][0]
-    shape = tuple(int(s) for s in hdr["dim"][1 : 1 + ndim])
-    # Drop trailing singleton dims (common for 3D volumes stored as 4D).
-    while len(shape) > 3 and shape[-1] == 1:
-        shape = shape[:-1]
+    shape = _shape(hdr)
     dtype = _DTYPES.get(hdr["datatype"])
     if dtype is None:
         raise ValueError(f"Unsupported NIfTI datatype code {hdr['datatype']}")
@@ -148,15 +173,7 @@ def load(path: str | Path) -> NiftiImage:
             slope = 1.0
         data = data.astype(np.float32) * slope + inter
 
-    if hdr["sform_code"] > 0:
-        affine = np.eye(4)
-        affine[:3, :] = hdr["srow"]
-    elif hdr["qform_code"] > 0:
-        affine = _quaternion_affine(hdr)
-    else:
-        affine = np.diag([hdr["pixdim"][1], hdr["pixdim"][2], hdr["pixdim"][3], 1.0])
-
-    return NiftiImage(data=np.asarray(data), affine=affine.astype(np.float64))
+    return NiftiImage(data=np.asarray(data), affine=_affine(hdr))
 
 
 def _prep_save(data: np.ndarray, affine: np.ndarray | None):

@@ -28,6 +28,7 @@ import contextlib
 import heapq
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -71,29 +72,6 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
         return _SIDE_STREAMS[index]
 
 
-class _Ready:
-    """Device tensors and the point of the stream that made them: using them
-    on another stream first waits for that point and records the use, so the
-    allocator keeps their memory until the other stream is done with it."""
-
-    def __init__(self, *tensors: torch.Tensor):
-        self.tensors = tensors
-        self.stream = self.event = None
-        if tensors[0].device.type == "cuda":
-            self.stream = torch.cuda.current_stream(tensors[0].device)
-            self.event = torch.cuda.Event()
-            self.event.record(self.stream)
-
-    def get(self) -> tuple[torch.Tensor, ...]:
-        if self.event is not None:
-            cur = torch.cuda.current_stream(self.tensors[0].device)
-            if cur != self.stream:
-                cur.wait_event(self.event)
-                for t in self.tensors:
-                    t.record_stream(cur)
-        return self.tensors
-
-
 def compose_seeds(bank: torch.Tensor, choices: torch.Tensor) -> torch.Tensor:
     """Sum the seed variants chosen per meta-label from a bank (the device
     counterpart of ``ImageFromSeeds.load_seeds``).
@@ -131,20 +109,22 @@ def _take_rows(t: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int64)[rows].view(t.dtype)
 
 
-def batch_program(mega, segs, hi, subj, u, p, fields, cfg, lo: int, chain=None):
+def batch_program(banks, segs, hi, slots, subj, u, p, fields, cfg, lo: int, chain=None, attrs=None):
     """One batch (the body of the JAX stream's batch program).
 
     Args:
-        mega: (S, n_options, 4, D, H, W) int8 seed banks of the S resident
-            subjects.
-        segs: (S, D, H, W) int16 segmentations.
-        hi: (S,) int32 usable options per subject.
+        banks: (C, n_options, 4, D, H, W) int8 seed banks, one a slot
+            (:class:`SeedBankCache`'s slab).
+        segs: (C, D, H, W) int16 segmentations, one a slot.
+        hi: (C,) int32 usable options per slot.
+        slots: (S,) int64 slot of each resident subject.
         subj: (B,) int64 resident subject per element.
         u: (B, 4) f32 uniforms choosing the options (:func:`choose_options`).
         p, fields: the batch's ``GenParams`` and ``Fields``.
         cfg: the generator config; ``lo`` the lowest option index.
         chain: None, or a callable ``(image, labels) -> image`` run on the
             synthesised batch before the division (the artifact chain).
+        attrs: counts kept with the ``stream.compose`` span.
 
     The core and the chain run in the production mode
     (:func:`_production_scopes`, entered here, in the calling thread).
@@ -153,15 +133,16 @@ def batch_program(mega, segs, hi, subj, u, p, fields, cfg, lo: int, chain=None):
         (image, label): (B, D, H, W) f32 divided by each sample's peak where
         it is positive, and int32 labels.
     """
-    S, n_opt = mega.shape[:2]
-    vol = mega.shape[3:]
-    with trace.span("stream.compose", cuda=mega.is_cuda):
-        ch = choose_options(u, hi[subj], lo)
-        rows = (subj[:, None] * n_opt + ch.long()) * 4 + torch.arange(4, device=mega.device)
-        picked = _take_rows(mega.reshape(S * n_opt * 4, -1), rows)  # (B, 4, D*H*W) int8
+    C, n_opt = banks.shape[:2]
+    vol = banks.shape[3:]
+    with trace.span("stream.compose", cuda=banks.is_cuda, **(attrs or {})):
+        slot = slots[subj]
+        ch = choose_options(u, hi[slot], lo)
+        rows = (slot[:, None] * n_opt + ch.long()) * 4 + torch.arange(4, device=banks.device)
+        picked = _take_rows(banks.reshape(C * n_opt * 4, -1), rows)  # (B, 4, D*H*W) int8
         seeds = picked.sum(1, dtype=torch.int32).reshape(-1, *vol)
         del picked
-        seg = _take_rows(segs.reshape(S, -1), subj).reshape(-1, *vol).to(torch.int32)
+        seg = _take_rows(segs.reshape(C, -1), slot).reshape(-1, *vol).to(torch.int32)
     with _production_scopes():
         out, seg, _ = synth_core(p, fields, seeds, seg, cfg)
         out = out.float()
@@ -171,106 +152,335 @@ def batch_program(mega, segs, hi, subj, u, p, fields, cfg, lo: int, chain=None):
     return out / torch.where(peak > 0, peak, 1.0), seg
 
 
-def _c_int8(a: np.ndarray) -> np.ndarray:
-    """A decoded volume (Fortran-ordered, as NIfTI stores it) as a C-ordered
-    int8 array, the same values ``to_ras`` then reorients: narrowed in its
-    own order, then transposed by torch's threaded copy (numpy's transposing
-    copy is several times slower), so that ``to_ras`` copies nothing more for
-    a volume already in RAS."""
-    return torch.from_numpy(a.astype(np.int8)).contiguous().numpy()
+def _narrow_into(dst: torch.Tensor, a: np.ndarray) -> None:
+    """A decoded volume ``a`` (Fortran-ordered, as NIfTI stores it) narrowed
+    to ``dst``'s type into the flat ``dst``, in its own order: one
+    sequential pass, no transpose (:func:`_orient_into` reorients)."""
+    np.copyto(dst.numpy().reshape(a.shape[::-1]), a.T, casting="unsafe")
+
+
+def _orient_into(dst: torch.Tensor, flat: torch.Tensor, affine: np.ndarray) -> None:
+    """``nifti.to_ras`` of a volume narrowed in its own order (``flat``, on
+    ``dst``'s device), written into the (D, H, W) ``dst``: the transposing
+    copy runs where ``dst`` lives (on the card, the host's slowest step of a
+    bank's build is gone)."""
+    ornt = nifti.io_orientation(affine)
+    perm = np.argsort(ornt[:, 0])
+    flips = ornt[perm.astype(int), 1]
+    shape = [int(n) for n in np.asarray(dst.shape)[np.argsort(perm)]]  # the volume's own axes
+    t = flat.view(shape[::-1]).permute(2, 1, 0).permute(*perm.tolist())
+    dims = [d for d in range(3) if flips[d] < 0]
+    dst.copy_(t.flip(dims) if dims else t)
+
+
+# banks built at once by SeedBankCache.fill: host threads, each with a
+# staging set of its own for the fill
+FILL_THREADS = min(8, os.cpu_count() or 1)
+
+# the bank caches' counts, for tests and chip_smoke.py: banks built into a
+# slot, lookups served from the slab, banks evicted from it
+BANK_COUNTS = {"fills": 0, "hits": 0, "evictions": 0}
 
 
 class SeedBankCache:
-    """Seed banks in device memory, an LRU keyed by subject name.
+    """Seed banks in one slab of device memory, an LRU keyed by subject name.
 
-    Eviction is by a byte budget, not a subject count: a bank is
-    ``n_options * 4 * D*H*W`` int8 (~400 MB for 6 options at 256^3). The
-    banks live on ``device``: None means CUDA, which raises without a card
-    (``device="cpu"`` keeps them in host memory). On CUDA a bank is uploaded
-    through pinned host memory with a non-blocking copy on the current
-    stream; the pinned buffer is kept until that copy completes.
-    ``records[name]`` says how the bank was built: ``reader`` ("native" or
-    "python") and ``bytes``. With tracing on (:mod:`fetalsyngen_torch.trace`)
-    a build records the spans ``bank.decode``, ``bank.to_ras`` and, on
-    CUDA, ``bank.pin`` and ``bank.upload``.
+    A subject's bank, every (option, meta-label) seed volume at int8, goes
+    into a slot of one int8 slab ``(capacity, n_options, 4, D, H, W)``, and
+    its segmentation (where ``seg_paths`` names it) into the same slot of an
+    int16 slab ``(capacity, D, H, W)``; a batch gathers its rows through the
+    slots, so no bank is ever copied a second time. Both slabs are made at
+    the first bank built. ``capacity`` is the smaller of the number of
+    subjects and ``max_bytes`` over one bank's bytes (at least one); past
+    it, the least recently used bank leaves its slot to the next, except the
+    banks of the fill in progress. ``max_bytes`` defaults to half the card's
+    memory on CUDA (an H100 80GB: 39.8 GiB, 106 banks of 6 options at 256^3,
+    0.375 GiB each) and to the JAX package's 1.2 GB on the CPU; a smaller
+    ``max_bytes`` trades device memory for rebuilds where a stream rotates
+    through a cohort larger than its slots. Each subject has a slot of its
+    own, whatever its files: banks are keyed by name.
+
+    The banks live on ``device``: None means CUDA, which raises without a
+    card (``device="cpu"`` keeps them in host memory). A build decodes into
+    a staging set (a filling thread's own for the whole fill, else one for
+    the build; pinned on CUDA, through PyTorch's caching host allocator) and
+    narrows each volume in its files' order; on CUDA each volume then goes
+    to the card with a non-blocking copy on the current stream and is
+    reoriented there into its slot, the transposing copy the host would
+    take longest over. The slabs follow
+    the CUDA streams that use them: a fill or a lookup on another stream
+    than the last user's first waits for that user's work
+    (:meth:`mark_used`). ``records[name]`` says how the bank was built:
+    ``reader`` ("native" or "python") and ``bytes``. With tracing on
+    (:mod:`fetalsyngen_torch.trace`) a build records the spans
+    ``bank.decode``, ``bank.to_ras`` (the narrowing) and, on CUDA,
+    ``bank.pin`` (making or waiting for the staging set) and ``bank.upload`` (the
+    copies and the reorientation on the card); :meth:`fill` records
+    ``bank.fill`` around its builds.
     """
 
-    def __init__(self, seed_paths: dict, max_bytes: int = 1_200_000_000, device=None):
+    def __init__(self, seed_paths: dict, max_bytes: int | None = None, device=None, seg_paths: dict | None = None):
         self.seed_paths = seed_paths
-        self.max_bytes = max_bytes
+        self.seg_paths = seg_paths
         self.device = resolve_device(device)
+        if max_bytes is None:
+            max_bytes = (torch.cuda.get_device_properties(self.device).total_memory // 2
+                         if self.device.type == "cuda" else 1_200_000_000)
+        self.max_bytes = max_bytes
         self.records: dict[str, dict] = {}
-        self._cache: collections.OrderedDict[str, _Ready] = collections.OrderedDict()
+        self._cache: collections.OrderedDict[str, int] = collections.OrderedDict()  # name -> slot
         self._bytes = 0
-        self._staging: list[tuple[torch.cuda.Event, torch.Tensor]] = []
+        self.banks: torch.Tensor | None = None
+        self.segs: torch.Tensor | None = None
+        self.capacity = 0
+        self._free: list[int] = []
+        self._opts: list[int] = []  # options of the bank in each slot
+        self._option_bytes = 0  # one option's four volumes
+        self._keep: set[str] = set()  # the names of the fill in progress
+        self.filled = 0  # banks the last fill built
+        self._lock = threading.Lock()
+        self._local = threading.local()  # a filling thread's staging set (``staging``)
+        self._last_use: tuple | None = None  # (stream, event) of the slabs' last user
 
     @property
     def nbytes(self) -> int:
+        """Bytes of the banks held (each of its own options)."""
         return self._bytes
+
+    @property
+    def slab_bytes(self) -> int:
+        """Bytes of the bank slab (0 before the first bank)."""
+        return 0 if self.banks is None else self.banks.numel()
 
     def options(self, name: str) -> list[int]:
         return sorted(self.seed_paths[name].keys())
 
-    def _load_all(self, name: str) -> tuple[np.ndarray, str]:
-        """Decode every (option, meta-label) seed volume of one subject:
-        ((n_options, 4, D, H, W) int8 oriented RAS, the reader used).
+    def _load_into(self, name: str, out: torch.Tensor, raw: np.ndarray) -> tuple[str, list]:
+        """Decode every (option, meta-label) seed volume of one subject
+        through the int32 buffer ``raw`` and narrow each to int8 in its own
+        order into a row of ``out`` ((n_options * 4, D*H*W)); returns the
+        reader used and each volume's affine (:func:`_orient_into` orients).
 
         The native loader decodes all volumes at once, oriented by the first
         volume's affine; without it, or where it refuses a volume, the
         Python reader decodes each.
         """
         per_sub = self.seed_paths[name]
-        opts = self.options(name)
-        paths = [str(per_sub[n][m]) for n in opts for m in range(1, 5)]
+        paths = [str(per_sub[n][m]) for n in self.options(name) for m in range(1, 5)]
         if native.available():  # builds the library at first use
             with trace.span("bank.decode", volumes=len(paths)):
-                probe = nifti.load(paths[0])
-                raw = native.load_labels_batch(paths, probe.data.shape)
-            if raw is not None:
+                shape, affine = nifti.load_header(paths[0])
+                vols = native.load_labels_batch(paths, shape, raw)
+            if vols is not None:
                 with trace.span("bank.to_ras", volumes=len(paths)):
-                    arrs = [nifti.to_ras(_c_int8(a), probe.affine)[0] for a in raw]
-                    return np.stack(arrs).reshape(len(opts), 4, *arrs[0].shape), "native"
-        arrs = []
-        for p in paths:
+                    for dst, a in zip(out, vols):
+                        _narrow_into(dst, a)
+                return "native", [affine] * len(paths)
+        affines = []
+        for dst, path in zip(out, paths):
             with trace.span("bank.decode", volumes=1):
-                img = nifti.load(p)
+                img = nifti.load(path)
             with trace.span("bank.to_ras", volumes=1):
-                arrs.append(nifti.to_ras(_c_int8(img.data), img.affine)[0])
-        return np.stack(arrs).reshape(len(opts), 4, *arrs[0].shape), "python"
+                _narrow_into(dst, img.data)
+            affines.append(img.affine)
+        return "python", affines
 
-    def upload(self, host: np.ndarray) -> torch.Tensor:
-        """``host`` on the cache's device. On CUDA through a pinned buffer,
-        copied without blocking on the current stream; the buffer is kept
-        until the copy completes."""
-        t = torch.from_numpy(host)
-        if self.device.type == "cpu":
-            return t
-        self._staging = [(ev, buf) for ev, buf in self._staging if not ev.query()]
-        with trace.span("bank.pin", bytes=t.nbytes):
-            pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            pinned.copy_(t)
-        with trace.span("bank.upload", cuda=True, bytes=t.nbytes):
-            out = pinned.to(self.device, non_blocking=True)
-        copied = torch.cuda.Event()
-        copied.record()
-        self._staging.append((copied, pinned))
-        return out
+    def _follow(self) -> None:
+        """Order the current CUDA stream after the slabs' last user."""
+        last = self._last_use
+        if last is not None and last[0] != torch.cuda.current_stream(self.device):
+            torch.cuda.current_stream(self.device).wait_event(last[1])
+
+    def mark_used(self) -> None:
+        """Record the current CUDA stream as the slabs' last user: a fill or
+        a lookup on another stream waits for the work enqueued so far."""
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            self._last_use = (torch.cuda.current_stream(self.device), event)
+
+    def _make_slabs(self, name: str) -> None:
+        """The slabs, sized by the volumes of ``name``'s first seed file
+        (under the lock, at the first bank)."""
+        vol = tuple(nifti.load_header(str(next(iter(self.seed_paths[name][self.options(name)[0]].values()))))[0])
+        n_opt = max(len(v) for v in self.seed_paths.values())
+        self._option_bytes = 4 * int(np.prod(vol))
+        self.capacity = min(len(self.seed_paths), max(1, self.max_bytes // (n_opt * self._option_bytes)))
+        self.banks = torch.empty((self.capacity, n_opt, 4, *vol), dtype=torch.int8, device=self.device)
+        if self.seg_paths:
+            self.segs = torch.empty((self.capacity, *vol), dtype=torch.int16, device=self.device)
+        self._free = list(range(self.capacity - 1, -1, -1))
+        self._opts = [0] * self.capacity
+
+    def _too_many(self, n: int) -> RuntimeError:
+        return RuntimeError(
+            f"SeedBankCache: the {n} subjects of one fill need a slot each, but "
+            f"max_bytes={self.max_bytes} holds {self.capacity} banks of {self.banks[0].numel()} bytes; "
+            "raise max_bytes or lower mix_subjects"
+        )
+
+    def _slot(self) -> int:
+        """A slot for a new bank (under the lock): free, else the least
+        recently used bank's that is not in the fill in progress."""
+        if self._free:
+            return self._free.pop()
+        for old, slot in self._cache.items():
+            if old not in self._keep:
+                del self._cache[old]
+                self._bytes -= self._opts[slot] * self._option_bytes
+                BANK_COUNTS["evictions"] += 1
+                return slot
+        raise self._too_many(len(self._keep))
+
+    def _staged(self) -> dict:
+        """A staging set whose last copies have completed: a bank's volumes
+        (``bank``, (n_options * 4, D*H*W) int8) and a segmentation (``seg``,
+        (D*H*W,) int16) in their files' order, pinned on CUDA, and an int32
+        decode buffer (``raw``). A thread in a fill keeps its set for the
+        fill's later builds (:meth:`fill` drops it); any other build makes
+        one of its own."""
+        st = getattr(self._local, "staging", None)
+        if st is not None:
+            if st["event"] is not None:
+                st["event"].synchronize()
+            return st
+        cuda = self.device.type == "cuda"
+        V = self.banks[0, 0, 0].numel()
+        bank = torch.empty((self.banks[0].numel() // V, V), dtype=torch.int8, pin_memory=cuda)
+        st = {
+            "bank": bank,
+            "seg": None if self.segs is None else torch.empty(V, dtype=torch.int16, pin_memory=cuda),
+            "raw": np.empty(bank.numel(), np.int32),
+            "event": None,
+        }
+        if getattr(self._local, "filling", False):
+            self._local.staging = st
+        return st
+
+    def _build(self, name: str) -> int:
+        """Build ``name``'s bank (and segmentation) into a slot: decoded into
+        a staging set, then copied into the slot, on CUDA without blocking on
+        the current stream. Returns the slot; a build that fails leaves its
+        slot free."""
+        with self._lock:
+            if self.banks is None:
+                self._make_slabs(name)
+        n = len(self.options(name))
+        cuda = self.device.type == "cuda"
+        with trace.span("bank.pin", bytes=n * self._option_bytes) if cuda else contextlib.nullcontext():
+            st = self._staged()
+        bank, seg = st["bank"][: 4 * n], st["seg"]
+        reader, affines = self._load_into(name, bank, st["raw"])
+        if seg is not None:
+            with trace.span("bank.decode", volumes=1):
+                img = nifti.load(str(self.seg_paths[name]))
+            with trace.span("bank.to_ras", volumes=1):
+                _narrow_into(seg, img.data)
+            affines.append(img.affine)
+        with self._lock:
+            slot = self._slot()
+        try:
+            dsts = list(self.banks[slot, :n].flatten(0, 1)) + ([self.segs[slot]] if seg is not None else [])
+            srcs = list(bank) + ([seg] if seg is not None else [])
+            with trace.span("bank.upload", cuda=True, bytes=n * self._option_bytes) if cuda else contextlib.nullcontext():
+                # each volume to the card as it is, reoriented there
+                card = torch.empty(2 * bank.shape[1], dtype=torch.uint8, device=self.device) if cuda else None
+                for dst, src, affine in zip(dsts, srcs, affines):
+                    if cuda:
+                        src = card[: src.nbytes].view(src.dtype).copy_(src, non_blocking=True)
+                    _orient_into(dst, src, affine)
+            if cuda:
+                st["event"] = torch.cuda.Event()
+                st["event"].record()
+        except BaseException:
+            with self._lock:
+                self._free.append(slot)
+            raise
+        with self._lock:
+            self.records[name] = {"reader": reader, "bytes": n * self._option_bytes}
+            self._opts[slot] = n
+            if name in self._cache:  # built twice at once: the other slot serves
+                self._free.append(slot)
+                return self._cache[name]
+            self._cache[name] = slot
+            self._bytes += n * self._option_bytes
+            BANK_COUNTS["fills"] += 1
+        return slot
 
     def bank(self, name: str) -> torch.Tensor:
-        """The (n_options, 4, D, H, W) int8 bank of subject ``name``, ready
-        for use on the current stream."""
-        if name in self._cache:
-            self._cache.move_to_end(name)
-            return self._cache[name].get()[0]
-        host, reader = self._load_all(name)
-        arr = self.upload(host)
-        self.records[name] = {"reader": reader, "bytes": arr.numel()}
-        self._cache[name] = _Ready(arr)
-        self._bytes += arr.numel()
-        while self._bytes > self.max_bytes and len(self._cache) > 1:
-            _, evicted = self._cache.popitem(last=False)
-            self._bytes -= evicted.tensors[0].numel()  # int8: 1 byte each
-        return arr
+        """The (n_options, 4, D, H, W) int8 bank of subject ``name``, a view
+        of its slot, ready for use on the current stream; built into a slot
+        if absent."""
+        if self.device.type == "cuda":
+            self._follow()
+        with self._lock:
+            slot = self._cache.get(name)
+            if slot is not None:
+                self._cache.move_to_end(name)
+                BANK_COUNTS["hits"] += 1
+        if slot is None:
+            slot = self._build(name)
+        self.mark_used()
+        return self.banks[slot, : self._opts[slot]]
+
+    def _filling(self, name: str) -> None:
+        """:meth:`bank` of ``name`` on a fill's thread, which keeps one
+        staging set for all its builds."""
+        self._local.filling = True
+        self.bank(name)
+
+    def fill(self, names) -> int:
+        """Make the banks of ``names`` resident: the absent ones are built
+        by :meth:`bank` on up to :data:`FILL_THREADS` host threads, each
+        copying into its slot on the caller's current stream; none of
+        ``names`` is evicted meanwhile. More names than slots raise before
+        any build. Afterwards ``names`` are the most recently used, in their
+        order. Returns the number built (also kept in ``filled``)."""
+        names = list(dict.fromkeys(names))
+        with self._lock:
+            absent = [n for n in names if n not in self._cache]
+            if absent and self.banks is None:
+                self._make_slabs(absent[0])
+            if absent and len(names) > self.capacity:
+                raise self._too_many(len(names))
+            BANK_COUNTS["hits"] += len(names) - len(absent)
+            self._keep = set(names)
+        try:
+            if absent:
+                threads = min(len(absent), FILL_THREADS)
+                with trace.span("bank.fill", subjects=len(absent), threads=threads) as sp:
+                    if threads == 1:
+                        for name in absent:
+                            self._filling(name)
+                    else:
+                        stream = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+
+                        def build(name):
+                            with trace.under(sp), (torch.cuda.stream(stream) if stream is not None
+                                                   else contextlib.nullcontext()):
+                                self._filling(name)
+
+                        with ThreadPoolExecutor(threads, thread_name_prefix="fsg-bank-fill") as pool:
+                            list(pool.map(build, absent))
+                    sp.set(bytes=sum(self.records[n]["bytes"] for n in absent))
+            elif self.device.type == "cuda":
+                self._follow()
+        finally:
+            self._keep = set()
+            vars(self._local).clear()  # the caller's staging set (the pool's went with its threads)
+        with self._lock:
+            for n in names:
+                self._cache.move_to_end(n)
+        self.filled = len(absent)
+        return self.filled
+
+    def slots(self, names) -> list[int]:
+        """The slot of each of ``names`` (resident)."""
+        return [self._cache[n] for n in names]
+
+    def slot_options(self) -> list[int]:
+        """The options of the bank in each slot (0 where none)."""
+        return list(self._opts)
 
 
 class SyntheticStream:
@@ -308,7 +518,9 @@ class SyntheticStream:
         artifacts: run the generator's configured SR artifacts (default).
         mix_subjects: subjects resident at once (elements draw uniformly
             among them); the resident set rotates by one subject per batch
-            when the dataset has more.
+            when the dataset has more. The banks' slots hold up to
+            ``banks.max_bytes`` (:class:`SeedBankCache`; set it before the
+            first batch, which makes the slab).
         cube: the motion engine's static cube tiers (an int or a tuple);
             by default every tier of the motion artifact's ``tiers`` that
             the configured slice-resolution range can need
@@ -418,14 +630,12 @@ class SyntheticStream:
 
         self._rng = np.random.default_rng(seed)
         self._draws = np.random.default_rng([seed, 1])
-        self.banks = SeedBankCache(dataset.seed_paths, device=self.device)
+        seg_paths = {dataset._sub_ses_idx(i): path for i, path in enumerate(dataset.segm_paths)}
+        self.banks = SeedBankCache(dataset.seed_paths, device=self.device, seg_paths=seg_paths)
         self._names = sorted(dataset.seed_paths.keys())
-        self._segs: dict[str, _Ready] = {}
         self._i = 0
         self._lo = max(self.cfg.intensity.min_subclusters - 1, 0)
         self.mix_subjects = max(1, min(int(mix_subjects), len(self._names)))
-        self._resident: list[str] = []
-        self._mega: _Ready | None = None
         self._want: tuple[str, ...] = ()
         # (draw index, meta) of batches drawn but never yielded (their
         # iterator was closed with them in flight), a heap: drawn again, in
@@ -440,40 +650,20 @@ class SyntheticStream:
         # another iterator's batch to be generated
         self._meta_lock = threading.Lock()
 
-    def _seg(self, name: str) -> torch.Tensor:
-        if name not in self._segs:
-            idx = [self.dataset._sub_ses_idx(i) for i in range(len(self.dataset.sub_ses))].index(name)
-            seg = nifti.load_ras(str(self.dataset.segm_paths[idx])).data.astype(np.int16)
-            self._segs[name] = _Ready(self.banks.upload(seg))
-        return self._segs[name].get()[0]
-
-    def _stack_banks(self, names: list[str]):
-        """The batch program's (mega, segs, hi) for resident ``names``.
-
-        Deterministic in ``names`` (banks decode from disk), so a replay
-        rebuilds identical inputs from the resident list alone.
-        """
-        banks = [self.banks.bank(n) for n in names]
-        n_opt = max(b.shape[0] for b in banks)
-        padded = [
-            b if b.shape[0] == n_opt else torch.cat([b, b[-1:].expand(n_opt - b.shape[0], *b.shape[1:])])
-            for b in banks
-        ]
-        hi = [min(self.cfg.intensity.max_subclusters, b.shape[0]) for b in banks]
-        return (
-            torch.stack(padded),
-            torch.stack([self._seg(n) for n in names]),
-            device_const(hi, torch.int32, self.device),
-        )
-
     def _banks_for(self, resident) -> tuple:
-        """The batch program's (mega, segs, hi) for the ``resident`` names of
-        a meta, restacked only when they differ from the last batch's; host
-        I/O only on a bank cache miss."""
-        if list(resident) != self._resident:
-            self._resident = list(resident)
-            self._mega = _Ready(*self._stack_banks(self._resident))
-        return self._mega.get()
+        """The batch program's (banks, segs, hi, slots) for the ``resident``
+        names of a meta: the slabs, each slot's usable options and each
+        resident's slot, after :meth:`SeedBankCache.fill` has built the
+        absent banks (host I/O only then)."""
+        self.banks.fill(resident)
+        maxsub = self.cfg.intensity.max_subclusters
+        hi = [min(maxsub, n) for n in self.banks.slot_options()]
+        return (
+            self.banks.banks,
+            self.banks.segs,
+            device_const(hi, torch.int32, self.device),
+            device_const(self.banks.slots(resident), torch.int64, self.device),
+        )
 
     def make_chain(self, meta: dict, draws=None, traces=None):
         """The batch program's artifact chain for ``meta`` (None without
@@ -487,15 +677,20 @@ class SyntheticStream:
         pack = meta.get("pack", {})
         return lambda out, seg: apply_chain(out, seg, self.chain, pack, draws, traces)
 
-    def _run(self, meta: dict, mega, segs, hi, **chain_kw):
+    def _run(self, meta: dict, **chain_kw):
+        """The batch of ``meta`` (under the stream's lock)."""
         dev = self.device
+        banks = self._banks_for(meta["resident"])
         gens = make_generators(meta["seeds"], dev)
         p = sample_params(gens, self.cfg)
         fields = draw_fields(gens, self.cfg, dev)
         subj = device_const(meta["subj"], torch.int64, dev)
         u = device_const(meta["u"], torch.float32, dev)
-        images, labels = batch_program(mega, segs, hi, subj, u, p, fields, self.cfg, self._lo,
-                                       self.make_chain(meta, **chain_kw))
+        attrs = {"subjects": len(set(meta["resident"][int(s)] for s in meta["subj"])),
+                 "filled": self.banks.filled, "slab_bytes": self.banks.slab_bytes}
+        images, labels = batch_program(*banks, subj, u, p, fields, self.cfg, self._lo,
+                                       self.make_chain(meta, **chain_kw), attrs)
+        self.banks.mark_used()
         return {
             "image": images,
             "label": labels,
@@ -555,7 +750,7 @@ class SyntheticStream:
                 if box is not None:
                     box["index"], box["meta"] = index, meta
             sp.set(batch=index)
-            batch =self._run(meta, *self._banks_for(meta["resident"]), **chain_kw)
+            batch = self._run(meta, **chain_kw)
             if box is not None:
                 with self._meta_lock:
                     box["ran"] = True
@@ -573,7 +768,7 @@ class SyntheticStream:
                 f"{self.batch_size}; construct a stream with batch_size={B}"
             )
         with self._lock:
-            return self._run(meta, *self._stack_banks(list(meta["resident"])))
+            return self._run(meta)
 
     def replay_sample(self, meta: dict, index: int) -> dict:
         """One element of a recorded batch (see :meth:`replay_batch`)."""

@@ -35,14 +35,15 @@ def make_phantom(rng: np.random.Generator, shape=FIXTURE_SHAPE):
 
 
 def build_bids_tree(
-    root: Path, rng: np.random.Generator | None = None, shape=FIXTURE_SHAPE
+    root: Path, rng: np.random.Generator | None = None, shape=FIXTURE_SHAPE, subjects=FIXTURE_SUBJECTS
 ) -> Path:
-    """Write a complete mini-BIDS tree (images, dseg, seed derivative tree)."""
+    """Write a complete mini-BIDS tree (images, dseg, seed derivative tree)
+    of ``subjects``, each a phantom of its own."""
     from .io import nifti
 
     rng = rng or np.random.default_rng(7)
     affine = np.diag([0.5, 0.5, 0.5, 1.0])
-    for sub in FIXTURE_SUBJECTS:
+    for sub in subjects:
         anat = root / sub / "anat"
         anat.mkdir(parents=True, exist_ok=True)
         img, seg = make_phantom(rng, shape)

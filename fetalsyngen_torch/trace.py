@@ -29,7 +29,9 @@ oldest go first. The spans and the counts the port records (README,
 - ``stream.produce`` (host, CUDA): one batch of ``SyntheticStream``, its
   host draws, fields, banks and ``batch_program``; ``volumes``.
 - ``stream.join`` (host): the consumer waiting on the producer's thread.
-- ``stream.compose`` (CUDA): the batch's seed composition.
+- ``stream.compose`` (CUDA): the batch's seed composition; ``subjects``
+  (distinct subjects in the batch), ``filled`` (banks built for it) and
+  ``slab_bytes`` (the bank slab's bytes).
 - ``core.intensity``, ``core.deform``, ``core.gamma``, ``core.bias``,
   ``core.resample_noise`` (CUDA): ``synth_core``'s stages.
 - ``chain.blur_cortex``, ``chain.struct_noise``, ``chain.motion``,
@@ -38,13 +40,17 @@ oldest go first. The spans and the counts the port records (README,
   ``stacks_accepted``.
 - ``chain.sync`` (host): the chain's one device-to-host read a batch.
 - ``motion.stack`` (host): one accepted stack's acquisition and recon.
-- ``bank.decode``, ``bank.to_ras``, ``bank.pin`` (host), ``bank.upload``
-  (CUDA): a seed bank's build.
+- ``bank.fill`` (host): the banks a fill builds (``subjects``, ``bytes``,
+  ``threads``), each build's spans nested under it on its own thread.
+- ``bank.decode``, ``bank.to_ras`` (the narrowing), ``bank.pin`` (the
+  wait for a staging set) (host), ``bank.upload`` (CUDA: the copy and the
+  orientation into the slot): a seed bank's build, its segmentation's too.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import threading
 import time
@@ -162,6 +168,22 @@ def span(name: str, cuda: bool = False, **attrs):
     if not _on:
         return NULL
     return _Span(name, cuda, attrs)
+
+
+@contextlib.contextmanager
+def under(parent):
+    """Spans opened in this block on the calling thread nest under
+    ``parent``, a span open on another thread (one that hands its work to a
+    pool), and inherit its batch; nothing while ``parent`` is :data:`NULL`."""
+    if not isinstance(parent, _Span):
+        yield
+        return
+    stack = _stack()
+    stack.append(parent)
+    try:
+        yield
+    finally:
+        stack.remove(parent)
 
 
 def annotate(**attrs) -> None:

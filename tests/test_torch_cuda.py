@@ -550,13 +550,10 @@ def test_hat_variant_longest_row(dev):
 STREAM_SHAPE = (64, 64, 64)
 
 
-@pytest.fixture
-def stream_ds(dev, tmp_path):
+def _stream_dataset(dev, root):
     from fetalsyngen_torch.data.datasets import FetalSynthDataset
     from fetalsyngen_torch.generator import model as m
-    from fetalsyngen_torch.testing import build_bids_tree
 
-    root = build_bids_tree(tmp_path / "bids", shape=STREAM_SHAPE)
     labels = [0] + list(range(10, 50))
     classes = [0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50))
     gen = m.FetalSynthGen(
@@ -567,6 +564,13 @@ def stream_ds(dev, tmp_path):
         noise=m.RandNoise(0.9, 5, 15), gamma=m.RandGamma(0.9, 0.1), device=dev, seed=0,
     )
     return FetalSynthDataset(str(root), gen, str(root / "derivatives" / "seeds"))
+
+
+@pytest.fixture
+def stream_ds(dev, tmp_path):
+    from fetalsyngen_torch.testing import build_bids_tree
+
+    return _stream_dataset(dev, build_bids_tree(tmp_path / "bids", shape=STREAM_SHAPE))
 
 
 def _take(stream, n):
@@ -594,9 +598,9 @@ def test_stream_matches_cpu(stream_ds, monkeypatch):
     gens = tpipe.make_generators(meta["seeds"], stream.device)
     p = sample_params(gens, stream.cfg)
     f = tpipe.draw_fields(gens, stream.cfg, stream.device)
-    mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+    banks = stream._banks_for(meta["resident"])
     img, seg = batch_program(
-        mega.cpu(), segs.cpu(), hi.cpu(), torch.from_numpy(meta["subj"]), torch.from_numpy(meta["u"]),
+        *(t.cpu() for t in banks), torch.from_numpy(meta["subj"]), torch.from_numpy(meta["u"]),
         p.to("cpu"), f.to("cpu"), stream.cfg, stream._lo,
     )
     torch.testing.assert_close(batch["image"].cpu(), img, rtol=0, atol=1e-4)
@@ -631,6 +635,56 @@ def test_stream_launches_k1_three_times_per_batch(stream_ds, monkeypatch):
         _take(stream, 4)
         torch.cuda.synchronize()
         assert hat.LAUNCHES == {**dict.fromkeys(hat.LAUNCHES, 0), form: 12}
+
+
+COHORT = tuple(f"sub-c{i}" for i in range(6))
+
+
+@pytest.mark.parametrize("mix, budget", [(6, None), (2, 3)], ids=["all_resident", "rotation_evicts"])
+def test_cohort_slots_on_the_card(dev, tmp_path, monkeypatch, mix, budget):
+    """Six distinct phantoms at 64^3 on the card, every one resident, or two
+    at a time under a budget of three banks so that the rotation evicts:
+    the slot each element gathers holds its own subject's bank and
+    segmentation, byte for byte, and the element equals its computation
+    alone from its own seed files (B=1, f32; chip_smoke's bars)."""
+    from fetalsyngen_torch.io import nifti
+    from fetalsyngen_torch.parallel import input_pipeline as ip
+    from fetalsyngen_torch.testing import build_bids_tree
+
+    monkeypatch.setenv("FSG_STREAM_BF16", "0")
+    ds = _stream_dataset(dev, build_bids_tree(tmp_path / "cohort", np.random.default_rng(3), shape=STREAM_SHAPE,
+                                              subjects=COHORT))
+    stream = ip.SyntheticStream(ds, batch_size=3, seed=2**31 + 7, prefetch=False, mix_subjects=mix)
+    if budget is not None:
+        stream.banks.max_bytes = budget * 2 * 4 * int(np.prod(STREAM_SHAPE))
+    evictions = ip.BANK_COUNTS["evictions"]
+    batches = _take(stream, 5)
+    assert stream.banks.capacity == (budget or 6)
+    assert (ip.BANK_COUNTS["evictions"] > evictions) == (budget is not None)
+    seg_of = {ds._sub_ses_idx(i): path for i, path in enumerate(ds.segm_paths)}
+    names = set()
+    for batch in batches:
+        meta = batch["meta"]
+        banks, segs, hi, slots = stream._banks_for(meta["resident"])
+        for j in range(3):
+            name = meta["resident"][int(meta["subj"][j])]
+            names.add(name)
+            assert batch["name"][j] == name
+            slot = int(slots[int(meta["subj"][j])])
+            bank = ip.SeedBankCache({name: ds.seed_paths[name]}, device=dev).bank(name)
+            seg = torch.from_numpy(nifti.load_ras(str(seg_of[name])).data.astype(np.int32)).to(dev)
+            assert torch.equal(banks[slot], bank) and torch.equal(segs[slot].int(), seg)
+            choice = ip.choose_options(torch.from_numpy(meta["u"][j : j + 1]).to(dev),
+                                       hi[slot : slot + 1], stream._lo)[0]
+            gens = tpipe.make_generators(meta["seeds"][j : j + 1], dev)
+            with ip._production_scopes():
+                out, lab, _ = tpipe.synth_core(sample_params(gens, stream.cfg), tpipe.draw_fields(gens, stream.cfg, dev),
+                                               ip.compose_seeds(bank, choice)[None], seg[None], stream.cfg)
+            out = out.float()
+            peak = out.amax(dim=(1, 2, 3), keepdim=True)
+            torch.testing.assert_close(batch["image"][j], (out / torch.where(peak > 0, peak, 1.0))[0], rtol=0, atol=1e-4)
+            assert (batch["label"][j] != lab[0]).sum().item() <= 1e-5 * lab[0].numel()
+    assert len(names) >= 4
 
 
 def test_many_prefetching_iterators_share_one_side_stream(stream_ds):
@@ -767,11 +821,11 @@ def test_stream_artifacts_card_vs_cpu(artifact_ds, monkeypatch):
     gens = tpipe.make_generators(meta["seeds"], stream.device)
     p = sample_params(gens, stream.cfg)
     f = tpipe.draw_fields(gens, stream.cfg, stream.device)
-    mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+    banks = stream._banks_for(meta["resident"])
     args = (torch.from_numpy(meta["subj"]), torch.from_numpy(meta["u"]))
-    img, _ = batch_program(mega, segs, hi, *(a.to(stream.device) for a in args), p, f, stream.cfg, stream._lo, chain)
+    img, _ = batch_program(*banks, *(a.to(stream.device) for a in args), p, f, stream.cfg, stream._lo, chain)
     assert torch.equal(img, batch["image"])
-    _, seg = batch_program(mega.cpu(), segs.cpu(), hi.cpu(), *args, p.to("cpu"), f.to("cpu"), stream.cfg, stream._lo)
+    _, seg = batch_program(*(t.cpu() for t in banks), *args, p.to("cpu"), f.to("cpu"), stream.cfg, stream._lo)
     assert (core["seg"] != seg).sum().item() <= 1e-5 * seg.numel()
     chain_cpu = stream.make_chain(meta, draws=[tba.Draws(d.seed, "cpu", given=d.recorded) for d in rec],
                                   traces=tr_cpu)

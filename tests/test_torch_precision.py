@@ -377,9 +377,9 @@ def test_stream_batch_with_artifacts_meets_jax_bars(ds, jds):
     stream = tstream.SyntheticStream(ds, batch_size=B, seed=0, prefetch=False, genparams={"artifacts": FORCED})
     params, fields, u = _jax_draws(meta["sub"], jstream.cfg, B)
     draws = [tba.Draws(0, "cpu", given=g) for g in _jax_chain_given(meta["sub"], B, meta["pack"], jstream)]
-    mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+    banks = stream._banks_for(meta["resident"])
     chain = stream.make_chain({"pack": meta["pack"]}, draws=draws)
-    image, label = tstream.batch_program(mega, segs, hi, torch.tensor(meta["subj"]), torch.tensor(u),
+    image, label = tstream.batch_program(*banks, torch.tensor(meta["subj"]), torch.tensor(u),
                                          params_from_numpy(params), fields_from_numpy(**fields), stream.cfg,
                                          stream._lo, chain)
     assert image.dtype == torch.float32 and float(image.amax(dim=(1, 2, 3)).min()) == 1.0

@@ -8,8 +8,10 @@ whole batch is held against the JAX stream's (f32 contract,
 per-sample keys' ``GenParams`` and voxel fields, and the uniforms that
 choose the options) and must give the image within 1e-4 (values in [0, 1])
 and the same labels. The rest holds the port's stream to its own contract:
-names, replay, prefetch, the refusal without a card, and that a generator's
-SR artifacts run in the stream.
+names, replay, prefetch, the refusal without a card, that a generator's SR
+artifacts run in the stream, and a cohort served from one slab of bank
+slots: every element against its replay and its computation alone, the
+slots' LRU, the counts, the lazy slab and the spans' counts.
 """
 
 import dataclasses
@@ -33,6 +35,7 @@ from fetalsyngen_tpu.parallel import input_pipeline as jpipe
 from fetalsyngen_torch import trace
 from fetalsyngen_torch.convert import fields_from_numpy, params_from_numpy
 from fetalsyngen_torch.data.datasets import FetalSynthDataset
+from fetalsyngen_torch.generator import params as tparams
 from fetalsyngen_torch.generator import pipeline as tpipe
 from fetalsyngen_torch.generator.artifacts import quality as tq
 from fetalsyngen_torch.io import native, nifti
@@ -292,9 +295,9 @@ def test_batch_matches_jax_stream(ds, jds, monkeypatch):
     params, fields, u = _jax_draws(meta["sub"], jstream.cfg, B)
 
     stream = tstream.SyntheticStream(ds, batch_size=B, seed=0, prefetch=False, artifacts=False)
-    mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+    banks = stream._banks_for(meta["resident"])
     image, label = tstream.batch_program(
-        mega, segs, hi, torch.tensor(meta["subj"]), torch.tensor(u),
+        *banks, torch.tensor(meta["subj"]), torch.tensor(u),
         params_from_numpy(params), fields_from_numpy(**fields), stream.cfg, stream._lo,
     )
     j_image, j_label = np.asarray(jbatch["image"]), np.asarray(jbatch["label"])
@@ -530,3 +533,227 @@ def test_default_device_needs_a_card(root):
     cuda_ds = FetalSynthDataset(str(root), _Gen(), str(root / "derivatives" / "seeds"))
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         tstream.SyntheticStream(cuda_ds, batch_size=B)
+
+
+# ---------------------------------------------------------------------------
+# a cohort: one slab of slots, filled by threads, gathered through the slots
+# ---------------------------------------------------------------------------
+
+COHORT = tuple(f"sub-c{i}" for i in range(6))
+ONE_BANK = 2 * 4 * 32**3  # two options of four meta-labels at 32^3, int8
+
+
+@pytest.fixture(scope="module")
+def cohort_root(tmp_path_factory):
+    return build_bids_tree(tmp_path_factory.mktemp("cohort"), np.random.default_rng(3), shape=SHAPE, subjects=COHORT)
+
+
+def _alone(ds, stream, meta, j):
+    """Element ``j`` of a batch computed alone (B=1) from its subject's own
+    seed files: a bank of its own, ``compose_seeds``, the segmentation read
+    again, ``synth_core`` and the division by the peak."""
+    name = meta["resident"][int(meta["subj"][j])]
+    bank = tstream.SeedBankCache({name: ds.seed_paths[name]}, device="cpu").bank(name)
+    hi = torch.tensor([min(stream.cfg.intensity.max_subclusters, bank.shape[0])], dtype=torch.int32)
+    choice = tstream.choose_options(torch.from_numpy(meta["u"][j : j + 1]), hi, stream._lo)[0]
+    seeds = tstream.compose_seeds(bank, choice)[None]
+    idx = [ds._sub_ses_idx(i) for i in range(len(ds.sub_ses))].index(name)
+    seg = torch.from_numpy(nifti.load_ras(str(ds.segm_paths[idx])).data.astype(np.int32))[None]
+    gens = tpipe.make_generators(meta["seeds"][j : j + 1], "cpu")
+    out, seg, _ = tpipe.synth_core(tparams.sample_params(gens, stream.cfg), tpipe.draw_fields(gens, stream.cfg, "cpu"),
+                                   seeds, seg, stream.cfg)
+    peak = out.amax(dim=(1, 2, 3), keepdim=True)
+    return name, (out / torch.where(peak > 0, peak, 1.0))[0], seg[0]
+
+
+@pytest.mark.parametrize("setting", ["all_resident", "rotation_evicts", "one_subject"])
+def test_cohort_batches_equal_replay_and_each_element_alone(cohort_root, setting, monkeypatch):
+    """Six subjects at 32^3, f32: every subject resident; two resident at a
+    time under a budget of three banks, so the rotation evicts; one
+    subject. Every element equals ``replay_sample`` and its computation
+    alone from its subject's seeds."""
+    monkeypatch.setenv("FSG_STREAM_BF16", "0")
+    sub_list = [COHORT[4]] if setting == "one_subject" else None
+    ds = FetalSynthDataset(str(cohort_root), _port_generator(), str(cohort_root / "derivatives" / "seeds"),
+                           sub_list=sub_list)
+    mix = {"all_resident": 6, "rotation_evicts": 2, "one_subject": 1}[setting]
+    stream = tstream.SyntheticStream(ds, batch_size=3, seed=2**31 + 9, prefetch=False, mix_subjects=mix)
+    if setting == "rotation_evicts":
+        stream.banks.max_bytes = 3 * ONE_BANK
+    counts = dict(tstream.BANK_COUNTS)
+    batches = _batches(stream, 5)
+    built = tstream.BANK_COUNTS["fills"] - counts["fills"]
+    evicted = tstream.BANK_COUNTS["evictions"] - counts["evictions"]
+    capacity = {"all_resident": 6, "rotation_evicts": 3, "one_subject": 1}[setting]
+    assert stream.banks.capacity == capacity and stream.banks.banks.shape == (capacity, 2, 4, *SHAPE)
+    assert stream.banks.segs.shape == (capacity, *SHAPE) and stream.banks.segs.dtype == torch.int16
+    # the rotation's residents advance a subject a batch: 2, then one more each
+    assert built == {"all_resident": 6, "rotation_evicts": 6, "one_subject": 1}[setting]
+    assert evicted == {"all_resident": 0, "rotation_evicts": 3, "one_subject": 0}[setting]
+    for batch in batches:
+        meta = batch["meta"]
+        for j in range(3):
+            one = stream.replay_sample(meta, j)
+            assert torch.equal(one["image"], batch["image"][j]) and torch.equal(one["label"], batch["label"][j])
+            name, image, label = _alone(ds, stream, meta, j)
+            assert name == batch["name"][j] == one["name"]
+            assert torch.equal(image, batch["image"][j]) and torch.equal(label, batch["label"][j])
+
+
+def test_cohort_fill_keeps_the_lru_order_and_counts(cohort_root):
+    """The LRU order of ``_cache`` over slots: a fill makes its names the
+    most recent in their order, never evicts one of them, and the least
+    recently used leaves its slot first; a fill beyond the slots raises."""
+    ds = FetalSynthDataset(str(cohort_root), _port_generator(), str(cohort_root / "derivatives" / "seeds"))
+    cache = tstream.SeedBankCache(ds.seed_paths, max_bytes=3 * ONE_BANK, device="cpu")
+    assert cache.banks is None and cache.slab_bytes == 0  # made at the first bank
+    c0 = dict(tstream.BANK_COUNTS)
+    assert cache.fill([COHORT[2], COHORT[0], COHORT[1]]) == 3 == cache.filled
+    assert list(cache._cache) == [COHORT[2], COHORT[0], COHORT[1]] and cache.slab_bytes == 3 * ONE_BANK
+    assert not vars(cache._local)  # no staging set outlives its fill
+    assert cache.fill([COHORT[2]]) == 0
+    assert list(cache._cache) == [COHORT[0], COHORT[1], COHORT[2]]
+    slot0 = cache.slots([COHORT[0]])[0]
+    assert cache.fill([COHORT[3], COHORT[1]]) == 1  # COHORT[0] is the least recent: its slot is taken
+    assert list(cache._cache) == [COHORT[2], COHORT[3], COHORT[1]] and cache.slots([COHORT[3]]) == [slot0]
+    assert cache.nbytes == 3 * ONE_BANK
+    d = {k: tstream.BANK_COUNTS[k] - c0[k] for k in c0}
+    assert d == {"fills": 4, "hits": 2, "evictions": 1}
+    # each slot holds its subject's own bank
+    for name in cache._cache:
+        alone = tstream.SeedBankCache({name: ds.seed_paths[name]}, device="cpu").bank(name)
+        assert torch.equal(cache.banks[cache.slots([name])[0]], alone)
+    with pytest.raises(RuntimeError, match="max_bytes"):
+        cache.fill(COHORT[:4])
+
+
+def _fill_in_a_thread(cache, names):
+    """``cache.fill(names)`` on a thread of its own, joined within a minute:
+    (the exception it raised or None, whether it still runs)."""
+    out = {}
+
+    def run():
+        try:
+            cache.fill(names)
+        except Exception as e:  # noqa: BLE001 - handed to the test
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(60)
+    return out.get("error"), t.is_alive()
+
+
+def test_cohort_fill_beyond_the_slots_or_with_failed_builds_raises(cohort_root, monkeypatch):
+    """On four threads: a fill of two subjects more than the slots raises
+    before any build; a fill in which two builds fail, in the decode or
+    after taking a slot, raises their error, returns, and leaves their
+    slots free for the next fill."""
+    monkeypatch.setattr(tstream, "FILL_THREADS", 4)
+    ds = FetalSynthDataset(str(cohort_root), _port_generator(), str(cohort_root / "derivatives" / "seeds"))
+    cache = tstream.SeedBankCache(ds.seed_paths, max_bytes=3 * ONE_BANK, device="cpu")
+    fills = tstream.BANK_COUNTS["fills"]
+    error, running = _fill_in_a_thread(cache, COHORT[:5])
+    assert not running and isinstance(error, RuntimeError) and "max_bytes" in str(error)
+    assert tstream.BANK_COUNTS["fills"] == fills and cache.capacity == 3 and not cache._cache
+
+    load = cache._load_into
+    bad = {COHORT[1], COHORT[2]}
+
+    def failing(name, out, raw):
+        if name in bad:
+            raise OSError(f"corrupt seed file of {name}")
+        return load(name, out, raw)
+
+    monkeypatch.setattr(cache, "_load_into", failing)
+    error, running = _fill_in_a_thread(cache, COHORT[:3])
+    assert not running and isinstance(error, OSError) and "corrupt" in str(error)
+    assert list(cache._cache) == [COHORT[0]] and len(cache._free) == 2 and not cache._keep
+    bad.clear()
+    # builds that fail after taking their slot hand it back
+    orient = tstream._orient_into
+    monkeypatch.setattr(tstream, "_orient_into", lambda *a: (_ for _ in ()).throw(OSError("upload failed")))
+    error, running = _fill_in_a_thread(cache, COHORT[3:5])
+    assert not running and isinstance(error, OSError) and "upload" in str(error)
+    assert list(cache._cache) == [COHORT[0]] and len(cache._free) == 2
+    monkeypatch.setattr(tstream, "_orient_into", orient)
+    error, running = _fill_in_a_thread(cache, COHORT[:3])
+    assert error is None and not running
+    assert sorted(cache.slots(COHORT[:3])) == [0, 1, 2] and not cache._free
+    for name in COHORT[:3]:
+        alone = tstream.SeedBankCache({name: ds.seed_paths[name]}, device="cpu").bank(name)
+        assert torch.equal(cache.banks[cache.slots([name])[0]], alone)
+
+
+def test_a_second_stream_on_the_banks_allocates_nothing(cohort_root):
+    """The slab is made at the first bank, not with the stream: a second
+    stream that takes ``stream.banks`` (as the benchmark's worst-case
+    warm-up does) makes no slab and builds no bank."""
+    ds = FetalSynthDataset(str(cohort_root), _port_generator(), str(cohort_root / "derivatives" / "seeds"))
+    stream = tstream.SyntheticStream(ds, batch_size=2, seed=4, prefetch=False, mix_subjects=6)
+    assert stream.banks.banks is None and stream.banks.segs is None
+    first = _batches(stream, 1)[0]
+    slab = stream.banks.banks
+    second = tstream.SyntheticStream(ds, batch_size=2, seed=4, prefetch=False, mix_subjects=6)
+    own = second.banks
+    second.banks = stream.banks
+    fills = tstream.BANK_COUNTS["fills"]
+    again = _batches(second, 1)[0]
+    assert own.banks is None and own.records == {}
+    assert tstream.BANK_COUNTS["fills"] == fills and stream.banks.banks is slab
+    assert _equal(first, again)
+
+
+def test_subjects_sharing_files_take_a_slot_each(ds):
+    """Banks are keyed by subject name, not by file: an alias of a subject
+    (the same seed files) is a second bank in a second slot."""
+    paths = dict(ds.seed_paths)
+    name = sorted(paths)[0]
+    paths["sub-alias"] = paths[name]
+    cache = tstream.SeedBankCache(paths, device="cpu")
+    cache.fill([name, "sub-alias"])
+    a, b = cache.slots([name, "sub-alias"])
+    assert a != b and torch.equal(cache.banks[a], cache.banks[b])
+    assert cache.nbytes == 2 * cache.records[name]["bytes"] and cache.slab_bytes == 3 * cache.records[name]["bytes"]
+
+
+def test_compose_span_counts_the_batch(cohort_root):
+    """``stream.compose`` carries the batch's distinct subjects, the banks
+    built for it and the slab's bytes; ``bank.fill`` the fill's subjects,
+    bytes and threads, its builds nested under it."""
+    ds = FetalSynthDataset(str(cohort_root), _port_generator(), str(cohort_root / "derivatives" / "seeds"))
+    stream = tstream.SyntheticStream(ds, batch_size=4, seed=8, prefetch=False, mix_subjects=6)
+    trace.drain()
+    trace.enable()
+    try:
+        batches = _batches(stream, 2)
+    finally:
+        trace.disable()
+    recs = trace.drain()
+    compose = [r for r in recs if r["name"] == "stream.compose"]
+    want = [{"subjects": len(set(b["name"])), "filled": f, "slab_bytes": 6 * ONE_BANK}
+            for b, f in zip(batches, (6, 0))]
+    assert [r["attrs"] for r in compose] == want
+    (fill,) = [r for r in recs if r["name"] == "bank.fill"]
+    assert fill["attrs"] == {"subjects": 6, "threads": min(6, tstream.FILL_THREADS), "bytes": 6 * ONE_BANK}
+    nested = [r for r in recs if r["name"] in ("bank.decode", "bank.to_ras")]
+    assert len(nested) == 6 * 4 and all(r["parent"] == fill["id"] for r in nested)  # seeds and seg, each subject
+
+
+@pytest.mark.parametrize("perm, signs", [((0, 1, 2), (1, 1, 1)), ((2, 0, 1), (1, -1, 1)), ((1, 2, 0), (-1, -1, -1))])
+def test_narrow_then_orient_is_to_ras(perm, signs):
+    """A bank's volume narrowed in its files' order on the host, then
+    reoriented where the slab lives, equals ``nifti.to_ras`` of it, for
+    axes permuted and flipped and a volume that is not a cube."""
+    rng = np.random.default_rng(sum(perm) + signs[0])
+    a = np.asfortranarray(rng.integers(-300, 300, (5, 6, 7)).astype(np.int32))
+    affine = np.eye(4)
+    affine[:3, :3] = 0.5 * np.eye(3)[:, list(perm)] * np.asarray(signs)[None, :]
+    want = nifti.to_ras(a.astype(np.int8), affine)[0]
+    for dtype in (torch.int8, torch.int16):
+        flat = torch.empty(a.size, dtype=dtype)
+        tstream._narrow_into(flat, a)
+        dst = torch.empty(want.shape, dtype=dtype)
+        tstream._orient_into(dst, flat, affine)
+        np.testing.assert_array_equal(dst.numpy(), nifti.to_ras(a.astype(dst.numpy().dtype), affine)[0])
+    assert dst.shape == want.shape

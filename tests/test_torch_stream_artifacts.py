@@ -722,9 +722,9 @@ def test_stream_batch_matches_jax(ds, jds, monkeypatch):
     params, fields, u = _jax_draws(meta["sub"], jstream.cfg, B)
     draws = [tba.Draws(0, "cpu", given=g) for g in _jax_chain_given(meta["sub"], B, meta["pack"], jstream)]
     traces = []
-    mega, segs, hi = stream._stack_banks(list(meta["resident"]))
+    banks = stream._banks_for(meta["resident"])
     chain = stream.make_chain({"pack": meta["pack"]}, draws=draws, traces=traces)
-    image, label = tstream.batch_program(mega, segs, hi, torch.tensor(meta["subj"]), torch.tensor(u),
+    image, label = tstream.batch_program(*banks, torch.tensor(meta["subj"]), torch.tensor(u),
                                          params_from_numpy(params), fields_from_numpy(**fields), stream.cfg,
                                          stream._lo, chain)
     want = np.asarray(jbatch["image"])

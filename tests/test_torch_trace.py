@@ -136,14 +136,20 @@ def test_spans_nest_and_carry_the_draw_index(ds, tracing):
     under = {
         "stream.compose": "stream.produce", **dict.fromkeys(CORE, "stream.produce"),
         **dict.fromkeys(CHAIN, "stream.produce"), "chain.sync": "stream.produce", "motion.stack": "chain.motion",
-        "bank.decode": "stream.produce", "bank.to_ras": "stream.produce",
+        "bank.fill": "stream.produce", "bank.decode": "bank.fill", "bank.to_ras": "bank.fill",
     }
     assert {r["name"] for r in recs} == set(under) | {"stream.produce", "stream.join"}
+    fills = [r for r in recs if r["name"] == "bank.fill"]
+    # the first batch builds both subjects' banks, each on a thread of its own
+    assert len(fills) == 1 and fills[0]["attrs"]["subjects"] == fills[0]["attrs"]["threads"] == 2
+    build_threads = {r["thread"] for r in recs if r["name"] == "bank.decode"}
+    assert len(build_threads) == 2 and fills[0]["thread"] not in build_threads
     for r in recs:
         if r["name"] in under:
             parent = by_id[r["parent"]]
             assert parent["name"] == under[r["name"]], r["name"]
-            assert r["batch"] == parent["batch"] and r["thread"] == parent["thread"]
+            assert r["batch"] == parent["batch"]
+            assert r["thread"] == parent["thread"] or r["thread"] in build_threads
             assert parent["t0"] <= r["t0"] <= r["t1"] <= parent["t1"]
     for batch in ran:
         names = [r["name"] for r in sorted(recs, key=lambda r: r["t0"]) if r["batch"] == batch
