@@ -186,7 +186,16 @@ operations over 67 TFLOP/s.
     Its launches are counted where the main paths run it, five a pair warp
     in the mode's form (phases 4, 7, 11–14); the ``kernels`` line sums
     those, its ``max_abs_err`` is the image's absolute difference and
-    ``max_bf16_ulps`` the same in bf16 ulps.
+    ``max_bf16_ulps`` the same in bf16 ulps. Then the small-field pair
+    warp's mask kernels (``kernels.deform_mask``) at B=16 256^3 on the
+    generator's draws against the zoom-based composition (shift identical,
+    mask on all but 1e-6 of the voxels, image equal where the masks agree),
+    each timed (one call, fenced) against its bound and the composition;
+    the ``kernels`` line gives each its output's largest absolute difference
+    from the composition's over every voxel, and ``mask_apply`` the count
+    of mask decisions apart;
+    one launch of each a small-field pair warp on the main paths (phases 4,
+    7's ``synth_train``, 11–14), counted with the row-affine pass.
 
 Phase 3 also holds K1's form without a displacement (the probes'
 ``pair_l_nodisp`` and ``pair_u`` coefficients, and crafted half-integers)
@@ -266,7 +275,7 @@ from fetalsyngen_torch.generator.model import (
 )
 from fetalsyngen_torch.generator.params import genparams_to_dict, sample_params
 from fetalsyngen_torch.io import native, nifti
-from fetalsyngen_torch.kernels import build, hat, probes, row_affine
+from fetalsyngen_torch.kernels import build, deform_mask, hat, probes, row_affine
 from fetalsyngen_torch.ops.affine import make_affine_matrix
 from fetalsyngen_torch.ops.morphology import box_sum
 from fetalsyngen_torch.ops.numerics import device_const
@@ -319,6 +328,12 @@ KERNELS = {
     # runs on no main path: phase 16 checks it)
     "row_affine_pair_f32": ("fetalsyngen_torch/csrc/row_affine.cu", "none (einsum, fetalsyngen_tpu/ops/warp.py:854)"),
     "row_affine_pair_bf16": ("fetalsyngen_torch/csrc/row_affine.cu", "none (einsum, fetalsyngen_tpu/ops/warp.py:854)"),
+    # no Pallas kernel: the JAX package's zooms and elementwise composition
+    # of the small-field pair warp's mask and margin shift
+    "mask_shift": ("fetalsyngen_torch/csrc/deform_mask.cu",
+                   "none (zooms + composition, fetalsyngen_tpu/generator/pipeline.py:199-215)"),
+    "mask_apply": ("fetalsyngen_torch/csrc/deform_mask.cu",
+                   "none (zooms + composition, fetalsyngen_tpu/generator/pipeline.py:199-230)"),
 }
 
 
@@ -417,36 +432,42 @@ def first_bank(spans: list, nbytes: int) -> dict:
 
 
 def reset_counts() -> None:
-    for d in (hat.LAUNCHES, probes.LAUNCHES, row_affine.LAUNCHES):
+    for d in (hat.LAUNCHES, probes.LAUNCHES, row_affine.LAUNCHES, deform_mask.LAUNCHES):
         for k in d:
             d[k] = 0
 
 
 def launched() -> dict:
-    """The hat kernels' and the row-affine pass's launches by form since
-    :func:`reset_counts`."""
-    return {**hat.LAUNCHES, **row_affine.LAUNCHES}
+    """The hat kernels', the row-affine pass's and the mask kernels'
+    launches by form since :func:`reset_counts`."""
+    return {**hat.LAUNCHES, **row_affine.LAUNCHES, **deform_mask.LAUNCHES}
 
 
 def counts(**nonzero) -> dict:
     """A full :func:`launched` dict: zero but for ``nonzero``."""
-    return {**dict.fromkeys(hat.LAUNCHES, 0), **dict.fromkeys(row_affine.LAUNCHES, 0), **nonzero}
+    return {**dict.fromkeys(hat.LAUNCHES, 0), **dict.fromkeys(row_affine.LAUNCHES, 0),
+            **dict.fromkeys(deform_mask.LAUNCHES, 0), **nonzero}
 
 
-def row_affine_per_batch(launches: dict, batches: range, where: str) -> None:
-    """Raise unless the row-affine pass launched five times a batch (one
-    pair warp each) for one of the batch counts ``batches``, all in one
-    form."""
+def pair_warps_per_batch(launches: dict, batches: range, where: str) -> None:
+    """Raise unless each batch made one small-field pair warp, for one of
+    the batch counts ``batches``: five row-affine launches, all in one
+    form, and one ``mask_shift`` and one ``mask_apply``."""
     ra = {k: v for k, v in launches.items() if k in row_affine.LAUNCHES and v}
-    if len(ra) != 1 or sum(ra.values()) not in [5 * n for n in batches]:
-        raise RuntimeError(f"{where}: expected {[5 * n for n in batches]} row-affine launches of one form, got {ra}")
+    warps = sum(ra.values()) // 5
+    if len(ra) != 1 or sum(ra.values()) not in [5 * n for n in batches] or any(
+            launches[k] != warps for k in deform_mask.LAUNCHES):
+        raise RuntimeError(f"{where}: expected {[5 * n for n in batches]} row-affine launches of one form and a fifth "
+                           f"of that of each mask kernel, got {ra}, {[launches[k] for k in deform_mask.LAUNCHES]}")
 
 
-def pair_warps(n: int, k1: str = "hat_pass_pair") -> dict:
+def pair_warps(n: int, k1: str = "hat_pass_pair", mask: bool = True) -> dict:
     """The launches of ``n`` pair warps (``warp_affine_field_pair_pre``)
     whose K1 passes take the form ``k1``: three K1 passes and five
-    row-affine passes each."""
-    return {k1: 3 * n, RA_FORM[k1]: 5 * n}
+    row-affine passes each, and where ``mask`` (the small-field pair warp
+    of the generator's image and labels, margin shift on) one launch of
+    each mask kernel."""
+    return {k1: 3 * n, RA_FORM[k1]: 5 * n, **({"mask_shift": n, "mask_apply": n} if mask else {})}
 
 
 def cuda_ms(fn, n: int = 20) -> float:
@@ -1374,7 +1395,7 @@ def api_generator(device, nonlinear_transform=True, seed=0, artifacts=None):
 # intensity with the co-deformed T2w, and that without the nonlinear field
 API_CONFIGS = {
     "synth_train": (dict(seed_path=str(DATA / "derivatives" / "seeds")), True, pair_warps(1)),
-    "real_train": (dict(load_image=True, image_as_intensity=True), True, dict(**pair_warps(1), hat_pass=6)),
+    "real_train": (dict(load_image=True, image_as_intensity=True), True, dict(**pair_warps(1, mask=False), hat_pass=6)),
     "real_train_affine": (dict(load_image=True, image_as_intensity=True), False, dict(hat_pass=15)),
 }
 
@@ -1795,6 +1816,7 @@ def _drive_stream(dev, ds, prefetch, iters, mode):
         "bank_counts": dict(BANK_COUNTS),
         "k1_launches": launches[k1],
         "row_affine_launches": launches[RA_FORM[k1]],
+        "mask_launches": launches["mask_apply"],
     }
     return stream, numbers, torch.stack(digests).cpu(), b
 
@@ -1840,10 +1862,12 @@ def stream_phase(dev, tree: str, ds) -> collections.Counter:
         checked = {} if n is n_f32 else {"prefetch_bit_identical": True, "replay_bit_identical": True,
                                           "compose_seeds_equal_host": True}
         log(json.dumps({"stream": tree, **n, **checked}))
+    masks = sum(n["mask_launches"] for n in (n_on, n_off, n_f32))
     return collections.Counter({"hat_pass_pair_bf16": n_on["k1_launches"] + n_off["k1_launches"],
                                 "hat_pass_pair": n_f32["k1_launches"],
                                 "row_affine_pair_bf16": n_on["row_affine_launches"] + n_off["row_affine_launches"],
-                                "row_affine_pair_f32": n_f32["row_affine_launches"]})
+                                "row_affine_pair_f32": n_f32["row_affine_launches"],
+                                **dict.fromkeys(deform_mask.LAUNCHES, masks)})
 
 
 def stream_affine_drive(dev, root) -> collections.Counter:
@@ -2112,7 +2136,7 @@ def _drive_artifact_stream(dev, ds, prefetch, iters):
     launches = launched()
     # the batch a prefetching producer has in flight at close may be dropped
     # before its warp (the producer is slower than the core stream's)
-    row_affine_per_batch(launches, range(2 + iters, 3 + iters + (1 if prefetch else 0)), "stream with artifacts")
+    pair_warps_per_batch(launches, range(2 + iters, 3 + iters + (1 if prefetch else 0)), "stream with artifacts")
     motion = [r["attrs"] for r in spans if r["name"] == "chain.motion" and r["attrs"]]
     counted = {"transfers": tba.COUNTS["transfers"] - reads, "motion_samples": len(motion),
                "stacks_attempted": sum(a["stacks_attempted"] for a in motion),
@@ -2168,7 +2192,7 @@ def engine_batch(dev, stream, name, rs, split, coarse, check):
             batch = stream._generate()
             host_ms = 1e3 * (time.perf_counter() - t0)
         launches = launched()
-        row_affine_per_batch(launches, range(1, 2), f"stream engine {name}")
+        pair_warps_per_batch(launches, range(1, 2), f"stream engine {name}")
         peak = torch.cuda.max_memory_allocated(dev)
         pack = batch["meta"]["pack"]
         got = engine_of(pack, 0, stream)
@@ -2195,7 +2219,7 @@ def stream_forced_batch(dev, stream, check):
         with traced(spans):
             batch = stream._generate()
         launches = launched()
-        row_affine_per_batch(launches, range(1, 2), "stream forced batch")
+        pair_warps_per_batch(launches, range(1, 2), "stream forced batch")
         peak = torch.cuda.max_memory_allocated(dev)
         checked_replay(stream, batch, check, "stream forced batch")
     per = collections.defaultdict(list)
@@ -3245,6 +3269,71 @@ def row_affine_phase(dev):
     return results
 
 
+def mask_check(name, run, plain, nbytes, ops, err, differ, n=20, n_plain=5):
+    """One mask kernel's call, checked by the caller (``err`` its output's
+    largest absolute difference from the composition's over every voxel,
+    ``differ`` the mask decisions apart): kernel, fenced and plain ms
+    against the bound of ``nbytes`` and ``ops``."""
+    bound_ms, bound_by = bound(nbytes, ops)
+    ms, plain_ms = cuda_ms(run, n), cuda_ms(plain, n_plain)
+    fenced_ms = ring_profile.one_ms(run, True)
+    log(f"kernel {name}: max|d|={err:.3e} mask decisions differing={differ} kernel {ms:.4f} ms (fenced "
+        f"{fenced_ms:.4f} ms, {100 * bound_ms / fenced_ms:.1f}% of bound {bound_ms:.4f} ms, host wait "
+        f"{1e3 * (ms - fenced_ms):.1f} us) plain {plain_ms:.4f} ms bound ({bound_by}, {nbytes} bytes, {ops} operations)")
+    return dict(key=name, err=err, differ=differ, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, fenced_ms=fenced_ms)
+
+
+def mask_phase(dev):
+    """Phase 16: the mask kernels (``kernels.deform_mask``) at B=16 256^3 on
+    the benchmark's generator draws (bf16 image in the pair warp's (B, H, W,
+    D) layout) against the plain composition (``pair_mask_plain``, then
+    ``where``): shift identical, mask on all but 1e-6 of the voxels, image
+    equal where the masks agree, output contiguous; then each kernel timed
+    (one call, fenced) against its bound and the composition it replaces.
+    Bounds: ``mask_apply`` reads and writes the image (2 bytes each a voxel);
+    ``mask_shift`` reads the field alone, and per voxel and axis forms H (3
+    operations), the coordinate (3) and the min (1)."""
+    B = ROW_AFFINE_BATCH
+    cfg = bench_cfg()
+    gens = tpipe.make_generators(range(160, 160 + B), dev)
+    p = sample_params(gens, cfg)
+    f_nonlin = tpipe.draw_fields(gens, cfg, dev).nonlin
+    A = make_affine_matrix(p.rotations, p.shears, p.scalings)
+    h_s = torch.einsum("bij,bjxyz->bixyz", A, tpipe._small_field(p, f_nonlin)).contiguous()
+    size = p.size_F_small.contiguous()
+    c2 = device_const([(s - 1.0) / 2.0 for s in SHAPE], torch.float32, dev).expand(B, 3)
+    g = torch.Generator(device=dev).manual_seed(162)
+    a = (100.0 * torch.rand((B, SHAPE[1], SHAPE[2], SHAPE[0]), generator=g, device=dev) + 1.0).to(BF16)
+    a = a.permute(0, 3, 1, 2)
+    args = (h_s, size, A, c2)
+    shift_p, ok = tpipe.pair_mask_plain(*args, SHAPE, True)
+    reset_counts()
+    shift = deform_mask.mask_shift(*args, SHAPE)
+    out = deform_mask.mask_apply(a, *args, shift)
+    torch.cuda.synchronize()
+    differ = int(((out != 0) != ok).sum())
+    agree = (out != 0) == ok
+    shift_err = float((shift - shift_p).abs().max())
+    apply_err = float((out.float() - torch.where(ok, a, 0.0).float()).abs().max())
+    log(f"mask: B={B} {SHAPE} shift {shift.flatten().tolist()} (plain equal: {torch.equal(shift, shift_p)}), "
+        f"max|d| {shift_err}, mask decisions differing {differ} of {ok.numel()}, image max|d| {apply_err}, inside "
+        f"{float(ok.float().mean()):.4f}, launches {json.dumps(dict(deform_mask.LAUNCHES))}")
+    if (not torch.equal(shift, shift_p) or differ > 1e-6 * ok.numel() or not out.is_contiguous()
+            or not torch.equal(out[agree], torch.where(ok, a, 0.0)[agree])
+            or deform_mask.LAUNCHES != {"mask_shift": 1, "mask_apply": 1}):
+        raise RuntimeError(f"mask: the kernels differ from the plain composition ({differ} mask decisions)")
+    del out, agree, shift_p
+    voxels = B * SHAPE[0] * SHAPE[1] * SHAPE[2]
+    results = [
+        mask_check("mask_shift", lambda: deform_mask.mask_shift(*args, SHAPE),
+                   lambda: tpipe.pair_mask_plain(*args, SHAPE, True), h_s.numel() * 4, 21 * voxels, shift_err, 0),
+        mask_check("mask_apply", lambda: deform_mask.mask_apply(a, *args, shift), lambda: torch.where(ok, a, 0.0),
+                   4 * voxels, 33 * voxels, apply_err, differ),
+    ]
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU")
@@ -3323,6 +3412,7 @@ def main() -> int:
     log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t15:.1f} s)")
     t16 = time.perf_counter()
     checks += row_affine_phase(dev)
+    checks += mask_phase(dev)
     log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t16:.1f} s)")
     missing = [k for k in KERNELS if not launches.get(k)]
     if missing:
@@ -3343,6 +3433,7 @@ def main() -> int:
             "launches": launches[key],
             "max_abs_err": max(r["err"] for r in rs),
             **({"max_bf16_ulps": max(r["ulps"] for r in rs)} if rs[0].get("ulps") is not None else {}),
+            **({"mask_decisions_differing": max(r["differ"] for r in rs)} if "differ" in rs[0] else {}),
             "ms": mid["ms"],
             "plain_ms": mid["plain_ms"],
             "bound_ms": mid["bound_ms"],

@@ -32,6 +32,7 @@ import math
 import torch
 
 from .. import trace
+from ..kernels import deform_mask
 from ..ops.affine import centered_grid, make_affine_matrix
 from ..ops.interp import nearest_interp, trilinear_interp, zoom_coords
 from ..ops.linops import apply_separable, f32_scope, gaussian_blur_mm, interp_matrix, zoom_mm
@@ -151,14 +152,44 @@ def deformation_coords(p: GenParams, f_nonlin: torch.Tensor, cfg: GeneratorCfg):
     return tuple(out)
 
 
+def pair_mask_plain(h_s, size, A, c2, shape, margin_shift: bool):
+    """The composite OOB mask and margin shift of the small-field pair warp
+    from the zoomed A-mixed field ``H = zoom(h_s)`` (``deform_image``'s clamp
+    and ``floor(min(coord))``, ``affine_nonrigid.py:327-366``): (shift (B,
+    3), ok (B, D, H, W) bool). The plain version of ``kernels.deform_mask``,
+    taken for CPU tensors."""
+    factor = device_const(shape, torch.float32, h_s.device) / size.to(torch.float32)
+    with f32_scope():
+        Hs = [zoom_mm(h_s[:, c], shape, factor, in_shape=size) for c in range(3)]
+
+    xc, yc, zc = centered_grid(shape, h_s.device)
+    coords = []
+    for r, Hr in enumerate(Hs):
+        v = _bcast(A[:, r, 0]) * xc + _bcast(A[:, r, 1]) * yc + _bcast(A[:, r, 2]) * zc + _bcast(c2[:, r]) + Hr
+        coords.append(torch.clamp(v, 0, shape[r] - 1))
+
+    if margin_shift:
+        shift = torch.stack([torch.floor(torch.amin(c, dim=(1, 2, 3))) for c in coords], dim=1)
+    else:
+        shift = torch.zeros_like(c2)
+
+    ok = None
+    for r, c in enumerate(coords):
+        cr = c - _bcast(shift[:, r])
+        okr = (cr > 0) & (cr <= shape[r] - 1)
+        ok = okr if ok is None else ok & okr
+    return shift, ok
+
+
 def _deform_pair_small_fields(p, f_nonlin, cfg, A, c1, c2, vol_lin, vol_near):
     """Pair warp with every field combination formed on the SMALL field.
 
     The L-mixed warp displacements are upsampled straight into each hat
     pass's layout, and the A-mixed coordinate deviations ``H = A F`` give the
-    composite OOB mask and the margin shift (``deform_image``'s clamp and
-    ``floor(min(coord))``, ``affine_nonrigid.py:327-366``). Positions stay
-    f32: the upsampling runs under ``f32_scope``.
+    composite OOB mask and the margin shift: on the card the two kernels of
+    ``kernels.deform_mask`` form ``H`` on the fly from the small field, on
+    the CPU :func:`pair_mask_plain` zooms it. Positions stay f32: the
+    upsampling runs under ``f32_scope``.
     """
     shape = tuple(cfg.shape)
     dev = vol_lin.device
@@ -188,27 +219,17 @@ def _deform_pair_small_fields(p, f_nonlin, cfg, A, c1, c2, vol_lin, vol_near):
         gyT = torch.clamp(zoomP(gy_s, (0, 2, 1)), -lim, lim)
         gz = torch.clamp(zoomP(gz_s, (0, 1, 2)), -lim, lim)
         gxT = torch.clamp(zoomP(gx_s, (1, 2, 0)), -lim, lim)
-        Hx, Hy, Hz = (zoomP(h_s[:, c], (0, 1, 2)) for c in range(3))
 
-    xc, yc, zc = centered_grid(shape, dev)
-    coords = []
-    for r, Hr in enumerate((Hx, Hy, Hz)):
-        v = s4(A[:, r, 0]) * xc + s4(A[:, r, 1]) * yc + s4(A[:, r, 2]) * zc + s4(c2[:, r]) + Hr
-        coords.append(torch.clamp(v, 0, shape[r] - 1))
-
-    if cfg.deform.margin_shift:
-        shift = torch.stack([torch.floor(torch.amin(c, dim=(1, 2, 3))) for c in coords], dim=1)
+    if dev.type == "cuda":
+        field = (h_s.contiguous(), p.size_F_small.contiguous(), A.contiguous(), c2)
+        shift = deform_mask.mask_shift(*field, shape) if cfg.deform.margin_shift else torch.zeros_like(c2)
     else:
-        shift = torch.zeros_like(c2)
-
-    ok = None
-    for r, c in enumerate(coords):
-        cr = c - s4(shift[:, r])
-        okr = (cr > 0) & (cr <= shape[r] - 1)
-        ok = okr if ok is None else ok & okr
+        shift, ok = pair_mask_plain(h_s, p.size_F_small, A, c2, shape, cfg.deform.margin_shift)
 
     t = c2 - torch.einsum("bij,bj->bi", A, c1) - shift
     a, b = warp_affine_field_pair_pre(vol_lin, vol_near, A, t, gyT, gz, gxT)
+    if dev.type == "cuda":
+        return deform_mask.mask_apply(a, *field, shift), b.to(vol_near.dtype)
     return torch.where(ok, a, 0.0), b.to(vol_near.dtype)
 
 

@@ -13,7 +13,7 @@ import torch
 from fetalsyngen_torch.generator import pipeline as tpipe
 from fetalsyngen_torch.generator.config import GeneratorCfg, IntensityCfg
 from fetalsyngen_torch.generator.params import sample_params
-from fetalsyngen_torch.kernels import hat, row_affine
+from fetalsyngen_torch.kernels import deform_mask, hat, row_affine
 from fetalsyngen_torch.testing import phantom_seeds_and_seg
 
 pytestmark = pytest.mark.cuda
@@ -1569,6 +1569,120 @@ def test_row_affine_production_core_labels_match_einsum(dev, monkeypatch):
     assert len(built) == 5
     assert lab.dtype == lab_e.dtype and torch.equal(lab, lab_e)
     assert float((out.float() - out_e.float()).norm() / out_e.float().norm()) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the small-field pair warp's OOB mask and margin shift (kernels.deform_mask)
+# ---------------------------------------------------------------------------
+
+MASK_SHAPES = {"64": (64, 64, 64), "256": (256, 256, 256)}
+
+
+def _mask_inputs(dev, shape, seed, dtype, layout, B=3, buf=16):
+    """The mask's operands at B=3: per-sample size_F_small drawn from 8-16
+    on each axis into a buffer of 16 (the 256^3 generator's), affines of the
+    generator's ranges with scalings to +-15%, sample 0 a compression to 85%
+    under a field of std 0.5 (its margin shift leaves 0), the others fields
+    of std 4; c2 the centre as an expanded row; an image without zeros in
+    the pair warp's output layout ((B, H, W, D) memory) or contiguous (a
+    layout no caller gives, which the kernel reads uncoalesced)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    size = torch.randint(8, 17, (B, 3), generator=g, device=dev, dtype=torch.int32)
+    rot = (2 * torch.rand(B, 3, generator=g, device=dev) - 1) * (20.0 / 180.0 * np.pi)
+    sh = (2 * torch.rand(B, 3, generator=g, device=dev) - 1) * 0.02
+    sc = 1 + (2 * torch.rand(B, 3, generator=g, device=dev) - 1) * 0.15
+    rot[0], sc[0] = 0.0, 0.85
+    from fetalsyngen_torch.ops.affine import make_affine_matrix
+
+    A = make_affine_matrix(rot, sh, sc)
+    std = torch.tensor([0.5] + [4.0] * (B - 1), device=dev).view(B, 1, 1, 1, 1)
+    h_s = torch.einsum("bij,bjxyz->bixyz", A, std * torch.randn(B, 3, buf, buf, buf, generator=g, device=dev))
+    c2 = torch.tensor([(s - 1) / 2.0 for s in shape], device=dev).expand(B, 3)
+    a = (1.0 + torch.rand((B, shape[1], shape[2], shape[0]), generator=g, device=dev)).to(dtype)
+    a = a.permute(0, 3, 1, 2) if layout == "warp" else a.permute(0, 3, 1, 2).contiguous()
+    return h_s, size, A, c2, a
+
+
+@pytest.mark.parametrize("layout", ["warp", "contiguous"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("margin", [True, False], ids=["shift", "noshift"])
+@pytest.mark.parametrize("shape", sorted(MASK_SHAPES))
+def test_deform_mask_kernels_match_plain(dev, shape, margin, dtype, layout):
+    """``mask_shift`` and ``mask_apply`` against the zoom-based composition
+    (``pipeline.pair_mask_plain`` and ``where``) on the card at B=3: the
+    shift identical, the mask on all but 1e-6 of the voxels, the image
+    equal wherever the masks agree, the output contiguous; one launch of
+    each kernel (``mask_shift`` none without the margin shift)."""
+    shape = MASK_SHAPES[shape]
+    h_s, size, A, c2, a = _mask_inputs(dev, shape, 70 + shape[0] + margin, dtype, layout)
+    shift_p, ok = tpipe.pair_mask_plain(h_s, size, A, c2, shape, margin)
+    before = dict(deform_mask.LAUNCHES)
+    shift = deform_mask.mask_shift(h_s, size, A, c2, shape) if margin else torch.zeros_like(c2)
+    out = deform_mask.mask_apply(a, h_s, size, A, c2, shift)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in deform_mask.LAUNCHES.items()} == {"mask_shift": int(margin), "mask_apply": 1}
+    assert torch.equal(shift, shift_p)
+    if margin:
+        assert bool((shift[0] > 0).all()) and bool((shift[1:] == 0).any())
+    ok_k = out != 0
+    assert int((ok_k != ok).sum()) <= 1e-6 * ok.numel()
+    assert 0 < int(ok.sum()) < ok.numel()
+    assert out.is_contiguous() and out.dtype == dtype and out.shape == a.shape
+    plain = torch.where(ok, a, 0.0)
+    agree = ok_k == ok
+    assert torch.equal(out[agree], plain[agree])
+
+
+@pytest.mark.parametrize("mode", ["production", "f32"])
+@pytest.mark.parametrize("flip", [False, True], ids=["noflip", "flip"])
+@pytest.mark.parametrize("margin", [True, False], ids=["shift", "noshift"])
+def test_deform_mask_pair_warp_card(dev, monkeypatch, margin, flip, mode):
+    """``deform_stage`` at B=3 256^3 on the card, size_F_small drawn from
+    8-16 on each axis, in the production mode (a bf16 image) and in f32:
+    one ``mask_shift`` (none without the margin shift) and one
+    ``mask_apply`` a pair warp; against the same batch with the zoom-based
+    composition in their place, the shift identical, the labels
+    bit-identical, the image different on at most 1e-6 of the voxels (where
+    a mask decision differs); the masked image contiguous."""
+    from fetalsyngen_torch.generator.config import DeformCfg
+    from fetalsyngen_torch.parallel.input_pipeline import _production_scopes
+
+    shape = (256, 256, 256)
+    cfg = GeneratorCfg(shape=shape, resolution=(0.5, 0.5, 0.5), intensity=IntensityCfg(
+        1, 6, tuple([0] + list(range(10, 50))), tuple([0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50)))),
+        deform=DeformCfg(size=shape, margin_shift=margin))
+    seeds, seg = phantom_seeds_and_seg(shape, seed=3)
+    seeds = torch.from_numpy(np.stack([seeds] * 3).astype(np.int32)).to(dev)
+    segs = torch.from_numpy(np.stack([seg] * 3).astype(np.int32)).to(dev)
+    gens = tpipe.make_generators([21, 22, 23], dev)
+    size = np.random.default_rng(24).integers(8, 17, (3, 3))
+    p = sample_params(gens, cfg, {"deform_apply": True, "flip": flip, "size_F_small": size})
+    f = tpipe.draw_fields(gens, cfg, dev)
+    shifts, applied = [], []
+    kernel_shift, kernel_apply = deform_mask.mask_shift, deform_mask.mask_apply
+    monkeypatch.setattr(deform_mask, "mask_shift", lambda *a: shifts.append(kernel_shift(*a)) or shifts[-1])
+    monkeypatch.setattr(deform_mask, "mask_apply", lambda *a: applied.append(kernel_apply(*a)) or applied[-1])
+    scope = _production_scopes if mode == "production" else __import__("contextlib").nullcontext
+    with scope():
+        out0 = tpipe.intensity_stage(seeds, p, f.intensity)
+        before = dict(deform_mask.LAUNCHES)
+        out, lab, _ = tpipe.deform_stage(p, f.nonlin, cfg, out0, segs)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in deform_mask.LAUNCHES.items()} == {
+            "mask_shift": int(margin), "mask_apply": 1}
+        monkeypatch.setattr(deform_mask, "mask_shift", lambda h_s, size, A, c2, shape: shifts.append(
+            tpipe.pair_mask_plain(h_s, size, A, c2, shape, True)[0]) or shifts[-1])
+        monkeypatch.setattr(deform_mask, "mask_apply", lambda a, h_s, size, A, c2, shift: torch.where(
+            tpipe.pair_mask_plain(h_s, size, A, c2, tuple(a.shape[1:]), margin)[1], a, 0.0))
+        out_p, lab_p, _ = tpipe.deform_stage(p, f.nonlin, cfg, out0, segs)
+        torch.cuda.synchronize()
+    if margin:
+        assert len(shifts) == 2 and torch.equal(shifts[0], shifts[1])
+    assert len(applied) == 1 and applied[0].is_contiguous()
+    assert applied[0].dtype == (torch.bfloat16 if mode == "production" else torch.float32)
+    assert out.dtype == out_p.dtype
+    assert lab.dtype == lab_p.dtype and torch.equal(lab, lab_p)
+    assert int((out != out_p).sum()) <= 1e-6 * out.numel()
 
 
 # ---------------------------------------------------------------------------

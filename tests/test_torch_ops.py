@@ -17,8 +17,11 @@ from fetalsyngen_tpu.ops import interp as jinterp
 from fetalsyngen_tpu.ops import linops as jlinops
 from fetalsyngen_tpu.ops import numerics as jnumerics
 from fetalsyngen_tpu.ops import warp as jwarp
-from fetalsyngen_torch.kernels import row_affine
+from fetalsyngen_torch.generator import pipeline as tpipe
+from fetalsyngen_torch.generator.config import DeformCfg, GeneratorCfg, IntensityCfg
+from fetalsyngen_torch.kernels import deform_mask, row_affine
 from fetalsyngen_torch.ops import affine, interp, linops, numerics, warp
+from fetalsyngen_torch.testing import phantom_seeds_and_seg
 
 RTOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -386,3 +389,156 @@ def test_trilinear_and_nearest_interp():
         np.testing.assert_allclose(lin[b].numpy(), np.asarray(ref_lin), **RTOL)
         ref_near = jinterp.nearest_interp(jnp.asarray(lab[b]), *args)
         np.testing.assert_array_equal(near[b].numpy(), np.asarray(ref_near))
+
+
+# ---------------------------------------------------------------------------
+# the small-field pair warp's OOB mask and margin shift (kernels.deform_mask)
+# ---------------------------------------------------------------------------
+
+# per-sample size_F_small of a (B=3) batch: the 256^3 generator's range on
+# each axis (8-16), and the 32^3 one's (1-3: one entry per operator row)
+MASK_SIZES = {"8-16": [[8, 12, 16], [16, 9, 13], [11, 16, 8]], "1-3": [[1, 2, 3], [2, 2, 1], [3, 1, 2]]}
+
+
+def _mask_case(shape, seed, sizes, dtype, buf=17):
+    """The mask's operands as the pair warp forms them, for a batch of three:
+    ``h_s = A F_small`` of a (3, 3, buf, buf, buf) field, affines of the
+    generator's ranges with scalings to +-15%, but sample 0 a compression to
+    85% with a field of std 0.5 (its margin shift leaves 0) and the others
+    fields of std 4; c2 the centre as an expanded row; and a phantom
+    image of ``dtype`` in the pair warp's output layout, (B, D, H, W) over
+    (B, H, W, D) memory."""
+    g = torch.Generator().manual_seed(seed)
+    B = len(sizes)
+    rot = (2 * torch.rand(B, 3, generator=g) - 1) * (20.0 / 180.0 * np.pi)
+    sh = (2 * torch.rand(B, 3, generator=g) - 1) * 0.02
+    sc = 1 + (2 * torch.rand(B, 3, generator=g) - 1) * 0.15
+    rot[0], sc[0] = 0.0, 0.85
+    A = affine.make_affine_matrix(rot, sh, sc)
+    std = torch.tensor([0.5] + [4.0] * (B - 1)).view(B, 1, 1, 1, 1)
+    h_s = torch.einsum("bij,bjxyz->bixyz", A, std * torch.randn(B, 3, buf, buf, buf, generator=g))
+    c2 = torch.tensor([(s - 1) / 2.0 for s in shape]).expand(B, 3)
+    seeds, _ = phantom_seeds_and_seg(shape, seed=seed)
+    img = torch.stack([torch.from_numpy(seeds.astype(np.float32)) * (1.0 + b) + 1.0 for b in range(B)])
+    a = img.to(dtype).permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    return h_s, torch.tensor(sizes, dtype=torch.int32), A, c2, a
+
+
+def _fma(w1, x1, w0, x0):
+    """fma(w1, x1, w0 * x0) in f32: the exact product plus the rounded one,
+    rounded once (through f64, whose sum of the two is exact here)."""
+    return (w1.double() * x1.double() + (w0 * x0).double()).float()
+
+
+def _mask_taps(S, n, nbuf):
+    """``csrc/deform_mask.cu``'s ``zoom_tap`` for every output index along an
+    axis of S from (B,) logical extents ``n``: (B, S) taps z0, z1 (clamped
+    into the buffer) and weights 1 - w, w."""
+    nf = n.to(torch.float32)[:, None]
+    factor = torch.tensor(float(S)) / nf
+    delta = (1.0 - factor) / (2.0 * factor)
+    coord = delta + torch.arange(S, dtype=torch.float32)[None] / factor
+    hi = nf - 1.0
+    c = torch.minimum(torch.maximum(coord, torch.zeros(())), hi)
+    f = torch.minimum(torch.maximum(torch.floor(c), torch.zeros(())), hi - 1.0)
+    w = c - f
+    fi = f.long()
+    return fi.clamp(0, nbuf - 1), (fi + 1).clamp(0, nbuf - 1), 1.0 - w, w
+
+
+def _mask_model(h_s, size, A, c2, shape, margin_shift, a):
+    """The two kernels modelled on the CPU: per sample the zoom of ``h_s``
+    formed separably, two taps an axis in the order axis 0, 1, 2 as
+    fma(w, x[f + 1], (1 - w) x[f]); ``v_r = (((A_r0 x + A_r1 y) + A_r2 z) +
+    c2_r) + H_r``; the shift the floor of the clamped min, the mask of the
+    clamped coordinates less it, and ``a`` zeroed outside it, written
+    contiguous. Returns (shift, ok, out)."""
+    B = h_s.shape[0]
+    taps = [_mask_taps(shape[ax], size[:, ax], h_s.shape[2 + ax]) for ax in range(3)]
+    grid = [torch.arange(s, dtype=torch.float32) - (s - 1) / 2.0 for s in shape]
+    x, y, z = grid[0].view(-1, 1, 1), grid[1].view(1, -1, 1), grid[2].view(1, 1, -1)
+    shift = torch.zeros(B, 3)
+    ok = torch.ones((B, *shape), dtype=torch.bool)
+    for b in range(B):
+        (x0, x1, xw0, xw1), (y0, y1, yw0, yw1), (z0, z1, zw0, zw1) = ([t[b] for t in tp] for tp in taps)
+        t0 = _fma(xw1.view(1, -1, 1, 1), h_s[b][:, x1], xw0.view(1, -1, 1, 1), h_s[b][:, x0])
+        t1 = _fma(yw1.view(1, 1, -1, 1), t0[:, :, y1], yw0.view(1, 1, -1, 1), t0[:, :, y0])
+        H = _fma(zw1, t1[..., z1], zw0, t1[..., z0])
+        cs = []
+        for r in range(3):
+            v = ((A[b, r, 0] * x + A[b, r, 1] * y) + A[b, r, 2] * z + c2[b, r]) + H[r]
+            last = float(shape[r] - 1)
+            if margin_shift:
+                shift[b, r] = torch.floor(torch.clamp(v.amin(), 0.0, last))
+            cs.append(torch.clamp(v, 0.0, last))
+        for r, c in enumerate(cs):
+            cr = c - shift[b, r]
+            ok[b] &= (cr > 0) & (cr <= shape[r] - 1)
+    out = torch.zeros(a.shape, dtype=a.dtype)
+    out[ok] = a[ok]
+    return shift, ok, out
+
+
+@pytest.mark.parametrize("sizes", sorted(MASK_SIZES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("margin", [True, False], ids=["shift", "noshift"])
+@pytest.mark.parametrize("shape", [(32, 32, 32), (48, 40, 36)], ids=["32", "48x40x36"])
+def test_deform_mask_kernel_model_matches_plain(shape, margin, dtype, sizes):
+    """The mask kernels' arithmetic (the zoom of the small field formed on
+    the fly, two taps an axis; the coordinates' association; the shift's
+    clamped min; the mask; the masked image written contiguous) against
+    the zoom-based composition ``pipeline.pair_mask_plain``: the shift
+    identical, the mask on all but 1e-6 of the voxels, the image equal
+    wherever the masks agree."""
+    h_s, size, A, c2, a = _mask_case(shape, len(shape) + shape[0] + len(sizes), MASK_SIZES[sizes], dtype)
+    shift, ok = tpipe.pair_mask_plain(h_s, size, A, c2, shape, margin)
+    plain = torch.where(ok, a, 0.0)
+    m_shift, m_ok, m_out = _mask_model(h_s, size, A, c2, shape, margin, a)
+    assert torch.equal(m_shift, shift)
+    if margin:
+        assert bool((shift[0] > 0).all()) and bool((shift[1:] == 0).any())
+    assert int((m_ok != ok).sum()) <= 1e-6 * ok.numel()
+    assert 0 < int(ok.sum()) < ok.numel()
+    agree = m_ok == ok
+    assert m_out.is_contiguous() and m_out.dtype == plain.dtype == a.dtype
+    assert torch.equal(m_out[agree], plain[agree])
+
+
+@pytest.mark.parametrize("flip", [False, True], ids=["noflip", "flip"])
+@pytest.mark.parametrize("margin", [True, False], ids=["shift", "noshift"])
+def test_deform_mask_not_taken_on_the_cpu(monkeypatch, margin, flip):
+    """``synth_core`` on CPU tensors runs the plain composition: the mask
+    kernels are neither loaded nor counted; and the small-field pair warp's
+    image equals ``pair_mask_plain``'s mask applied to the same warp's
+    output, its labels that output's."""
+    shape = (32, 32, 32)
+    cfg = GeneratorCfg(shape=shape, resolution=(0.5, 0.5, 0.5),
+                       intensity=IntensityCfg(1, 6, tuple([0] + list(range(10, 50))),
+                                              tuple([0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50)))),
+                       deform=DeformCfg(size=shape, margin_shift=margin))
+    monkeypatch.setattr(deform_mask, "_kernels", lambda: pytest.fail("the CPU path loaded the mask kernels"))
+    before = dict(deform_mask.LAUNCHES)
+    seeds, seg = phantom_seeds_and_seg(shape, seed=4)
+    seeds = torch.from_numpy(np.stack([seeds, seeds]).astype(np.int32))
+    segs = torch.from_numpy(np.stack([seg, seg]).astype(np.int32))
+    gens = tpipe.make_generators([11, 12], "cpu")
+    p = tpipe.sample_params(gens, cfg, {"deform_apply": True, "flip": flip})
+    f = tpipe.draw_fields(gens, cfg, "cpu")
+    out, lab, _ = tpipe.synth_core(p, f, seeds, segs, cfg, stages=tpipe.STAGES_GENERATE)
+    assert deform_mask.LAUNCHES == before
+    assert out.shape == (2, *shape) and bool(torch.isfinite(out).all())
+    assert set(torch.unique(lab).tolist()) <= set(np.unique(seg).tolist())
+
+    warped = []
+    pair_warp = tpipe.warp_affine_field_pair_pre
+    monkeypatch.setattr(tpipe, "warp_affine_field_pair_pre", lambda *a: warped.append(pair_warp(*a)) or warped[-1])
+    A = affine.make_affine_matrix(p.rotations, p.shears, p.scalings)
+    c = torch.tensor([(s - 1) / 2.0 for s in shape]).expand(2, 3)
+    img = 1.0 + seeds.to(torch.float32)
+    got_a, got_b = tpipe._deform_pair_small_fields(p, f.nonlin, cfg, A, c, c, img, segs)
+    assert deform_mask.LAUNCHES == before and len(warped) == 1
+    h_s = torch.einsum("bij,bjxyz->bixyz", A, tpipe._small_field(p, f.nonlin))
+    _, ok = tpipe.pair_mask_plain(h_s, p.size_F_small, A, c, shape, margin)
+    assert 0 < int(ok.sum()) < ok.numel()
+    assert torch.equal(got_a, torch.where(ok, warped[0][0], 0.0))
+    assert torch.equal(got_b, warped[0][1].to(segs.dtype))
